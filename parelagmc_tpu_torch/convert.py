@@ -1,0 +1,75 @@
+"""Converters from the JAX package's operator objects to the port's.
+
+Duck-typed: they read the JAX objects' fields and call np.asarray on their
+arrays, so this module imports no jax. The tests use them to hold the
+port's own build functions against the reference's arrays, and to run both
+packages on identical operators.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from parelagmc_tpu_torch.ops.mass_solve import AxisTables, MassTridiagSolver
+from parelagmc_tpu_torch.ops.tensorsolve import TensorEig
+from parelagmc_tpu_torch.physics.darcy import DarcyLevel
+
+
+def _t(x, dtype, device):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def tensor_eig_from_jax(eig, dtype=torch.float64, device=None) -> TensorEig:
+    """parelagmc_tpu.ops.tensorsolve.TensorEig -> port TensorEig."""
+    return TensorEig(
+        V=[_t(v, dtype, device) for v in eig.V],
+        lam=_t(eig.lam, dtype, device),
+        w_sqrt=_t(eig.w_sqrt, dtype, device),
+        shape=tuple(eig.shape),
+    )
+
+
+def mass_solver_from_jax(ms, dtype=torch.float64, device=None) -> MassTridiagSolver:
+    """parelagmc_tpu.ops.mass_solve.MassTridiagSolver -> port solver. The
+    reference holds each axis with the solved axis LAST (perm_cell =
+    other dims + (axis,)); the port holds it FIRST, so the last array axis
+    moves to the front."""
+    axes = []
+    for ax in ms.axes:
+        if tuple(ax.perm_face) != tuple(ax.perm_cell):
+            raise ValueError("perm_face != perm_cell is not supported")
+        first = lambda x: np.moveaxis(np.asarray(x), -1, 0)
+        perm = (ax.perm_cell[-1],) + tuple(ax.perm_cell[:-1])
+        axes.append(
+            AxisTables(
+                m_lo=_t(first(ax.m_lo), dtype, device),
+                m_mid=_t(first(ax.m_mid), dtype, device),
+                m_hi=_t(first(ax.m_hi), dtype, device),
+                ess=_t(first(ax.ess), torch.bool, device),
+                n_a=ax.n_a,
+                perm=perm,
+            )
+        )
+    return MassTridiagSolver(axes, tuple(ms.shape), tuple(ms.face_offsets), ms.n_u)
+
+
+def darcy_level_from_jax(L, dtype=torch.float64, device=None) -> DarcyLevel:
+    """parelagmc_tpu.physics.darcy.DarcyLevel (tensor mesh, cg-schur data)
+    -> port DarcyLevel."""
+    if L.b_struct is None:
+        raise ValueError("only tensor-mesh levels (b_struct set) convert")
+    if L.kinv_logmean != 0.0 or L.kinv_cell is not None:
+        raise ValueError("levels with a static kinv_ref are not ported")
+    shape, offs, masks = L.b_struct
+    return DarcyLevel(
+        n_u=L.n_u,
+        n_s=L.n_s,
+        rhs=_t(L.rhs, dtype, device),
+        obs_func=_t(L.obs_func, dtype, device),
+        schur=tensor_eig_from_jax(L.schur, dtype, device),
+        mass_solver=mass_solver_from_jax(L.mass_solver, dtype, device),
+        shape=shape,
+        face_offsets=offs,
+        b_masks=[_t(m, dtype, device) for m in masks],
+    )

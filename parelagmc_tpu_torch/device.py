@@ -1,0 +1,39 @@
+"""Device and dtype helpers.
+
+The port takes an explicit `device` everywhere; nothing picks a card
+implicitly, so a run that asked for "cuda" either runs there or fails.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
+
+
+def torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    """ProblemConfig.dtype name (or a torch dtype) -> torch dtype. The
+    solver path runs in float32 or float64; bfloat16 is not ported."""
+    if isinstance(dtype, torch.dtype):
+        if dtype not in _DTYPES.values():
+            raise NotImplementedError(f"dtype {dtype} is not supported by the port")
+        return dtype
+    if dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype {dtype!r} is not supported by the port (float32/float64)"
+        )
+    return _DTYPES[dtype]
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """Normalize a device argument. None means the CPU; a CUDA device that
+    is not available raises instead of silently running elsewhere."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev

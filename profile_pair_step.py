@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Where the time of the port's MLMC pair step goes, on one CUDA card.
+
+Run from the root of a checkout:  python3 profile_pair_step.py [--out FILE]
+
+Two configurations, the two pair steps chip_smoke.py times:
+  bench  golden levels 0/1 with bench.py's settings: batch 512, float32,
+         rtol 1e-4, 50 iterations, local Schur scaling;
+  64^3   refinements=4 (64^3 against 32^3), batch 64, float64, local
+         scaling, capped at 100 iterations per solve (a full solve takes
+         600-1000; the cap keeps the profile short, and the per-iteration
+         cost is what the split measures).
+
+For each it measures the layers of one pair step:
+  noise          SPDESampler.sample of the level-0 noise (K2)
+  sampler_solve  SPDESampler.eval on the fine and the coarse level
+  coarse_solve   DarcySolver.solve_fwd on the coarse level
+  fine_solve     DarcySolver.solve_fwd_warm on the fine level
+  minv_apply     one M(w)^{-1} apply on the fine level (three K1 solves)
+  pair_step      the whole step
+and for each layer: host wall ms per call (synchronized, no profiler),
+event ms per call (CUDA events around back-to-back calls, no profiler: an
+upper bound on device time, idle gaps included), device ms per call
+(torch.profiler, the sum of the kernels' times; a lower bound if the
+profiler drops events), kernels per call, and busy = device / wall
+(1 - busy is the device's idle share).
+For the whole step it also splits device time by the operator that
+launched each kernel. One line per layer on stdout; the whole report as
+JSON to --out. Exits non-zero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PROFILER_ATTEMPTS = 3  # sessions tried before a layer is reported without device time
+
+
+def measure(fn, reps: int):
+    """(row, key_averages) for fn: wall ms (median of reps synchronized
+    calls), event ms, device ms, kernels per call, busy share. A profiler session
+    that records no device event at all is run again, up to
+    PROFILER_ATTEMPTS sessions; if none records any, the device fields are None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = sorted(walls)[len(walls) // 2]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    row = {"wall_ms": wall, "event_ms": start.elapsed_time(end) / reps, "device_ms": None,
+           "busy": None, "kernels": None, "profiler_sessions": 0}
+    for _ in range(PROFILER_ATTEMPTS):
+        row["profiler_sessions"] += 1
+        # One discarded warm-up step before the recorded one: without it the
+        # first device events of a session can be lost.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ka = prof.key_averages()
+        kern = [e for e in ka if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        device = sum(e.self_device_time_total for e in kern) / 1e3 / reps
+        if device > 0.0:
+            row.update(device_ms=device, busy=device / wall,
+                       kernels=sum(e.count for e in kern) / reps)
+            break
+        print("profile_pair_step: a profiler session recorded no device event",
+              file=sys.stderr, flush=True)
+    return row, ka
+
+
+def device_split(ka, reps: int) -> dict:
+    """Device ms per call by the aten operator that launched each kernel;
+    the port's own kernels (launched outside aten) by kernel name."""
+    from torch.autograd import DeviceType
+
+    split = {}
+    for e in ka:
+        if e.device_type == DeviceType.CPU and e.key.startswith("aten::") \
+                and e.self_device_time_total > 0:
+            split[e.key] = e.self_device_time_total / 1e3 / reps
+        elif e.device_type == DeviceType.CUDA:
+            for tag in ("thomas_kernel", "threefry_kernel"):
+                if tag in e.key:
+                    split[tag] = split.get(tag, 0.0) + e.self_device_time_total / 1e3 / reps
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def profile_config(label: str, prob, batch: int, reps: int, gpu: str) -> dict:
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+
+    sampler, solver = prob.sampler, prob.solver
+    key = fold_in(PRNGKey(0), 7)
+    xi = sampler.sample(0, key, batch)
+    s_f = sampler.eval(0, xi)
+    s_c = sampler.eval(1, xi, xi_level=0)
+    _, _, info_c, p_c = solver.solve_fwd(1, s_c, return_pressure=True)
+    _, _, info_f = solver.solve_fwd_warm(0, s_f, p_c)
+    L0 = solver.levels[0]
+    fac = L0.mass_solver.factor(s_f)
+    u = s_f.new_ones(batch, L0.n_u)
+
+    def pair_step():
+        x = sampler.sample(0, key, batch)
+        solver.solve_fwd_pair(0, sampler.eval(0, x), sampler.eval(1, x, xi_level=0))
+
+    layers = {
+        "noise": lambda: sampler.sample(0, key, batch),
+        "sampler_solve": lambda: (sampler.eval(0, xi), sampler.eval(1, xi, xi_level=0)),
+        "coarse_solve": lambda: solver.solve_fwd(1, s_c, return_pressure=True),
+        "fine_solve": lambda: solver.solve_fwd_warm(0, s_f, p_c),
+        "minv_apply": lambda: L0.mass_solver.apply_factored(fac, u),
+        "pair_step": pair_step,
+    }
+    out = {"config": label, "batch": batch, "card": gpu,
+           "iterations": {"coarse": int(info_c.iterations), "fine": int(info_f.iterations)},
+           "layers": {}}
+    cheap = ("noise", "sampler_solve", "minv_apply")
+    for name, fn in layers.items():
+        # A profiler session can lose a few device events; the cheap layers
+        # run ten times as often so that a loss stays a small share.
+        row, ka = measure(fn, 10 * reps if name in cheap else reps)
+        out["layers"][name] = row
+        if row["device_ms"] is None:
+            print(f"{label} {name}: wall {row['wall_ms']:.3f} ms device not recorded in "
+                  f"{row['profiler_sessions']} profiler sessions [{gpu}]", flush=True)
+            continue
+        print(f"{label} {name}: wall {row['wall_ms']:.3f} ms events {row['event_ms']:.3f} ms "
+              f"device {row['device_ms']:.3f} ms "
+              f"busy {100 * row['busy']:.1f}% kernels {row['kernels']:.0f} "
+              f"(profiler sessions {row['profiler_sessions']}) [{gpu}]", flush=True)
+        if name == "pair_step":
+            out["pair_step_device_split_ms"] = device_split(ka, reps)
+    it = out["iterations"]
+    for name in ("coarse", "fine"):
+        row = out["layers"][f"{name}_solve"]
+        if row["device_ms"] is not None:
+            row["device_ms_per_iteration"] = row["device_ms"] / max(it[name], 1)
+            row["kernels_per_iteration"] = row["kernels"] / max(it[name], 1)
+    split = out.get("pair_step_device_split_ms")
+    if split:
+        total = out["layers"]["pair_step"]["device_ms"]
+        print(f"{label} iterations (coarse, fine) ({it['coarse']}, {it['fine']}); pair-step "
+              "device split " + ", ".join(f"{k} {100 * v / total:.1f}%"
+                                          for k, v in list(split.items())[:10])
+              + f" [{gpu}]", flush=True)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="write the report as JSON to this file")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_pair_step: torch.cuda.is_available() is False: needs a CUDA card")
+    sys.path.insert(0, HERE)
+    from chip_smoke import gpu_info, pair_problem
+    from parelagmc_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    device = torch.device("cuda", 0)
+    gpu = gpu_info()
+    kernels.library()
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda, "configs": [
+        profile_config("bench", pair_problem(2, 512, 1e-4, 50, "float32", device),
+                       512, 5, gpu),
+        profile_config("64^3", pair_problem(4, 64, 1e-5, 100, "float64", device,
+                                            restart_every=0), 64, 2, gpu),
+    ]}
+    if "jax" in sys.modules:
+        sys.exit("profile_pair_step: jax was imported")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    missing = [f"{c['config']} {name}" for c in report["configs"]
+               for name, row in c["layers"].items() if row["device_ms"] is None]
+    if missing:
+        sys.exit(f"profile_pair_step: no device time recorded for {missing}")
+
+
+if __name__ == "__main__":
+    main()

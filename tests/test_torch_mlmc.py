@@ -1,0 +1,108 @@
+"""MLMC manager of the port held against the JAX package's manager on the
+CPU, and the fixed-seed SMALL-config anchor of tests/test_examples.py."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_parity  # noqa: F401  (thread count)
+from parelagmc_tpu.problems import build_problem as jax_build_problem
+from parelagmc_tpu.uq import MLMCManager as JaxMLMCManager
+from parelagmc_tpu_torch.problems import build_problem
+from parelagmc_tpu_torch.uq import MLMCManager
+from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from examples.common import parse_config  # noqa: E402
+
+SMALL = ["--refinements", "1", "--batch", "8", "--samples", "8", "--mse", "0.05"]
+
+
+def test_mlmc_small_matches_jax_manager(tmp_path, monkeypatch):
+    """Same stream, same operators, float64 and the dofs cost model (the
+    walltime model makes N_l depend on the host's timings): the sample
+    counts match and the estimates agree to solver precision (deep solves,
+    so the two packages' rounding cannot show)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = parse_config(SMALL + ["--dtype", "float64", "--seed", "0"])
+    cfg.cost_model = "dofs"
+    cfg.output_filename = ""
+    cfg.darcy_solver.relative_tolerance = 1e-10
+    jprob = jax_build_problem(cfg)
+    jmgr = JaxMLMCManager(jprob.solver, jprob.sampler, cfg)
+    ref = jmgr.run()
+    prob = build_problem(cfg)
+    mgr = MLMCManager(prob.solver, prob.sampler, cfg)
+    est = mgr.run()
+    np.testing.assert_array_equal(mgr.level_nsamples, jmgr.level_nsamples)
+    np.testing.assert_allclose(est, ref, rtol=1e-9)
+    np.testing.assert_allclose(mgr.eY, jmgr.eY, rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(mgr.varY, jmgr.varY, rtol=1e-7, atol=1e-12)
+    np.testing.assert_allclose(mgr.solver_iterations, jmgr.solver_iterations, rtol=0.02)
+
+
+def test_mlmc_small_anchor(tmp_path, monkeypatch, capsys):
+    """The examples/mlmc.py SMALL run of tests/test_examples.py:53-62 on the
+    port, as examples/mlmc.py runs it (float32, walltime cost, .dat log)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = parse_config(SMALL)
+    cfg.verbose = True
+    prob = build_problem(cfg)
+    mgr = MLMCManager(prob.solver, prob.sampler, cfg)
+    est = mgr.run()
+    mgr.close()
+    out = capsys.readouterr().out
+    assert "FINAL MLMC ERRORS" in out and "Estimate" in out
+    np.testing.assert_allclose(est, 2.24273, atol=0.02)  # the reference test's band
+    # The first round already meets the variance target (N_l = 8/8), so the
+    # walltime costs cannot change the sample set: the JAX package's value
+    # is reproduced to its printed digits.
+    assert list(mgr.level_nsamples) == [8, 8]
+    np.testing.assert_allclose(est, 2.24273, rtol=1e-5)
+    assert mgr.ml_estimator_variance <= mgr.ratio * mgr.eps2
+    log = (tmp_path / cfg.output_filename).read_text().splitlines()
+    assert len(log) == 1 + int(mgr.level_nsamples.sum())
+    assert all(c < 1.0 for c in mgr.consistency)
+
+
+def test_key_schedule_and_warmup_batch(tmp_path, monkeypatch):
+    """Batch keys are fold_in(fold_in(key, level), counter); a single-batch
+    level under the walltime model runs one discarded warm-up batch that
+    moves neither the counter nor the statistics."""
+    monkeypatch.chdir(tmp_path)
+    cfg = parse_config(["--refinements", "1", "--batch", "4", "--samples", "4",
+                        "--dtype", "float64"])
+    cfg.output_filename = ""
+    prob = build_problem(cfg)
+    mgr = MLMCManager(prob.solver, prob.sampler, cfg)
+    mgr.init_run([4, 4])
+    assert mgr._counter == 2
+    assert list(mgr.level_nsamples) == [4, 4]
+    # Warm-up batches land in the ledger's first-batch slot only.
+    assert list(mgr._cost_ledger.first_nsamples) == [4, 4]
+    assert list(mgr._cost_ledger.nsamples) == [4, 4]
+
+
+def test_steady_cost_ledger_and_timer():
+    led = SteadyCostLedger(2)
+    led.add_batch(0, 5.0, 8)  # first batch: program load, excluded
+    assert led.cost_per_sample(0, 10.0, 8) == pytest.approx(10.0 / 8)  # fallback
+    led.add_batch(0, 1.0, 8)
+    led.add_batch(0, 3.0, 8)
+    assert led.cost_per_sample(0, 10.0, 24) == pytest.approx(4.0 / 16)
+    TimeManager.reset()
+    with TimeManager.timed("t", block=lambda: torch.ones(3)):
+        pass
+    assert TimeManager.get_watch("t").count == 1 and TimeManager.elapsed("t") >= 0.0
+    assert "t" in TimeManager.print_table()
+
+
+def test_manager_rejects_sample_sharding():
+    cfg = parse_config(["--refinements", "0", "--sample-shards", "2"])
+    cfg.output_filename = ""
+    prob = build_problem(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MLMCManager(prob.solver, prob.sampler, cfg)
