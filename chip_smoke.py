@@ -25,8 +25,39 @@ Phases, each printing one line (or block) before the last line:
 6. 64^3    - the pair step at refinements=4 (64^3 against 32^3), batch 64,
              rtol 1e-5 (float64, see BIG_DTYPE below): samples/s,
              iterations, converged fraction (must be 1.0), peak memory.
+7. K3      - the threefry uniform kernel (K2's uniform mode) through its
+             entry point sample_uniforms, then against its plain version at
+             (512, 4096) in float32 and float64: identical values, moments,
+             ms per draw.
+8. anchor  - the scaled SPE10 MLMC anchor of tests/test_spe10_anchor.py on
+             the card (16x32x8 grid, synthetic permeability, f64,
+             cg-schur-coefmg, rtol 1e-8, init_run([32, 32, 32])): dofs
+             17280/2272/312, |estimate - 361.882| < 0.5, E[Q] within 2e-3
+             of the pins, consistency < 0.1, both kernels launched; then K1
+             and K2 against their plain versions at the shapes this path
+             gives them (every level's M(w)^{-1} tables and noise draw at
+             batch 16, float64).
+9. SPE10   - the full 60x220x85 grid with the production solver settings
+             (physics/spe10.full_grid_solver_defaults, float32, corlen 100,
+             normalized marginals, axis_order auto, synthetic permeability):
+             host setup seconds, then
+   9a. K1 on the coefMG line tables: struct_mg_setup on a sampled level-1
+       field with coefmg_line_axes "auto", kernel against its plain version
+       per line axis in float32 and bfloat16 (max relative error, ms per
+       line solve). An isolated check: the production settings leave line
+       smoothing off, so 9b reaches neither the line smoother nor the bf16
+       kernel;
+   9b. MLMCManager.init_run([8, 128, 512]) (both kernels launched), then
+       one timed batch per level: converged fraction 1.0, finite Q,
+       iterations below the manager's pair budget; C_l, iterations and E[Q]
+       per level, peak memory, CUDA-event ms of one level-0 M(w)^{-1} apply
+       and one level-0 V-cycle; then K1 and K2 against their plain versions
+       at the shapes this path gives them: every level's M(w)^{-1} tables
+       (kinv_ref Galerkin blocks, batches 8/128/512, float32) and noise
+       draws ((8, 1122000), (128, 138600), (512, 17325)).
 
-Then one JSON line with the kernels' numbers, the card's name and power
+Then one JSON line with the kernels' numbers (thomas and threefry_normal:
+launches, errors and times of the full-grid path), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failure
 exits non-zero before the last line; without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -55,6 +86,16 @@ BENCH_BATCH, BIG_REFINEMENTS, BIG_BATCH = 512, 4, 64
 # within 500, and restarts - a float32 rescue - only slow float64 CG down
 # (PERF.md, Findings).
 BIG_DTYPE, BIG_MAXIT, BIG_RESTART = "float64", 2000, 0
+BIG_REPS = 2  # timed 64^3 pair steps (the first includes warm-up)
+K3_SHAPE = (512, 4096)
+# Line solves of the coefMG smoother: f32 like K1's f32 tolerance; bf16
+# rounds each step as the plain version's float32 ops do (no FMA), so the
+# two agree bit for bit - one bf16 ulp (2^-8) of slack relative to max |x|.
+F32_TOL_LINES, BF16_TOL_LINES = 1e-5, 2.0 ** -8
+SPE10_ANCHOR = dict(estimate=361.882, est_tol=0.5, eq=(330.433, 308.151, 298.182),
+                    eq_rtol=2e-3, dofs=[17280, 2272, 312])
+SPE10_DOFS = [4_525_000, 563_580, 71_595]
+SPE10_CELLS = [1_122_000, 138_600, 17_325]
 
 
 def fail(msg: str) -> None:
@@ -94,8 +135,6 @@ def mass_tables(refinements: int, batch: int, dtype, device):
     builds on the finest level of build_problem at `refinements`, for one
     batch of the sampler's own coefficient field, plus a random right-hand
     side of each table's shape."""
-    import torch
-
     from parelagmc_tpu_torch.ops.prng import PRNGKey
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
 
@@ -105,41 +144,112 @@ def mass_tables(refinements: int, batch: int, dtype, device):
     level = prob.solver.levels[0]
     w = prob.sampler.eval(0, prob.sampler.sample(0, PRNGKey(refinements), batch))
     fac = level.mass_solver.factor(w)
-    g = torch.Generator(device=device).manual_seed(refinements)
-    rhs = [torch.randn(t[1].shape, generator=g, device=device, dtype=dtype) for t in fac]
+    rhs = random_rhs(fac, refinements)
     return fac, rhs, level
+
+
+def k1_check(fac, rhs, tol: float, label: str, plain_reps: int = 5):
+    """K1 against its plain version on one M(w)^{-1} factor, every axis:
+    (max error relative to max |x|, max abs error, kernel ms, plain ms per
+    apply of all axes). Fails above `tol`."""
+    import torch
+
+    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
+
+    rel, abs_err = 0.0, 0.0
+    for (dl, d, du), b in zip(fac, rhs):
+        xk = thomas(dl, d, du, b)
+        xp = thomas_plain(dl, d, du, b)
+        torch.cuda.synchronize()
+        if not torch.isfinite(xk).all():
+            fail(f"K1 non-finite output at {label}")
+        diff = (xk - xp).abs().max().item()
+        rel = max(rel, diff / xp.abs().max().item())
+        abs_err = max(abs_err, diff)
+    if not rel <= tol:
+        fail(f"K1 {label}: rel err {rel} > {tol}")
+    ms = cuda_ms(lambda: [thomas(*t, b) for t, b in zip(fac, rhs)])
+    plain_ms = cuda_ms(lambda: [thomas_plain(*t, b) for t, b in zip(fac, rhs)], reps=plain_reps)
+    return rel, abs_err, ms, plain_ms
+
+
+def random_rhs(fac, seed: int):
+    """A random right-hand side of each factor table's shape."""
+    import torch
+
+    d = fac[0][1]
+    g = torch.Generator(device=d.device).manual_seed(seed)
+    return [torch.randn(t[1].shape, generator=g, device=d.device, dtype=d.dtype) for t in fac]
+
+
+def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int = 5):
+    """K2 against its plain version on one draw of `shape`: (kernel
+    output, max abs error, max |a-b|/(1+|b|), kernel ms, plain ms). Fails
+    above `tol`."""
+    import torch
+
+    from parelagmc_tpu_torch.ops import prng
+
+    xk = prng.sample_normals(key, shape, dtype, device)
+    xp = prng.normals_plain(key, shape, dtype, device)
+    torch.cuda.synchronize()
+    scaled = ((xk - xp).abs() / (1.0 + xp.abs())).max().item()
+    abs_err = (xk - xp).abs().max().item()
+    if not scaled <= tol:
+        fail(f"K2 normals {label}: err {scaled} > {tol}")
+    ms = cuda_ms(lambda: prng.sample_normals(key, shape, dtype, device))
+    plain_ms = cuda_ms(lambda: prng.normals_plain(key, shape, dtype, device), reps=plain_reps)
+    return xk, abs_err, scaled, ms, plain_ms
+
+
+def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: str, gpu: str):
+    """K1 and K2 against their plain versions at the shapes a path gives
+    them, on every level: K1 on the M(w)^{-1} tables factored for a sampled
+    field at the level's batch, K2 on the level's noise draw. Returns
+    {kernel: (max abs error over levels, level-0 kernel ms, level-0 plain
+    ms)}."""
+    import torch
+
+    from parelagmc_tpu_torch.ops.prng import fold_in
+
+    sampler, solver = prob.sampler, prob.solver
+    dtype = solver.dtype
+    name = str(dtype).replace("torch.", "")
+    out = {}
+    for level, batch in enumerate(batches):
+        lkey = fold_in(key, level)
+        shape = (batch, sampler.sample_size(level))
+        _, k2_abs, k2_scaled, k2_ms, k2_plain = k2_check(
+            lkey, shape, dtype, solver.device, k2_tol, f"{label} level {level} {name}")
+        w = sampler.eval(level, sampler.sample(level, lkey, batch))
+        fac = solver.levels[level].mass_solver.factor(w)
+        k1_rel, k1_abs, k1_ms, k1_plain = k1_check(fac, random_rhs(fac, level), k1_tol,
+                                                   f"{label} level {level} {name}")
+        rows = [t[1].shape[0] for t in fac]
+        del w, fac
+        torch.cuda.empty_cache()
+        print(f"{label} level {level} batch {batch} {name}: K1 M(w)^-1 tables (rows {rows}) "
+              f"max_rel_err {k1_rel:.3e} (tol {k1_tol:g}) kernel {k1_ms:.4f} plain {k1_plain:.4f} ms/apply; "
+              f"K2 noise {shape} scaled_err {k2_scaled:.3e} (tol {k2_tol:g}) kernel {k2_ms:.4f} "
+              f"plain {k2_plain:.4f} ms [{gpu}]", flush=True)
+        for k, (err, ms, plain) in (("thomas", (k1_abs, k1_ms, k1_plain)),
+                                    ("threefry_normal", (k2_abs, k2_ms, k2_plain))):
+            prev = out.get(k)
+            out[k] = (err, ms, plain) if prev is None else (max(prev[0], err), prev[1], prev[2])
+    return out
 
 
 def phase_k1(device, gpu: str):
     import torch
 
-    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
-
-    main_path = None
     for refinements, batch, label in K1_CASES:
         for dtype, tol in ((torch.float32, F32_TOL_K1), (torch.float64, F64_TOL_K1)):
             fac, rhs, lvl = mass_tables(refinements, batch, dtype, device)
-            rel, abs_err = 0.0, 0.0
-            for (dl, d, du), b in zip(fac, rhs):
-                xk = thomas(dl, d, du, b)
-                xp = thomas_plain(dl, d, du, b)
-                torch.cuda.synchronize()
-                diff = (xk - xp).abs().max().item()
-                rel = max(rel, diff / xp.abs().max().item())
-                abs_err = max(abs_err, diff)
-                if not torch.isfinite(xk).all():
-                    fail(f"K1 non-finite output at {label}")
-            ms = cuda_ms(lambda: [thomas(*t, b) for t, b in zip(fac, rhs)])
-            plain_ms = cuda_ms(lambda: [thomas_plain(*t, b) for t, b in zip(fac, rhs)], reps=5)
             name = str(dtype).replace("torch.", "")
+            rel, _, ms, plain_ms = k1_check(fac, rhs, tol, f"{label} {name}")
             print(f"K1 thomas {label} batch {batch} {name}: faces/sample {lvl.n_u} "
                   f"max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} ms/apply "
                   f"plain {plain_ms:.4f} ms/apply [{gpu}]", flush=True)
-            if not rel <= tol:
-                fail(f"K1 {label} {name}: rel err {rel} > {tol}")
-            if main_path is None and dtype == torch.float32:
-                main_path = (abs_err, ms, plain_ms)
-    return main_path
 
 
 def phase_k2(device, gpu: str):
@@ -154,30 +264,19 @@ def phase_k2(device, gpu: str):
         pb = prng.random_bits_plain(key, bw, shape, device)
         if not torch.equal(kb, pb):
             fail(f"K2 {bw}-bit raw bits differ from the plain version")
-    main_path = None
     for dtype, tol in ((torch.float32, F32_TOL_K2), (torch.float64, F64_TOL_K2)):
-        xk = prng.sample_normals(key, shape, dtype, device)
-        xp = prng.normals_plain(key, shape, dtype, device)
-        torch.cuda.synchronize()
-        scaled = ((xk - xp).abs() / (1.0 + xp.abs())).max().item()
-        abs_err = (xk - xp).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        xk, abs_err, scaled, ms, plain_ms = k2_check(key, shape, dtype, device, tol,
+                                                     f"{shape} {name}")
         x64 = xk.double()
         mean, std = x64.mean().item(), x64.std().item()
         kurt = ((x64 - mean) ** 4).mean().item() / std ** 4
-        ms = cuda_ms(lambda: prng.sample_normals(key, shape, dtype, device))
-        plain_ms = cuda_ms(lambda: prng.normals_plain(key, shape, dtype, device), reps=5)
-        name = str(dtype).replace("torch.", "")
         print(f"K2 threefry normals {shape} {name}: bits32/64 identical, "
               f"max_abs_err {abs_err:.3e} scaled_err {scaled:.3e} (tol {tol:g}) "
               f"mean {mean:+.5f} std {std:.5f} kurtosis {kurt:.4f} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{gpu}]", flush=True)
-        if not scaled <= tol:
-            fail(f"K2 normals {name}: err {scaled} > {tol}")
         if not (abs(mean) < 0.01 and abs(std - 1.0) < 0.01 and abs(kurt - 3.0) < 0.05):
             fail(f"K2 normals {name}: moments off ({mean}, {std}, {kurt})")
-        if dtype == torch.float32:
-            main_path = (abs_err, ms, plain_ms)
-    return main_path
 
 
 def phase_mlmc(device, gpu: str):
@@ -207,8 +306,8 @@ def phase_mlmc(device, gpu: str):
         fail(f"golden estimate {est} not within 0.25 of 2.56")
     if not all(c < 1.0 for c in cons):
         fail(f"consistency {cons}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the golden MLMC run")
     return launches
 
@@ -280,7 +379,7 @@ def phase_64(device, gpu: str):
     key = fold_in(PRNGKey(0), 64)
     torch.cuda.reset_peak_memory_stats(device)
     rates, iters, conv = [], [], []
-    for rep in range(3):
+    for rep in range(BIG_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         xi = sampler.sample(0, fold_in(key, rep), batch)
@@ -302,6 +401,242 @@ def phase_64(device, gpu: str):
           f"E[Q] {float(q.mean()):.4f} peak mem {peak_gb:.2f} GB [{gpu}]", flush=True)
     if min(conv) < 1.0:
         fail(f"64^3 pair converged fraction {conv}")
+
+
+def phase_k3(device, gpu: str):
+    """K3 through its entry point (launches counted), then against its
+    plain version: identical values, with no tolerance."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops import prng
+
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(0), 3), 1)
+    dtypes = (torch.float32, torch.float64)
+    kernels.reset_launch_counts()
+    draws = [prng.sample_uniforms(key, K3_SHAPE, dt, device) for dt in dtypes]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["threefry_uniform"]
+    if launches != len(dtypes):
+        fail(f"K3: sample_uniforms launched {launches} kernels for {len(dtypes)} draws")
+    main_path = None
+    for dt, xk in zip(dtypes, draws):
+        xp = prng.uniforms_plain(key, K3_SHAPE, dt, device)
+        name = str(dt).replace("torch.", "")
+        if xk.dtype != dt or not torch.equal(xk, xp):
+            fail(f"K3 uniforms {name} differ from the plain version")
+        x64 = xk.double()
+        mean, var = x64.mean().item(), x64.var().item()
+        lo, hi = x64.min().item(), x64.max().item()
+        ms = cuda_ms(lambda: prng.sample_uniforms(key, K3_SHAPE, dt, device))
+        plain_ms = cuda_ms(lambda: prng.uniforms_plain(key, K3_SHAPE, dt, device), reps=5)
+        print(f"K3 threefry uniforms {K3_SHAPE} {name}: identical to plain (tol 0) "
+              f"mean {mean:.5f} var {var:.5f} (1/12 = {1 / 12:.5f}) min {lo:.3e} max {hi:.7f} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{gpu}]", flush=True)
+        if not (abs(mean - 0.5) < 0.005 and abs(var - 1 / 12) < 0.002 and 0.0 <= lo and hi < 1.0):
+            fail(f"K3 uniforms {name}: moments off ({mean}, {var}, {lo}, {hi})")
+        if dt == torch.float32:
+            main_path = (0.0, ms, plain_ms)
+    return main_path, launches
+
+
+def phase_spe10_anchor(device, gpu: str):
+    """tests/test_spe10_anchor.py::test_spe10_scaled_anchor on the card."""
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    grid = (16, 32, 8)
+    lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
+    cfg = ProblemConfig(mesh="box", ncells=tuple(g // 4 for g in grid), lengths=lengths,
+                        refinements=2, correlation_length=100.0, dtype="float64", mse=1e10,
+                        initial_samples=32, batch_size=16, seed=0, output_filename="",
+                        cost_model="dofs")
+    cfg.normalize_marginals = True
+    cfg.darcy_solver.name = "cg-schur-coefmg"
+    cfg.darcy_solver.relative_tolerance = 1e-8
+    cfg.darcy_solver.max_iterations = 2000
+    prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
+    mgr = MLMCManager(prob.solver, prob.sampler, cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mgr.init_run([32, 32, 32])
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    dofs = [prob.solver.num_dofs(l) for l in range(3)]
+    eq = [float(x) for x in mgr.eQ]
+    cons = float(mgr.consistency.max())
+    print(f"SPE10 scaled anchor (16x32x8, f64, cg-schur-coefmg, rtol 1e-8): estimate "
+          f"{mgr.estimate:.6f} (pin {SPE10_ANCHOR['estimate']}) E[Q] {[round(x, 4) for x in eq]} "
+          f"dofs {dofs} consistency {cons:.4f} iterations {mgr.solver_iterations.tolist()} "
+          f"run {dt:.2f} s launches {launches} [{gpu}]", flush=True)
+    if dofs != SPE10_ANCHOR["dofs"]:
+        fail(f"SPE10 anchor dofs {dofs}")
+    if not abs(mgr.estimate - SPE10_ANCHOR["estimate"]) < SPE10_ANCHOR["est_tol"]:
+        fail(f"SPE10 anchor estimate {mgr.estimate}")
+    for got, pin in zip(eq, SPE10_ANCHOR["eq"]):
+        if not abs(got - pin) <= SPE10_ANCHOR["eq_rtol"] * abs(pin):
+            fail(f"SPE10 anchor E[Q] {eq} not within 2e-3 of {SPE10_ANCHOR['eq']}")
+    if not cons < 0.1:
+        fail(f"SPE10 anchor consistency {cons}")
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the SPE10 anchor run")
+    checks = path_kernel_checks(prob, mgr.level_batch, fold_in(PRNGKey(cfg.seed), 98),
+                                F64_TOL_K1, F64_TOL_K2, "SPE10 anchor kernels vs plain", gpu)
+    return launches, checks
+
+
+def spe10_full_problem(device):
+    """The full-grid production problem of examples/spe10_mlmc.py
+    (--refinements 2 --dtype float32, synthetic permeability)."""
+    from parelagmc_tpu_torch.physics.spe10 import full_grid_solver_defaults, load_spe10_kinv
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+
+    cfg = ProblemConfig(mesh="spe10", refinements=2, dtype="float32", correlation_length=100.0,
+                        mse=-1.0, initial_samples=32, batch_size=32, normalize_marginals=True,
+                        axis_order="auto", output_filename="")
+    full_grid_solver_defaults(cfg)
+    kinv = load_spe10_kinv(None, ncells=(60, 220, 85))
+    return build_problem(cfg, kinv_ref=kinv, device=device)
+
+
+def phase_k1_lines(prob, device, gpu: str):
+    """K1 on the line tables of the coefMG smoother: struct_mg_setup on a
+    sampled full-grid level-1 field (production batch 128), line axes
+    "auto", float32 and bfloat16 tables. An isolated check: the production
+    settings leave coefmg_line_axes empty, so no run that this script
+    drives end to end reaches the line smoother or the bf16 kernel."""
+    import torch
+
+    from parelagmc_tpu_torch.ops import coef_multigrid_structured as cmg
+    from parelagmc_tpu_torch.ops.prng import PRNGKey
+    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
+
+    level, batch = 1, prob.config.batch_size_per_level[1]
+    solver, sampler = prob.solver, prob.sampler
+    mesh = prob.hierarchy.levels[level].mesh
+    axes = cmg.parse_line_axes("auto", mesh, solver.kinv_levels[level])
+    if not axes:
+        fail("K1 lines: coefmg_line_axes 'auto' picked no axis on the SPE10 level-1 grid")
+    mg = cmg.build_struct_coef_mg(mesh, cutoff=solver.solver_cfg.coarse_dense_cutoff,
+                                  line_axes=axes)
+    w = sampler.eval(level, sampler.sample(level, PRNGKey(11), batch))
+    ms_ = solver.levels[level].mass_solver
+    diag = ms_.masked_diag(ms_.factor(w), w.shape[:-1])
+    dinv0 = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
+                        torch.zeros_like(diag))
+    state = cmg.struct_mg_setup(mg, dinv0)
+    g = torch.Generator(device=device).manual_seed(12)
+    out = {}
+    for dtype, tol in ((torch.float32, F32_TOL_LINES), (torch.bfloat16, BF16_TOL_LINES)):
+        name = str(dtype).replace("torch.", "")
+        tabs = cmg.cast_state(state, dtype)[0][2]
+        for a, (dl, dd, du) in zip(axes, tabs):
+            b = torch.randn(tuple(dd.shape), generator=g, device=device).to(dtype)
+            xk = thomas(dl, dd, du, b)
+            xp = thomas_plain(dl, dd, du, b)
+            torch.cuda.synchronize()
+            diff = (xk.float() - xp.float()).abs().max().item()
+            rel = diff / xp.float().abs().max().item()
+            if not torch.isfinite(xk.float()).all():
+                fail(f"K1 lines non-finite output ({name}, axis {a})")
+            ms = cuda_ms(lambda: thomas(dl, dd, du, b))
+            plain_ms = cuda_ms(lambda: thomas_plain(dl, dd, du, b), reps=3)
+            print(f"K1 thomas coefMG line tables SPE10 level 1 {mesh.shape} batch {batch} "
+                  f"axis {a} (n {dd.shape[0]}, lines {dd.numel() // dd.shape[0]}) {name}: "
+                  f"max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} ms/line solve "
+                  f"plain {plain_ms:.4f} ms [{gpu}]", flush=True)
+            if not rel <= tol:
+                fail(f"K1 lines {name} axis {a}: rel err {rel} > {tol}")
+            out[(name, a)] = (rel, ms, plain_ms)
+    return out
+
+
+def phase_spe10_full(prob, setup_s: float, device, gpu: str):
+    """The production run on the full grid through MLMCManager, then one
+    timed batch per level with the convergence canary."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops import coef_multigrid_structured as cmg
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg, solver, sampler = prob.config, prob.solver, prob.sampler
+    cells = [sampler.sample_size(l) for l in range(3)]
+    dofs = [solver.num_dofs(l) for l in range(3)]
+    print(f"SPE10 full grid: host setup {setup_s:.2f} s, mesh {prob.hierarchy.levels[0].mesh.shape}"
+          f" cells {cells} dofs {dofs} [{gpu}]", flush=True)
+    if cells != SPE10_CELLS or dofs != SPE10_DOFS:
+        fail(f"SPE10 full grid: cells {cells} dofs {dofs}")
+    torch.cuda.reset_peak_memory_stats(device)
+    mgr = MLMCManager(solver, sampler, cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mgr.init_run(list(cfg.batch_size_per_level))
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    print(mgr.show_me(), flush=True)
+    print(f"SPE10 full grid init_run({cfg.batch_size_per_level}): {run_s:.2f} s (incl. one "
+          f"discarded warm-up batch per level and the mean-field setup solves) C_l "
+          f"{mgr.cost.tolist()} s/sample iterations {mgr.solver_iterations.tolist()} E[Q] "
+          f"{mgr.eQ.tolist()} E[Y] {mgr.eY.tolist()} launches {launches} [{gpu}]", flush=True)
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the SPE10 full-grid run")
+    budget = mgr.pair_budget  # the budget the manager gave each pair solve
+    key = fold_in(PRNGKey(cfg.seed), 99)
+    for level in range(3):
+        batch = mgr.level_batch[level]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xi = sampler.sample(level, fold_in(key, level), batch)
+        s_f = sampler.eval(level, xi)
+        if level < 2:
+            s_c = sampler.eval(level + 1, xi, xi_level=level)
+            q, qc, info_f, info_c = solver.solve_fwd_pair(level, s_f, s_c, max_iters=budget)
+            infos, limit = (info_c, info_f), 2 * budget  # primal + adjoint per member
+        else:
+            q, _, info = solver.solve_fwd(level, s_f)
+            qc, infos, limit = torch.zeros_like(q), (info,), 2 * solver.solver_cfg.max_iterations
+        q = q.double().cpu()
+        qc = qc.double().cpu()
+        dt = time.perf_counter() - t0
+        conv = float(torch.cat([i.converged.float().cpu() for i in infos]).mean())
+        its = [i.iterations for i in infos]
+        print(f"SPE10 full grid level {level} timed batch {batch}: {dt:.3f} s "
+              f"({1e3 * dt / batch:.2f} ms/sample) iterations {its} (limit {limit} each) "
+              f"converged fraction {conv} E[Q] {float(q.mean()):.4f} "
+              f"E[Y] {float((q - qc).mean()):.4f} [{gpu}]", flush=True)
+        if conv < 1.0:
+            fail(f"SPE10 full grid level {level}: converged fraction {conv}")
+        if not (torch.isfinite(q).all() and torch.isfinite(qc).all()):
+            fail(f"SPE10 full grid level {level}: non-finite Q")
+        if not all(i < limit for i in its):
+            fail(f"SPE10 full grid level {level}: iterations {its} at the budget {limit}")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    # Level-0 layer times at the production batch.
+    L0 = solver.levels[0]
+    w = sampler.eval(0, sampler.sample(0, fold_in(key, 7), mgr.level_batch[0]))
+    fac = L0.mass_solver.factor(w)
+    r = torch.randn(w.shape[:-1] + (L0.n_u,), device=device, dtype=w.dtype)
+    minv_ms = cuda_ms(lambda: L0.mass_solver.apply_factored(fac, r), reps=10)
+    diag = L0.mass_solver.masked_diag(fac, w.shape[:-1])
+    dinv0 = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
+                        torch.zeros_like(diag))
+    state = cmg.cast_state(cmg.struct_mg_setup(L0.coef_mg, dinv0), torch.bfloat16)
+    b = torch.randn(w.shape, device=device, dtype=w.dtype)
+    vc_ms = cuda_ms(lambda: cmg.struct_v_cycle(L0.coef_mg, state, b.to(torch.bfloat16)), reps=10)
+    print(f"SPE10 full grid level 0 batch {mgr.level_batch[0]}: M(w)^-1 apply {minv_ms:.3f} ms, "
+          f"coefMG V-cycle (cheb3, bf16 state, {len(L0.coef_mg.levels)} MG levels) "
+          f"{vc_ms:.3f} ms (CUDA events); peak memory {peak_gb:.2f} GB [{gpu}]", flush=True)
+    del w, fac, r, diag, dinv0, state, b
+    checks = path_kernel_checks(prob, mgr.level_batch, fold_in(key, 8), F32_TOL_K1,
+                                F32_TOL_K2, "SPE10 full grid kernels vs plain", gpu)
+    return launches, checks
 
 
 def main() -> None:
@@ -336,25 +671,47 @@ def main() -> None:
           f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'})"
           f" [{gpu}]", flush=True)
 
-    k1 = phase_k1(device, gpu)
-    k2 = phase_k2(device, gpu)
-    launches = phase_mlmc(device, gpu)
+    phase_k1(device, gpu)
+    phase_k2(device, gpu)
+    k3, k3_launches = phase_k3(device, gpu)
+    golden = phase_mlmc(device, gpu)
     phase_bench(device, gpu)
     phase_64(device, gpu)
+    anchor, _ = phase_spe10_anchor(device, gpu)
+    t0 = time.perf_counter()
+    spe10 = spe10_full_problem(device)
+    setup_s = time.perf_counter() - t0
+    phase_k1_lines(spe10, device, gpu)
+    full, checks = phase_spe10_full(spe10, setup_s, device, gpu)
     if "jax" in sys.modules:
         fail("jax was imported")
 
+    # launches: this slice's main path, the full-grid SPE10 run (each path
+    # ran with the counts set to 0 just before it; all are listed). The
+    # errors and times of thomas and threefry_normal are that path's too:
+    # max_abs_err over its three levels, ms and plain_ms at level 0.
+    by_path = lambda k: {"golden_mlmc": golden[k], "spe10_anchor": anchor[k],
+                         "spe10_full_grid": full[k]}
+    on_path = "spe10_full_grid: every level at its production batch, float32; ms at level 0"
     report = {"kernels": [
         {"name": "thomas", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/thomas.cu",
          "replaces": "parelagmc_tpu/ops/tridiag_pallas.py:77",
-         "launches": launches["thomas"], "max_abs_err": k1[0],
-         "ms": k1[1], "plain_ms": k1[2]},
+         "launches": full["thomas"], "launches_by_path": by_path("thomas"),
+         "max_abs_err": checks["thomas"][0], "ms": checks["thomas"][1],
+         "plain_ms": checks["thomas"][2], "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/threefry_normal.cu",
          "replaces": "parelagmc_tpu/ops/prng.py:40",
-         "launches": launches["threefry_normal"], "max_abs_err": k2[0],
-         "ms": k2[1], "plain_ms": k2[2]},
+         "launches": full["threefry_normal"], "launches_by_path": by_path("threefry_normal"),
+         "max_abs_err": checks["threefry_normal"][0], "ms": checks["threefry_normal"][1],
+         "plain_ms": checks["threefry_normal"][2], "measured_on": on_path},
+        # No path of either package draws uniforms: K3's path is its entry
+        # point sample_uniforms, driven in phase 7 with the counts at 0.
+        {"name": "threefry_uniform", "route": "cuda",
+         "source": "parelagmc_tpu_torch/csrc/threefry_normal.cu",
+         "replaces": "parelagmc_tpu/ops/prng.py:127",
+         "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1], "plain_ms": k3[2]},
     ]}
     print(json.dumps(report), flush=True)
     print(gpu, flush=True)

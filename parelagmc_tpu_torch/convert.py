@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parelagmc_tpu_torch.ops.coef_multigrid_structured import StructCoefMG, StructMGLevel
 from parelagmc_tpu_torch.ops.mass_solve import AxisTables, MassTridiagSolver
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig
 from parelagmc_tpu_torch.physics.darcy import DarcyLevel
@@ -54,13 +55,25 @@ def mass_solver_from_jax(ms, dtype=torch.float64, device=None) -> MassTridiagSol
     return MassTridiagSolver(axes, tuple(ms.shape), tuple(ms.face_offsets), ms.n_u)
 
 
+def struct_coef_mg_from_jax(mg) -> StructCoefMG:
+    """parelagmc_tpu.ops.coef_multigrid_structured.StructCoefMG -> port."""
+    return StructCoefMG(
+        levels=tuple(StructMGLevel(tuple(l.shape), tuple(l.fine_shape)) for l in mg.levels),
+        face_offsets=tuple(mg.face_offsets), omega=mg.omega, coarse_sweeps=mg.coarse_sweeps,
+        cheby_order=mg.cheby_order, cheby_lo=mg.cheby_lo, line_axes=tuple(mg.line_axes),
+        line_omega=mg.line_omega, coarsen=mg.coarsen,
+    )
+
+
 def darcy_level_from_jax(L, dtype=torch.float64, device=None) -> DarcyLevel:
-    """parelagmc_tpu.physics.darcy.DarcyLevel (tensor mesh, cg-schur data)
-    -> port DarcyLevel."""
+    """parelagmc_tpu.physics.darcy.DarcyLevel (tensor mesh, cg-schur data,
+    structured coefMG if any) -> port DarcyLevel. The reference's
+    kinv_logmean / kinv_cell are not carried: they feed only the kinv_ref
+    scalings of the S(1) preconditioner, which the port does not run."""
     if L.b_struct is None:
         raise ValueError("only tensor-mesh levels (b_struct set) convert")
-    if L.kinv_logmean != 0.0 or L.kinv_cell is not None:
-        raise ValueError("levels with a static kinv_ref are not ported")
+    if L.coef_mg is not None and not hasattr(L.coef_mg, "face_offsets"):
+        raise ValueError("only the structured coefMG converts")
     shape, offs, masks = L.b_struct
     return DarcyLevel(
         n_u=L.n_u,
@@ -72,4 +85,5 @@ def darcy_level_from_jax(L, dtype=torch.float64, device=None) -> DarcyLevel:
         shape=shape,
         face_offsets=offs,
         b_masks=[_t(m, dtype, device) for m in masks],
+        coef_mg=struct_coef_mg_from_jax(L.coef_mg) if L.coef_mg is not None else None,
     )

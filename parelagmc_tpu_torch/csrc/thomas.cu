@@ -29,7 +29,18 @@
 // Later work (ROADMAP): build the rows from w and the static m_lo/m_mid/m_hi
 // tables inside the kernel, and fold the per-axis transposes into the
 // indexing, which would cut the bytes further.
+//
+// Second caller: the line smoother of the per-sample Galerkin Schur MG
+// (parelagmc_tpu_torch/ops/coef_multigrid_structured.py; the reference's
+// _tridiag_solve_last), one solve per configured axis per smoothing pass.
+// With a bfloat16 preconditioner state its tables arrive in bf16:
+// thomas_solve_bf16 loads and stores bf16 and runs the recurrence in f32,
+// with c and g in f32 scratch (a bf16 g would round the carried value).
+// Its arithmetic is written with round-to-nearest intrinsics so nvcc cannot
+// contract it into FMAs: each step then rounds exactly as the plain
+// version's float32 tensor ops do, and the two agree bit for bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -61,6 +72,32 @@ __global__ void thomas_kernel(const T* __restrict__ dl, const T* __restrict__ d,
   }
 }
 
+__global__ void thomas_kernel_bf16(
+    const __nv_bfloat16* __restrict__ dl, const __nv_bfloat16* __restrict__ d,
+    const __nv_bfloat16* __restrict__ du, const __nv_bfloat16* __restrict__ b,
+    __nv_bfloat16* __restrict__ x, float* __restrict__ c, float* __restrict__ g,
+    int n, int64_t L) {
+  const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  float c_prev = 0.0f;
+  float g_prev = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const int64_t k = static_cast<int64_t>(i) * L + l;
+    const float dl_i = __bfloat162float(dl[k]);
+    const float denom = __fsub_rn(__bfloat162float(d[k]), __fmul_rn(dl_i, c_prev));
+    c_prev = __fdiv_rn(__bfloat162float(du[k]), denom);
+    g_prev = __fdiv_rn(__fsub_rn(__bfloat162float(b[k]), __fmul_rn(dl_i, g_prev)), denom);
+    c[k] = c_prev;
+    g[k] = g_prev;
+  }
+  float x_next = 0.0f;
+  for (int i = n - 1; i >= 0; --i) {
+    const int64_t k = static_cast<int64_t>(i) * L + l;
+    x_next = __fsub_rn(g[k], __fmul_rn(c[k], x_next));
+    x[k] = __float2bfloat16_rn(x_next);
+  }
+}
+
 template <typename T>
 int launch(const void* dl, const void* d, const void* du, const void* b,
            void* x, void* c, int n, int64_t L, void* stream) {
@@ -89,6 +126,22 @@ int thomas_solve_f64(const void* dl, const void* d, const void* du,
                      const void* b, void* x, void* c, int n, int64_t L,
                      void* stream) {
   return launch<double>(dl, d, du, b, x, c, n, L, stream);
+}
+
+// c and g: (n, L) float32 scratch.
+int thomas_solve_bf16(const void* dl, const void* d, const void* du,
+                      const void* b, void* x, void* c, void* g, int n,
+                      int64_t L, void* stream) {
+  if (L <= 0 || n <= 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (L + threads - 1) / threads;
+  thomas_kernel_bf16<<<static_cast<unsigned int>(blocks), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dl), static_cast<const __nv_bfloat16*>(d),
+      static_cast<const __nv_bfloat16*>(du), static_cast<const __nv_bfloat16*>(b),
+      static_cast<__nv_bfloat16*>(x), static_cast<float*>(c),
+      static_cast<float*>(g), n, L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

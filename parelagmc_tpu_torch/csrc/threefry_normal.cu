@@ -1,8 +1,9 @@
-// K2: counter-based threefry2x32 normals (and raw bits), one thread per
-// output element.
+// K2 and K3: counter-based threefry2x32 normals, uniforms (and raw bits),
+// one thread per output element.
 //
-// Replaces the Pallas TPU kernel parelagmc_tpu/ops/prng.py (_pallas_normal,
-// driven by sample_normals), which seeded the TPU's hardware PRNG per
+// Replaces the Pallas TPU kernels parelagmc_tpu/ops/prng.py (_pallas_normal,
+// driven by sample_normals; _pallas_uniform, driven by sample_uniforms - the
+// uniform modes below), which seeded the TPU's hardware PRNG per
 // 512x1024 block and used Box-Muller. Those hardware bits cannot be
 // reproduced off the TPU; the reference's CPU stream is jax.random.normal,
 // and that is the stream this kernel reproduces exactly, so every module of
@@ -15,6 +16,8 @@
 //   float  f = bitcast((bits >> (nbits - nmant)) | bits(1.0)) - 1  in [0,1)
 //   normal sqrt(2) * erfinv(max(lo, f * scale + lo)),
 //          lo = nextafter(-1, 0), scale = 1 - lo rounded to the dtype
+//   uniform f itself (jax.random.uniform on [0, 1): the affine step to
+//          [minval, maxval) is the identity there, so none is applied)
 //
 // float32 output uses the 32-bit bits, float64 the 64-bit bits, as jax does.
 // The affine step is written with explicit round-to-nearest intrinsics so
@@ -59,7 +62,7 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
-enum Mode { kNormalF32, kNormalF64, kBits32, kBits64 };
+enum Mode { kNormalF32, kNormalF64, kBits32, kBits64, kUniformF32, kUniformF64 };
 
 template <Mode M, typename T>
 __global__ void threefry_kernel(uint32_t k0, uint32_t k1, T* __restrict__ out,
@@ -76,6 +79,14 @@ __global__ void threefry_kernel(uint32_t k0, uint32_t k1, T* __restrict__ out,
       out[i] = static_cast<T>(static_cast<uint64_t>(x0 ^ x1));
     } else if constexpr (M == kBits64) {
       out[i] = static_cast<T>((static_cast<uint64_t>(x0) << 32) | x1);
+    } else if constexpr (M == kUniformF32) {
+      const uint32_t bits = x0 ^ x1;
+      out[i] = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+    } else if constexpr (M == kUniformF64) {
+      const uint64_t bits = (static_cast<uint64_t>(x0) << 32) | x1;
+      out[i] = __dsub_rn(
+          __longlong_as_double(static_cast<long long>((bits >> 12) | 0x3FF0000000000000ull)),
+          1.0);
     } else if constexpr (M == kNormalF32) {
       const uint32_t bits = x0 ^ x1;
       const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
@@ -119,6 +130,18 @@ int threefry_normal_f32(uint32_t k0, uint32_t k1, void* out, int64_t n,
 int threefry_normal_f64(uint32_t k0, uint32_t k1, void* out, int64_t n,
                         double lo, double scale, double sqrt2, void* stream) {
   return launch<kNormalF64, double>(k0, k1, out, n, lo, scale, sqrt2, stream);
+}
+
+// U[0, 1) by the mantissa trick: float32 from the 32-bit bits, float64 from
+// the 64-bit bits, equal to jax.random.uniform bit for bit.
+int threefry_uniform_f32(uint32_t k0, uint32_t k1, void* out, int64_t n,
+                         void* stream) {
+  return launch<kUniformF32, float>(k0, k1, out, n, 0.0, 0.0, 0.0, stream);
+}
+
+int threefry_uniform_f64(uint32_t k0, uint32_t k1, void* out, int64_t n,
+                         void* stream) {
+  return launch<kUniformF64, double>(k0, k1, out, n, 0.0, 0.0, 0.0, stream);
 }
 
 // Raw bits into an int64 tensor: the uint32 value zero-extended (bits32) or

@@ -15,8 +15,9 @@ for a CUDA tensor.
 
 Launch counts: every wrapper adds one to `launch_counts[name]` right where
 it launches its kernel, so a run can show that its main path went through
-the kernels (chip_smoke.py resets the counts before the golden MLMC run and
-reads them after).
+the kernels (chip_smoke.py resets the counts before each path it drives -
+the golden MLMC run, the SPE10 anchor, the full-grid SPE10 run, the K3
+entry point - and reads them after).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-launch_counts: Dict[str, int] = {"thomas": 0, "threefry_normal": 0}
+launch_counts: Dict[str, int] = {"thomas": 0, "threefry_normal": 0, "threefry_uniform": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build
@@ -117,6 +118,9 @@ def library() -> ctypes.CDLL:
         for fn in (lib.thomas_solve_f32, lib.thomas_solve_f64):
             fn.restype = i32
             fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i64, vp]
+        # int thomas_solve_bf16(dl, d, du, b, x, c, g, n, L, stream)
+        lib.thomas_solve_bf16.restype = i32
+        lib.thomas_solve_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, vp]
         # int threefry_{normal_f32,normal_f64,bits32,bits64}(k0, k1, out, n,
         #     lo, scale, sqrt2, stream) - lo/scale/sqrt2 ignored for bits
         lib.threefry_normal_f32.restype = i32
@@ -127,7 +131,9 @@ def library() -> ctypes.CDLL:
         lib.threefry_normal_f64.argtypes = [
             u32, u32, vp, i64, ctypes.c_double, ctypes.c_double, ctypes.c_double, vp,
         ]
-        for fn in (lib.threefry_bits32, lib.threefry_bits64):
+        # int threefry_{bits32,bits64,uniform_f32,uniform_f64}(k0, k1, out, n, stream)
+        for fn in (lib.threefry_bits32, lib.threefry_bits64,
+                   lib.threefry_uniform_f32, lib.threefry_uniform_f64):
             fn.restype = i32
             fn.argtypes = [u32, u32, vp, i64, vp]
         _LIB = lib

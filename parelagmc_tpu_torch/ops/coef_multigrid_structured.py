@@ -1,0 +1,401 @@
+"""Per-sample Galerkin Schur multigrid on tensor grids (slicing form).
+
+Port of parelagmc_tpu/ops/coef_multigrid_structured.py (see its docstring
+and ops/coef_multigrid.py for the derivation). The preconditioner for the
+pressure Schur complement S(w) = B M(w)^{-1} B^T is rebuilt per sample from
+the masked mass-diagonal inverse dinv0 (one value per face, 0 at essential
+faces): every MG level's per-axis face conductances follow from dinv0 by
+static plane selection (Galerkin P0 RAP) or series composition (harmonic)
+along the face axis and group sums across it, so the whole coefficient
+dependence is a handful of face vectors per level. Every device operation
+is a slice, a pad, a reshape-sum or a repeat:
+
+* S x on the cell grid: flux t_k = dinv_k (x_{k-1} - x_k) with a zero pad,
+  then (S x)_i = t_{i+1} - t_i, per axis;
+* the Jacobi diagonal is d_i + d_{i+1} summed over axes;
+* restriction / prolongation are per-axis group sums / repeats over groups
+  of 2 with a trailing group of 2 or 3 (fem/hierarchy.derefine_axis);
+* smoothers: damped Jacobi V(s, s), order-k Chebyshev(Jacobi), and line
+  relaxation along `line_axes`, whose tridiagonal solves run on kernel K1
+  (ops/tridiag_pallas.thomas).
+
+Layout: cell grids are (batch..., z, y, x) with mesh axis a at array dim
+ndim - 1 - a, as in the reference. The line tables are built once per solve
+with the SOLVED axis first, (n_a, batch..., others...) contiguous - the
+(n, L) layout K1 reads coalesced - so no sweep permutes them; the
+right-hand side of each line solve is moved into that layout and back.
+
+The reference's MISCOMPILE GUARD (moveaxis forms of the transfer helpers)
+worked around XLA:TPU and is not carried over: the helpers below act on the
+axis in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
+
+
+class StructMGLevel(NamedTuple):
+    shape: Tuple[int, ...]  # cells per mesh axis (x first)
+    # Cells per mesh axis of the previous (finer) level, grouped onto this
+    # level's cells as [2]*(n_c - 1) + [tail]; () on level 0.
+    fine_shape: Tuple[int, ...] = ()
+
+
+class StructCoefMG(NamedTuple):
+    levels: Tuple[StructMGLevel, ...]
+    face_offsets: Tuple[int, ...]  # level-0 flat face-vector offsets
+    omega: float
+    coarse_sweeps: int
+    cheby_order: int = 0
+    cheby_lo: float = 0.25
+    line_axes: Tuple[int, ...] = ()  # mesh axes of the line smoother
+    line_omega: float = 1.0
+    coarsen: str = "galerkin"  # "galerkin" (plane select) | "harmonic" (series)
+
+
+def build_struct_coef_mg(mesh, cutoff: int = 5000, coarse_sweeps: int = 8, omega: float = 0.8,
+                         cheby_order: int = 0, cheby_lo: float = 0.25,
+                         line_axes: Tuple[int, ...] = (), line_omega: float = 1.0,
+                         coarsen: str = "galerkin") -> StructCoefMG:
+    """MG level shapes below `mesh` (a StructuredMesh), derefining by 2 per
+    axis until <= cutoff cells (the reference's ladder)."""
+    from parelagmc_tpu.fem.hierarchy import derefine_axis
+    from parelagmc_tpu.mesh.structured import StructuredMesh
+
+    meshes = [mesh]
+    while meshes[-1].num_cells > cutoff and max(meshes[-1].shape) > 2:
+        meshes.append(StructuredMesh([derefine_axis(a) for a in meshes[-1].axes]))
+    levels = [StructMGLevel(shape=tuple(int(s) for s in meshes[0].shape))]
+    for l in range(1, len(meshes)):
+        levels.append(StructMGLevel(shape=tuple(int(s) for s in meshes[l].shape),
+                                    fine_shape=tuple(int(s) for s in meshes[l - 1].shape)))
+    return StructCoefMG(
+        levels=tuple(levels),
+        face_offsets=tuple(int(x) for x in mesh.face_offsets),
+        omega=float(omega),
+        coarse_sweeps=int(coarse_sweeps),
+        cheby_order=int(cheby_order),
+        cheby_lo=float(cheby_lo),
+        line_axes=tuple(int(a) for a in line_axes),
+        line_omega=float(line_omega),
+        coarsen=str(coarsen),
+    )
+
+
+def parse_line_axes(spec: str, mesh, kinv: Optional[np.ndarray]) -> Tuple[int, ...]:
+    """config.coefmg_line_axes -> mesh-axis tuple (the reference's
+    physics/darcy._parse_line_axes). Letters x/y/z name the solver mesh's
+    axes; "auto" keeps every axis whose kinv-weighted mean face conductance
+    A / (h * kinv_axis) is >= 3x the weakest axis's mean."""
+    spec = (spec or "").strip().lower()
+    if not spec:
+        return ()
+    d = len(mesh.shape)
+    if spec == "auto":
+        if kinv is None:
+            return ()
+        vol = np.asarray(mesh.cell_volumes()).reshape(tuple(int(n) for n in mesh.shape[::-1]))
+        means = []
+        for a in range(d):
+            h = np.diff(np.asarray(mesh.axes[a]))
+            hg = h.reshape((1,) * (d - 1 - a) + (-1,) + (1,) * a)
+            cond = (vol / hg) / (hg * np.asarray(kinv)[:, a].reshape(vol.shape))
+            means.append(float(cond.mean()))
+        lo = min(means)
+        return tuple(a for a in range(d) if means[a] >= 3.0 * lo)
+    letters = {"x": 0, "y": 1, "z": 2}
+    axes = []
+    for ch in spec:
+        if ch not in letters or letters[ch] >= d:
+            raise ValueError(
+                f"coefmg_line_axes {spec!r}: unknown axis {ch!r} for a {d}-D mesh "
+                "(use letters from 'xyz'[:d] or 'auto')"
+            )
+        axes.append(letters[ch])
+    return tuple(axes)
+
+
+# -- static axis helpers (axis = array dim of the mesh axis) -----------------
+
+
+def _arr_ax(x: torch.Tensor, a: int) -> int:
+    return x.ndim - 1 - a
+
+
+def _strided(x: torch.Tensor, axis: int, start: int, stop: int, step: int = 1) -> torch.Tensor:
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(start, stop, step)
+    return x[tuple(idx)]
+
+
+def _group_sum(x: torch.Tensor, axis: int, n_f: int, n_c: int) -> torch.Tensor:
+    """Sum groups of [2]*(n_c - 1) + [tail] along `axis`."""
+    if n_c == n_f:  # passthrough axis (already 1-2 cells)
+        return x
+    main = x.narrow(axis, 0, 2 * (n_c - 1)).unflatten(axis, (n_c - 1, 2)).sum(axis + 1)
+    tail = x.narrow(axis, 2 * (n_c - 1), n_f - 2 * (n_c - 1)).sum(axis, keepdim=True)
+    return torch.cat([main, tail], dim=axis)
+
+
+def _repeat_groups(x: torch.Tensor, axis: int, n_f: int, n_c: int) -> torch.Tensor:
+    """Adjoint structure of _group_sum: repeat each coarse entry over its
+    group, n_c -> n_f entries."""
+    if n_c == n_f:
+        return x
+    main = x.narrow(axis, 0, n_c - 1).repeat_interleave(2, dim=axis)
+    tail = x.narrow(axis, n_c - 1, 1).repeat_interleave(n_f - 2 * (n_c - 1), dim=axis)
+    return torch.cat([main, tail], dim=axis)
+
+
+def _plane_select(x: torch.Tensor, axis: int, n_f: int, n_c: int) -> torch.Tensor:
+    """Coarse face planes of one axis: fine planes 0, 2, ..., 2(n_c-1), n_f."""
+    if n_c == n_f:
+        return x
+    return torch.cat([_strided(x, axis, 0, 2 * (n_c - 1) + 1, 2), x.narrow(axis, n_f, 1)],
+                     dim=axis)
+
+
+def _series(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Conductances in series, ab/(a+b); a blocked (0) face stays blocked."""
+    s = a + b
+    pos = s > 0
+    return torch.where(pos, a * b / torch.where(pos, s, torch.ones_like(s)), torch.zeros_like(s))
+
+
+def _face_series(x: torch.Tensor, axis: int, n_f: int, n_c: int) -> torch.Tensor:
+    """Harmonic coarse faces of one axis: coarse face k combines fine faces
+    2k and 2k+1 in series; the last takes the 1-2 faces the tail cell
+    leaves over."""
+    if n_c == n_f:
+        return x
+    main = _series(_strided(x, axis, 0, 2 * n_c, 2), _strided(x, axis, 1, 2 * n_c, 2))
+    rest = x.narrow(axis, 2 * n_c, x.shape[axis] - 2 * n_c)
+    last = rest.narrow(axis, 0, 1)
+    if rest.shape[axis] > 1:
+        last = _series(last, rest.narrow(axis, 1, 1))
+    return torch.cat([main, last], dim=axis)
+
+
+# -- per-sample hierarchy setup -----------------------------------------------
+
+
+def struct_mg_dinvs(mg: StructCoefMG, dinv0_flat: torch.Tensor):
+    """Per level, the per-axis face-grid conductances from the flat masked
+    mass-diagonal inverse (batch..., n_u): level 0 is a reshape; each
+    coarser level selects (or series-composes) the face planes and
+    group-sums the transverse axes."""
+    d = len(mg.levels[0].shape)
+    batch = dinv0_flat.shape[:-1]
+    shape0 = mg.levels[0].shape
+    axes0 = []
+    for a in range(d):
+        fshape = list(shape0)
+        fshape[a] += 1
+        seg = dinv0_flat[..., mg.face_offsets[a]: mg.face_offsets[a + 1]]
+        axes0.append(seg.reshape(batch + tuple(fshape[::-1])))
+    out = [tuple(axes0)]
+    coarsen_face = _face_series if mg.coarsen == "harmonic" else _plane_select
+    for lvl in mg.levels[1:]:
+        cur = []
+        for a, x in enumerate(out[-1]):
+            x = coarsen_face(x, _arr_ax(x, a), lvl.fine_shape[a], lvl.shape[a])
+            for b in range(d):
+                if b != a:
+                    x = _group_sum(x, _arr_ax(x, b), lvl.fine_shape[b], lvl.shape[b])
+            cur.append(x)
+        out.append(tuple(cur))
+    return out
+
+
+def _jdiag_grid(dinv_axes) -> torch.Tensor:
+    """Jacobi diagonal of S on the cell grid (1 where it is 0)."""
+    diag = None
+    for a, da in enumerate(dinv_axes):
+        ax = _arr_ax(da, a)
+        n = da.shape[ax] - 1
+        c = da.narrow(ax, 0, n) + da.narrow(ax, 1, n)
+        diag = c if diag is None else diag + c
+    return torch.where(diag > 0, diag, torch.ones_like(diag))
+
+
+def _line_tables(dinv_axes, a: int):
+    """(dl, dd, du) of the line relaxation along mesh axis a, solved axis
+    FIRST and contiguous: the full Jacobi diagonal, off-diagonals -dinv_a
+    at the faces. Cell i couples to i-1 through face i and to i+1 through
+    face i+1, so dl[0] and du[n-1] hold the boundary faces' values; the
+    Thomas recurrence never reads them (T_a keeps the full diagonal, so it
+    is SPD and the undamped line sweep is S-convergent)."""
+    diag = _jdiag_grid(dinv_axes)
+    da = dinv_axes[a]
+    dm = da.movedim(_arr_ax(da, a), 0)  # (n_a + 1, ...)
+    n = dm.shape[0] - 1
+    dl = (-dm.narrow(0, 0, n)).contiguous()
+    du = (-dm.narrow(0, 1, n)).contiguous()
+    dd = diag.movedim(_arr_ax(diag, a), 0).contiguous()
+    return dl, dd, du
+
+
+def struct_mg_setup(mg: StructCoefMG, dinv0_flat: torch.Tensor):
+    """Per-solve V-cycle state: per level (dinv_axes, idiag, line_tables),
+    with the inverse Jacobi diagonal and (for mg.line_axes) the
+    solved-axis-first line tables precomputed once per solve."""
+    out = []
+    for axes in struct_mg_dinvs(mg, dinv0_flat):
+        lines = tuple(_line_tables(axes, a) for a in mg.line_axes)
+        out.append((axes, 1.0 / _jdiag_grid(axes), lines))
+    return out
+
+
+def cast_state(state, dtype: torch.dtype):
+    """The setup state with every tensor cast to `dtype` (the bfloat16
+    preconditioner state of config.coefmg_prec_dtype)."""
+    if isinstance(state, torch.Tensor):
+        return state.to(dtype)
+    return type(state)(cast_state(s, dtype) for s in state)
+
+
+# -- device apply -------------------------------------------------------------
+
+
+def _pad_axis(x: torch.Tensor, a: int) -> torch.Tensor:
+    """Zero-pad mesh axis a (array dim ndim - 1 - a) by one on each side."""
+    return F.pad(x, (0, 0) * a + (1, 1))
+
+
+def _s_apply_grid(dinv_axes, x: torch.Tensor) -> torch.Tensor:
+    """S x on the cell grid: per axis, flux t_k = d_k (x_{k-1} - x_k) with a
+    zero-padded exterior, then (S x)_i += t_{i+1} - t_i."""
+    y = None
+    for a, da in enumerate(dinv_axes):
+        ax = _arr_ax(x, a)
+        n = x.shape[ax]
+        xp = _pad_axis(x, a)
+        t = da * (xp.narrow(ax, 0, n + 1) - xp.narrow(ax, 1, n + 1))
+        contrib = t.narrow(ax, 1, n) - t.narrow(ax, 0, n)
+        y = contrib if y is None else y + contrib
+    return y
+
+
+def _restrict_cells(x: torch.Tensor, lvl: StructMGLevel) -> torch.Tensor:
+    for a in range(len(lvl.shape)):
+        x = _group_sum(x, _arr_ax(x, a), lvl.fine_shape[a], lvl.shape[a])
+    return x
+
+
+def _prolong_cells(x: torch.Tensor, lvl: StructMGLevel) -> torch.Tensor:
+    for a in range(len(lvl.shape)):
+        x = _repeat_groups(x, _arr_ax(x, a), lvl.fine_shape[a], lvl.shape[a])
+    return x
+
+
+def _cheb_smooth_grid(mg: StructCoefMG, dinv_axes, idiag, b, x):
+    """Order-k Chebyshev(Jacobi) sweep on [cheby_lo * 2, 2] of D^{-1} S."""
+    lam_max = 2.0
+    lam_min = mg.cheby_lo * lam_max
+    theta = 0.5 * (lam_max + lam_min)
+    delta = 0.5 * (lam_max - lam_min)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    if x is None:
+        r = b
+        x = torch.zeros_like(b)
+    else:
+        r = b - _s_apply_grid(dinv_axes, x)
+    dvec = (1.0 / theta) * idiag * r
+    for _ in range(mg.cheby_order - 1):
+        x = x + dvec
+        r = r - _s_apply_grid(dinv_axes, dvec)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        dvec = (rho_new * rho) * dvec + (2.0 * rho_new / delta) * (idiag * r)
+        rho = rho_new
+    return x + dvec
+
+
+def _line_solve(tables, r: torch.Tensor, a: int) -> torch.Tensor:
+    """T_a^{-1} r on the cell grid through K1 (tables solved axis first)."""
+    dl, dd, du = tables
+    ax = _arr_ax(r, a)
+    x = thomas(dl, dd, du, r.movedim(ax, 0).contiguous())
+    return x.movedim(0, ax)
+
+
+def _line_smooth_grid(mg: StructCoefMG, dinv_axes, lines, b, x, reverse: bool):
+    """One line-relaxation pass, x += line_omega T_a^{-1} (b - S x) for each
+    configured axis; the post-smoothing pass runs the axes reversed so the
+    V-cycle stays self-adjoint."""
+    order = list(range(len(mg.line_axes)))
+    if reverse:
+        order.reverse()
+    for i in order:
+        a = mg.line_axes[i]
+        if x is None:
+            x = mg.line_omega * _line_solve(lines[i], b, a)
+        else:
+            r = b - _s_apply_grid(dinv_axes, x)
+            x = x + mg.line_omega * _line_solve(lines[i], r, a)
+    return x
+
+
+def _v_cycle_grid(mg: StructCoefMG, state, b: torch.Tensor, sweeps: int, level: int):
+    dinv_axes, idiag, lines = state[level]
+    cheby = mg.cheby_order > 0
+    use_lines = bool(mg.line_axes) and len(lines) == len(mg.line_axes)
+    if level == len(mg.levels) - 1:
+        if use_lines:
+            # (forward, reverse) line pass pairs at the coarsest level too.
+            x = _line_smooth_grid(mg, dinv_axes, lines, b, None, False)
+            x = _line_smooth_grid(mg, dinv_axes, lines, b, x, True)
+            for _ in range(max(1, mg.coarse_sweeps // 2) - 1):
+                x = _line_smooth_grid(mg, dinv_axes, lines, b, x, False)
+                x = _line_smooth_grid(mg, dinv_axes, lines, b, x, True)
+            return x
+        x = mg.omega * idiag * b
+        for _ in range(mg.coarse_sweeps - 1):
+            x = x + mg.omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+        return x
+    # Pre-smoothing: point/Chebyshev, then lines forward; post-smoothing the
+    # mirror (lines reversed, then point/Chebyshev).
+    if cheby:
+        x = _cheb_smooth_grid(mg, dinv_axes, idiag, b, None)
+    else:
+        x = mg.omega * idiag * b
+        for _ in range(sweeps - 1):
+            x = x + mg.omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+    if use_lines:
+        x = _line_smooth_grid(mg, dinv_axes, lines, b, x, reverse=False)
+    r = b - _s_apply_grid(dinv_axes, x)
+    nxt = mg.levels[level + 1]
+    xc = _v_cycle_grid(mg, state, _restrict_cells(r, nxt), sweeps, level + 1)
+    x = x + _prolong_cells(xc, nxt)
+    if use_lines:
+        x = _line_smooth_grid(mg, dinv_axes, lines, b, x, reverse=True)
+    if cheby:
+        return _cheb_smooth_grid(mg, dinv_axes, idiag, b, x)
+    for _ in range(sweeps):
+        x = x + mg.omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+    return x
+
+
+# -- flat-vector API -----------------------------------------------------------
+
+
+def struct_s_apply(mg: StructCoefMG, state, x_flat: torch.Tensor) -> torch.Tensor:
+    """Fine-level S x for flat (batch..., n_s) vectors (struct_mg_setup state)."""
+    batch = x_flat.shape[:-1]
+    xg = x_flat.reshape(batch + tuple(mg.levels[0].shape[::-1]))
+    return _s_apply_grid(state[0][0], xg).reshape(batch + (-1,))
+
+
+def struct_v_cycle(mg: StructCoefMG, state, b_flat: torch.Tensor, sweeps: int = 2) -> torch.Tensor:
+    """One V(sweeps, sweeps) cycle (Chebyshev when cheby_order > 0) for flat
+    (batch..., n_s) residuals, with struct_mg_setup state."""
+    batch = b_flat.shape[:-1]
+    bg = b_flat.reshape(batch + tuple(mg.levels[0].shape[::-1]))
+    return _v_cycle_grid(mg, state, bg, sweeps, 0).reshape(batch + (-1,))

@@ -100,6 +100,19 @@ class MassTridiagSolver(nn.Module):
             factors.append(tuple(t.contiguous() for t in tables))
         return tuple(factors)
 
+    def masked_diag(self, factors, batch: Tuple[int, ...]) -> torch.Tensor:
+        """diag M(w) as a flat (batch..., n_u) face vector with essential
+        faces 0 (the reference's masked ELL diagonal L.m_diag(w)), read off
+        the tables factor() built: their diagonal is the same per-cell sum
+        with essential rows set to 1 instead."""
+        B = int(np.prod(batch)) if batch else 1
+        outs = []
+        for a, ax in enumerate(self.axes):
+            diag = factors[a][1].masked_fill(ax.ess.unsqueeze(1), 0.0)
+            inv = tuple(int(i) for i in np.argsort(ax.batch_perm))
+            outs.append(diag.permute(inv).reshape(B, -1))
+        return torch.cat(outs, dim=-1).reshape(tuple(batch) + (self.n_u,))
+
     def apply_factored(self, factors, rhs: torch.Tensor) -> torch.Tensor:
         """z = M^{-1} rhs for tables built by factor() (same batch)."""
         batch = rhs.shape[:-1]
@@ -120,12 +133,17 @@ class MassTridiagSolver(nn.Module):
 def build_mass_tridiag_solver(
     lvl: MixedLevel,
     ess_mask: np.ndarray,
+    kinv_ref: Optional[np.ndarray] = None,
     dtype: torch.dtype = torch.float32,
     device=None,
+    axis_blocks=None,
 ) -> MassTridiagSolver:
     """Static factors for M(w)^{-1} on `lvl`'s mesh with essential dofs
-    `ess_mask` (rediscretized unit-coefficient RT0 mass; the reference's
-    static kinv_ref and Galerkin axis_blocks are not ported yet)."""
+    `ess_mask`: the rediscretized RT0 mass with an optional static per-axis
+    inverse permeability kinv_ref ((n_s, d) or (n_s,)) folded in, or the
+    general per-cell Galerkin blocks (bll, blr, brr) of
+    fem/galerkin_mass.py via `axis_blocks` (their lo and hi diagonal
+    entries differ, so m_hi comes from brr)."""
     mesh = lvl.mesh
     d = mesh.dim
     shape = mesh.shape
@@ -134,9 +152,21 @@ def build_mass_tridiag_solver(
                                                device=device)
     axes = []
     for a in range(d):
-        h = mesh.cell_widths(a).reshape(shape[::-1])
-        m_lo = h * h / (3.0 * vol)
-        m_mid = 0.5 * m_lo
+        if axis_blocks is not None:
+            bll, blr, brr = axis_blocks
+            m_lo = bll[:, a].reshape(shape[::-1])
+            m_mid = blr[:, a].reshape(shape[::-1])
+            m_hi = brr[:, a].reshape(shape[::-1])
+        else:
+            h = mesh.cell_widths(a).reshape(shape[::-1])
+            m_lo = h * h / (3.0 * vol)
+            m_mid = 0.5 * m_lo
+            if kinv_ref is not None:
+                k = np.asarray(kinv_ref)
+                ka = (k[:, a] if k.ndim == 2 else k).reshape(shape[::-1])
+                m_lo = m_lo * ka
+                m_mid = m_mid * ka
+            m_hi = m_lo
         # Mesh axis a is array dim d-1-a of the (z, y, x) grid; move it first.
         dim_a = d - 1 - a
         perm = (dim_a,) + tuple(i for i in range(d) if i != dim_a)
@@ -149,7 +179,7 @@ def build_mass_tridiag_solver(
             AxisTables(
                 m_lo=as_t(np.transpose(m_lo, perm)),
                 m_mid=as_t(np.transpose(m_mid, perm)),
-                m_hi=as_t(np.transpose(m_lo, perm)),
+                m_hi=as_t(np.transpose(m_hi, perm)),
                 ess=as_t(np.transpose(ess_a, perm), torch.bool),
                 n_a=shape[a],
                 perm=perm,

@@ -18,7 +18,9 @@ implementation and `jax_threefry_partitionable=True` - bit for bit:
   (float32) or 64-bit bits (float64).
 
 `sample_normals` launches the CUDA kernel K2 (csrc/threefry_normal.cu) for
-a CUDA device and runs the plain PyTorch version below for the CPU. The
+a CUDA device and runs the plain PyTorch version below for the CPU;
+`sample_uniforms` does the same with K3, the kernel's uniform mode (the
+mantissa-trick float itself, equal to jax.random.uniform bit for bit). The
 two agree bit for bit on the raw bits; the normals can differ only through
 erfinv (CUDA's in the kernel, PyTorch's in the plain version; on an H100
 the two gave identical values). Against jax.random.normal on the CPU the
@@ -106,33 +108,40 @@ def _normal_constants(dtype: torch.dtype) -> Tuple[float, float, float]:
     return float(lo), float(scale), float(sqrt2)
 
 
+def uniforms_plain(key: Key, shape: Sequence[int], dtype: torch.dtype,
+                   device=None) -> torch.Tensor:
+    """jax.random.uniform(key, shape, dtype) on [0, 1) in plain PyTorch: the
+    mantissa-trick float bitcast((bits >> (nbits - nmant)) | bits(1.0)) - 1
+    from 32-bit bits (float32) or 64-bit bits (float64)."""
+    if dtype == torch.float32:
+        bits = random_bits_plain(key, 32, shape, device)
+        fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+        return fbits.view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        # The top 52 of the 64 bits, built from the words so nothing
+        # overflows: bits >> 12 = (y0 << 20) | (y1 >> 12).
+        idx = torch.arange(_numel(shape), dtype=torch.int64, device=device)
+        y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
+        mant = (y0 << 20) | (y1 >> 12)
+        f = (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
+        return f.reshape(tuple(shape))
+    raise NotImplementedError(f"random floats in {dtype} are not supported")
+
+
 def normals_plain(key: Key, shape: Sequence[int], dtype: torch.dtype,
                   device=None) -> torch.Tensor:
     """jax.random.normal(key, shape, dtype) in plain PyTorch (threefry in
     int64 tensor ops, mantissa-trick uniform, erfinv)."""
     lo, scale, sqrt2 = _normal_constants(dtype)
-    if dtype == torch.float32:
-        bits = random_bits_plain(key, 32, shape, device)
-        fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-        f = fbits.view(torch.float32) - 1.0
-    elif dtype == torch.float64:
-        # The top 52 of the 64 bits, built from the words so nothing
-        # overflows: bits >> 12 = (y0 << 20) | (y1 >> 12).
-        n = _numel(shape)
-        idx = torch.arange(n, dtype=torch.int64, device=device)
-        y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
-        mant = (y0 << 20) | (y1 >> 12)
-        f = (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
-        f = f.reshape(tuple(shape))
-    else:
-        raise NotImplementedError(f"normals in {dtype} are not supported")
+    f = uniforms_plain(key, shape, dtype, device)
     lo_t = torch.tensor(lo, dtype=dtype, device=f.device)
     u = torch.maximum(lo_t, f * torch.tensor(scale, dtype=dtype, device=f.device) + lo_t)
     return torch.special.erfinv(u) * torch.tensor(sqrt2, dtype=dtype, device=f.device)
 
 
-def _launch_threefry(fn_name: str, key: Key, out: torch.Tensor, *consts) -> None:
-    kernels.launch("threefry_normal", out.device, getattr(kernels.library(), fn_name),
+def _launch_threefry(fn_name: str, key: Key, out: torch.Tensor, *consts,
+                     count: str = "threefry_normal") -> None:
+    kernels.launch(count, out.device, getattr(kernels.library(), fn_name),
                    key[0], key[1], out.data_ptr(), out.numel(), *consts)
 
 
@@ -167,4 +176,22 @@ def sample_normals(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.fl
     out = torch.empty(tuple(shape), dtype=dtype, device=device)
     name = "threefry_normal_f32" if dtype == torch.float32 else "threefry_normal_f64"
     _launch_threefry(name, key, out, *_normal_constants(dtype))
+    return out
+
+
+def sample_uniforms(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.float32,
+                    device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """U[0, 1) samples of `shape`, equal to jax.random.uniform(key, shape,
+    dtype) bit for bit. K3 (the uniform mode of csrc/threefry_normal.cu) on a
+    CUDA device, the plain version on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return uniforms_plain(key, shape, dtype, device)
+    if device.type != "cuda":
+        raise ValueError(f"sample_uniforms: unsupported device {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"random floats in {dtype} are not supported")
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    name = "threefry_uniform_f32" if dtype == torch.float32 else "threefry_uniform_f64"
+    _launch_threefry(name, key, out, count="threefry_uniform")
     return out

@@ -10,13 +10,18 @@ cost model with the steady-state ledger.
 
 Each level step runs eagerly on the solver's device: the coarsest level
 evaluates Q alone, the others the coupled (fine, coarse) pair with shared
-noise and a warm-started fine solve. The kernels are built before any cost
-timer runs, so a first-use nvcc build never enters C_l.
+noise and a warm-started fine solve (with adjoint_qoi the coarse adjoint
+warm-starts the fine one too). The kernels are built before any cost timer
+runs, so a first-use nvcc build never enters C_l.
+
+`split_pair_programs` with `solve_segments` = n: the reference splits the
+pair step into bounded device executions (a TPU worker limit) and
+continues an unconverged pair solve for up to n executions of
+max_iterations each. Here each pair solve runs composed, as one solve with
+that total budget, n * max_iterations.
 
 Not ported yet: save_state/load_state/resume, MCManager and sample
-sharding (ROADMAP.md Queue 1, items 8 and 14). `split_pair_programs` is
-accepted and ignored (the TPU worker's execution-duration limit that it
-worked around does not exist here).
+sharding (ROADMAP.md Queue 1, items 8 and 14).
 """
 
 from __future__ import annotations
@@ -136,17 +141,30 @@ class MLMCManager:
                 return q, torch.zeros_like(q), info.iterations
 
         else:
+            budget = self.pair_budget
+
             # Coarse-then-fine with the warm-started fine solve (the
             # reference's Eval(l+1) -> Eval(l, ..., use_init) pattern).
             def step(key):
                 xi = sampler.sample(level, key, batch)
                 s_f = sampler.eval(level, xi)
                 s_c = sampler.eval(level + 1, xi, xi_level=level)
-                q, qc, info_f, info_c = solver.solve_fwd_pair(level, s_f, s_c)
+                q, qc, info_f, info_c = solver.solve_fwd_pair(level, s_f, s_c,
+                                                              max_iters=budget)
                 return q, qc, info_f.iterations + info_c.iterations
 
         self._steps[level] = step
         return step
+
+    @property
+    def pair_budget(self) -> Optional[int]:
+        """Krylov budget of each pair solve: with split_pair_programs the
+        reference's solve_segments bounded executions of max_iterations
+        each, run as one solve; None (config.max_iterations) otherwise."""
+        if not getattr(self.config, "split_pair_programs", False):
+            return None
+        segments = max(1, int(getattr(self.config, "solve_segments", 1)))
+        return segments * int(self.solver.solver_cfg.max_iterations)
 
     def _prepare_device(self) -> None:
         """Build and load the CUDA kernels before any cost timer runs."""

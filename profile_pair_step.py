@@ -3,13 +3,16 @@
 
 Run from the root of a checkout:  python3 profile_pair_step.py [--out FILE]
 
-Two configurations, the two pair steps chip_smoke.py times:
+Three configurations, pair steps chip_smoke.py times:
   bench  golden levels 0/1 with bench.py's settings: batch 512, float32,
          rtol 1e-4, 50 iterations, local Schur scaling;
   64^3   refinements=4 (64^3 against 32^3), batch 64, float64, local
          scaling, capped at 100 iterations per solve (a full solve takes
          600-1000; the cap keeps the profile short, and the per-iteration
-         cost is what the split measures).
+         cost is what the split measures);
+  spe10  the full 60x220x85 SPE10 grid, levels 0/1, with the production
+         settings (cg-schur-coefmg with a bf16 cheb3 V-cycle, adjoint QoI,
+         mean-field x0, float32, batch 8; synthetic permeability).
 
 For each it measures the layers of one pair step:
   noise          SPDESampler.sample of the level-0 noise (K2)
@@ -17,6 +20,7 @@ For each it measures the layers of one pair step:
   coarse_solve   DarcySolver.solve_fwd on the coarse level
   fine_solve     DarcySolver.solve_fwd_warm on the fine level
   minv_apply     one M(w)^{-1} apply on the fine level (three K1 solves)
+  prec_apply     one coefMG V-cycle on the fine level (spe10 only)
   pair_step      the whole step
 and for each layer: host wall ms per call (synchronized, no profiler),
 event ms per call (CUDA events around back-to-back calls, no profiler: an
@@ -102,7 +106,7 @@ def device_split(ka, reps: int) -> dict:
                 and e.self_device_time_total > 0:
             split[e.key] = e.self_device_time_total / 1e3 / reps
         elif e.device_type == DeviceType.CUDA:
-            for tag in ("thomas_kernel", "threefry_kernel"):
+            for tag in ("thomas_kernel", "threefry_kernel"):  # incl. thomas_kernel_bf16
                 if tag in e.key:
                     split[tag] = split.get(tag, 0.0) + e.self_device_time_total / 1e3 / reps
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
@@ -116,8 +120,12 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str) -> dict:
     xi = sampler.sample(0, key, batch)
     s_f = sampler.eval(0, xi)
     s_c = sampler.eval(1, xi, xi_level=0)
-    _, _, info_c, p_c = solver.solve_fwd(1, s_c, return_pressure=True)
-    _, _, info_f = solver.solve_fwd_warm(0, s_f, p_c)
+    # The pair's two solves as solve_fwd_pair runs them (with adjoint_qoi
+    # the coarse adjoint warm-starts the fine one).
+    adj = solver.adjoint_pair_enabled(0)
+    out_c = solver.solve_fwd(1, s_c, return_pressure=True, return_adjoint=adj)
+    info_c, p_c, lam_c = out_c[2], out_c[3], (out_c[4] if adj else None)
+    _, _, info_f = solver.solve_fwd_warm(0, s_f, p_c, lam_c=lam_c)
     L0 = solver.levels[0]
     fac = L0.mass_solver.factor(s_f)
     u = s_f.new_ones(batch, L0.n_u)
@@ -129,15 +137,20 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str) -> dict:
     layers = {
         "noise": lambda: sampler.sample(0, key, batch),
         "sampler_solve": lambda: (sampler.eval(0, xi), sampler.eval(1, xi, xi_level=0)),
-        "coarse_solve": lambda: solver.solve_fwd(1, s_c, return_pressure=True),
-        "fine_solve": lambda: solver.solve_fwd_warm(0, s_f, p_c),
+        "coarse_solve": lambda: solver.solve_fwd(1, s_c, return_pressure=True,
+                                                 return_adjoint=adj),
+        "fine_solve": lambda: solver.solve_fwd_warm(0, s_f, p_c, lam_c=lam_c),
         "minv_apply": lambda: L0.mass_solver.apply_factored(fac, u),
-        "pair_step": pair_step,
     }
+    if L0.coef_mg is not None:
+        prec = solver._preconditioner(L0, s_f, fac)  # this sample's V-cycle
+        r = s_f.new_ones(batch, L0.n_s)
+        layers["prec_apply"] = lambda: prec(r)
+    layers["pair_step"] = pair_step
     out = {"config": label, "batch": batch, "card": gpu,
            "iterations": {"coarse": int(info_c.iterations), "fine": int(info_f.iterations)},
            "layers": {}}
-    cheap = ("noise", "sampler_solve", "minv_apply")
+    cheap = ("noise", "sampler_solve", "minv_apply", "prec_apply")
     for name, fn in layers.items():
         # A profiler session can lose a few device events; the cheap layers
         # run ten times as often so that a loss stays a small share.
@@ -178,7 +191,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_pair_step: torch.cuda.is_available() is False: needs a CUDA card")
     sys.path.insert(0, HERE)
-    from chip_smoke import gpu_info, pair_problem
+    from chip_smoke import gpu_info, pair_problem, spe10_full_problem
     from parelagmc_tpu_torch import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -191,6 +204,7 @@ def main() -> None:
                        512, 5, gpu),
         profile_config("64^3", pair_problem(4, 64, 1e-5, 100, "float64", device,
                                             restart_every=0), 64, 2, gpu),
+        profile_config("spe10", spe10_full_problem(device), 8, 3, gpu),
     ]}
     if "jax" in sys.modules:
         sys.exit("profile_pair_step: jax was imported")

@@ -1,6 +1,7 @@
 """Batched PCG and the cg-schur Darcy solver of the port held against the
 JAX package on the CPU in float64: equal iteration counts, Q to 1e-9
-relative, and the fixed-seed per-level anchors of darcy_random_input."""
+relative, and the fixed-seed per-level anchors of darcy_random_input.
+(cg-schur-coefmg, kinv_ref, adjoint and meanfield: tests/test_torch_spe10.py.)"""
 
 import jax
 import jax.numpy as jnp
@@ -161,14 +162,16 @@ def test_constant_coefficient_gives_unit_slab_flux():
 
 
 @pytest.mark.parametrize(
-    "field,value",
-    [("name", "minres-bj"), ("name", "cg-schur-coefmg"), ("adjoint_qoi", True),
-     ("meanfield_x0", True), ("spatial_shards", 2)],
+    "options",
+    [dict(name="minres-bj"), dict(name="cg-schur-diag"),
+     dict(name="cg-schur-coefmg", coefmg_impl="gather"),
+     dict(adjoint_qoi=True, adjoint_stacked=True), dict(spatial_shards=2)],
 )
-def test_not_ported_solver_options_raise(field, value):
+def test_not_ported_solver_options_raise(options):
     base = make_box_mesh((2, 2, 2), lengths=(2.0, 2.0, 2.0))
     hier = build_geometric_hierarchy(base, 1)
     cfg = ProblemConfig(refinements=0)
-    setattr(cfg.darcy_solver, field, value)
+    for field, value in options.items():
+        setattr(cfg.darcy_solver, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DarcySolver(hier, cfg, F64)

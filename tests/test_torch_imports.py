@@ -21,12 +21,14 @@ MODULES = [
     "parelagmc_tpu_torch.convert",
     "parelagmc_tpu_torch.device",
     "parelagmc_tpu_torch.kernels",
+    "parelagmc_tpu_torch.ops.coef_multigrid_structured",
     "parelagmc_tpu_torch.ops.mass_solve",
     "parelagmc_tpu_torch.ops.prng",
     "parelagmc_tpu_torch.ops.solvers",
     "parelagmc_tpu_torch.ops.tensorsolve",
     "parelagmc_tpu_torch.ops.tridiag_pallas",
     "parelagmc_tpu_torch.physics.darcy",
+    "parelagmc_tpu_torch.physics.spe10",
     "parelagmc_tpu_torch.problems",
     "parelagmc_tpu_torch.samplers.pde",
     "parelagmc_tpu_torch.uq.managers",
@@ -77,8 +79,8 @@ def test_device_and_dtype_helpers():
 
 @pytest.mark.parametrize(
     "field,value",
-    [("mesh", "spe10"), ("embedding", "matching"), ("sampler_name", "matern"),
-     ("axis_order", "auto"), ("dtype", "bfloat16")],
+    [("mesh", "egg"), ("embedding", "matching"), ("sampler_name", "matern"),
+     ("mesh", "cube.mesh"), ("dtype", "bfloat16")],
 )
 def test_build_problem_refuses_unported_configs(field, value):
     cfg = ProblemConfig(refinements=0, **{field: value})

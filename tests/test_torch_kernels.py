@@ -38,7 +38,19 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     dl, d, du, b = _lines(5, 7, torch.float64, "cpu")
     assert torch.equal(thomas(dl, d, du, b), thomas_plain(dl, d, du, b))
     prng.sample_normals(prng.PRNGKey(2), (3, 4), torch.float64, "cpu")
+    prng.sample_uniforms(prng.PRNGKey(2), (3, 4), torch.float32, "cpu")
     assert kernels.launch_counts == before
+
+
+def test_thomas_plain_bfloat16_runs_float32_and_rounds_once():
+    """bf16 lines: the recurrence in float32, x rounded to bf16 at the end
+    (what thomas_solve_bf16 does), so the result is the float32 solve of the
+    bf16 tables, rounded."""
+    dl, d, du, b = _lines(9, 11, torch.bfloat16, "cpu", seed=4)
+    x = thomas(dl, d, du, b)
+    assert x.dtype == torch.bfloat16
+    ref = thomas_plain(*(t.float() for t in (dl, d, du, b))).to(torch.bfloat16)
+    assert torch.equal(x, ref)
 
 
 def test_full_precision_float32_matmul_is_the_default():
@@ -86,3 +98,32 @@ def test_threefry_kernel_matches_plain(cuda_device, dtype, tol):
     # Identical bits; CUDA's erfinv against PyTorch's, scaled for the tails.
     err = ((got - ref).abs() / (1.0 + ref.abs())).max().item()
     assert err <= tol, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,L", [(17, 131072), (86, 4099)])
+def test_thomas_bf16_kernel_matches_plain(cuda_device, n, L):
+    """The bf16 instantiation rounds each step as the plain version's
+    float32 ops do (no FMA contraction), so the two agree bit for bit."""
+    dl, d, du, b = _lines(n, L, torch.bfloat16, cuda_device, seed=n)
+    n0 = kernels.launch_counts["thomas"]
+    x = thomas(dl, d, du, b)
+    assert kernels.launch_counts["thomas"] == n0 + 1
+    ref = thomas_plain(dl, d, du, b)
+    torch.cuda.synchronize()
+    assert x.dtype == torch.bfloat16
+    assert torch.equal(x, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_threefry_uniform_kernel_matches_plain(cuda_device, dtype):
+    key = prng.fold_in(prng.PRNGKey(5), 2)
+    shape = (64, 4096 + 3)
+    n0 = kernels.launch_counts["threefry_uniform"]
+    got = prng.sample_uniforms(key, shape, dtype, cuda_device)
+    assert kernels.launch_counts["threefry_uniform"] == n0 + 1
+    ref = prng.uniforms_plain(key, shape, dtype, cuda_device)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+    assert 0.0 <= got.min().item() and got.max().item() < 1.0

@@ -8,10 +8,19 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import _torch_parity  # noqa: F401  (thread count)
+from parelagmc_tpu.config import ProblemConfig
+from parelagmc_tpu.fem import build_geometric_hierarchy
+from parelagmc_tpu.mesh import make_box_mesh
+from parelagmc_tpu.physics import DarcySolver as JaxDarcySolver
 from parelagmc_tpu.problems import build_problem as jax_build_problem
+from parelagmc_tpu.samplers import SPDESampler as JaxSPDESampler
 from parelagmc_tpu.uq import MLMCManager as JaxMLMCManager
+from parelagmc_tpu_torch.physics import DarcySolver
 from parelagmc_tpu_torch.problems import build_problem
+from parelagmc_tpu_torch.samplers.pde import SPDESampler
 from parelagmc_tpu_torch.uq import MLMCManager
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager
 
@@ -106,3 +115,41 @@ def test_manager_rejects_sample_sharding():
     prob = build_problem(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MLMCManager(prob.solver, prob.sampler, cfg)
+
+
+def _managers_problem(port: bool, **kw):
+    """tests/test_managers.py's build_problem (8^3 box of side 2, 3 levels,
+    float64) on either package."""
+    hier = build_geometric_hierarchy(make_box_mesh((2, 2, 2), lengths=(2.0, 2.0, 2.0)), 3)
+    cfg = ProblemConfig(refinements=2, mse=5e-3, batch_size=16, initial_samples=16,
+                        output_filename="", seed=13, **kw)
+    if port:
+        return SPDESampler(hier, cfg, torch.float64), DarcySolver(hier, cfg, torch.float64), cfg
+    return JaxSPDESampler(hier, cfg, jnp.float64), JaxDarcySolver(hier, cfg, jnp.float64), cfg
+
+
+def test_split_pair_segments_run_composed_with_the_full_budget():
+    """split_pair_programs + solve_segments: the reference continues each
+    pair solve for up to solve_segments bounded executions; the port runs
+    it as one solve with that total budget. At 10 iterations x 12 segments
+    (tests/test_managers.py::test_split_pair_coarse_member_continues) the
+    port's eY/eQ match the JAX package's deep composed run; with the
+    budget of one segment they do not."""
+    TimeManager.reset()
+    sampler, solver, cfg = _managers_problem(port=False)
+    ref = JaxMLMCManager(solver, sampler, cfg)
+    ref.init_run([8, 8, 8])
+    results = {}
+    for split in (True, False):
+        sampler, solver, cfg = _managers_problem(port=True, split_pair_programs=split,
+                                                 solve_segments=12)
+        cfg.darcy_solver.max_iterations = 10
+        mgr = MLMCManager(solver, sampler, cfg)
+        assert mgr.pair_budget == (120 if split else None)
+        mgr.init_run([8, 8, 8])
+        results[split] = (mgr.eY.copy(), mgr.eQ.copy())
+    for a, b in zip((ref.eY, ref.eQ), results[True]):
+        np.testing.assert_allclose(b, a, rtol=5e-4, atol=1e-8)
+    # One segment's budget leaves the pair solves unconverged (the fault the
+    # repair removed: the port used to ignore solve_segments).
+    assert np.abs(results[False][0] - ref.eY).max() > 1e-2

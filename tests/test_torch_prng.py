@@ -1,6 +1,6 @@
-"""Keys, bits and normals of the port (parelagmc_tpu_torch.ops.prng) held
-against jax.random on the CPU: bits exactly, normals within the erfinv
-gap (5e-5 abs in float32, 1e-10 abs in float64)."""
+"""Keys, bits, uniforms and normals of the port (parelagmc_tpu_torch.ops.prng)
+held against jax.random on the CPU: bits and uniforms exactly, normals
+within the erfinv gap (5e-5 abs in float32, 1e-10 abs in float64)."""
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +58,27 @@ def test_normals_match_jax(dtype, tdtype, atol, shape):
         np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("dtype,tdtype", [(jnp.float32, torch.float32),
+                                          (jnp.float64, torch.float64)])
+@pytest.mark.parametrize("shape", SHAPES + [(4, 512)])
+def test_uniforms_match_jax_bit_for_bit(dtype, tdtype, shape):
+    """K3's plain version (the mantissa-trick float of the 32-bit bits for
+    float32, of the 64-bit bits for float64) is jax.random.uniform."""
+    for seed in SEEDS:
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), 9)
+        ref = np.asarray(jax.random.uniform(key, shape, dtype))
+        got = prng.sample_uniforms(_key_data(key), shape, tdtype).numpy()
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
+
+
+def test_uniform_moments():
+    """The uniform moments test of tests/test_misc.py:22 on the port."""
+    u = prng.sample_uniforms(prng.PRNGKey(1), (2000,), torch.float64).numpy()
+    assert 0.0 <= u.min() and u.max() < 1.0
+    assert abs(u.mean() - 0.5) < 0.05 and abs(u.var() - 1.0 / 12.0) < 0.01
+
+
 def test_normal_moments():
     """The moments test of tests/test_misc.py:17 on the port's stream."""
     x = prng.sample_normals(prng.PRNGKey(0), (1000, 50), torch.float64).numpy()
@@ -70,4 +91,7 @@ def test_cpu_draws_do_not_count_as_kernel_launches():
     before = dict(kernels.launch_counts)
     prng.sample_normals(prng.PRNGKey(1), (4, 9), torch.float32)
     prng.random_bits(prng.PRNGKey(1), 64, (4, 9))
+    prng.sample_uniforms(prng.PRNGKey(1), (4, 9), torch.float64)
     assert kernels.launch_counts == before
+    with pytest.raises(NotImplementedError):
+        prng.sample_uniforms(prng.PRNGKey(1), (4, 9), torch.bfloat16)
