@@ -5,15 +5,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printing one line (or block) before the last line:
 
-1. build   - compile the CUDA kernels from csrc/ with nvcc (seconds).
-2. K1      - the Thomas kernel against its plain PyTorch version on the
-             M(w)^{-1} line tables that build_problem's finest level factors
-             for a sampled field: golden (16^3, batch 512) and 64^3 (batch
-             64), float32 and float64: max relative error and ms per M^{-1}
-             apply (three axis solves).
+1. build   - compile the CUDA kernels from csrc/ with nvcc, one process per
+             source, all started together (seconds).
+2. K1      - M(w)^{-1} through the K1 kernel (apply_factored on CUDA
+             tensors: one launch per mesh axis on the flat face layout)
+             against its plain composed version (apply_plain) on the tables
+             that build_problem's finest level factors for a sampled field:
+             golden (16^3, batch 512) and 64^3 (batch 64), float32 and
+             float64: max error relative to max |z|, kernel, plain and bound
+             ms per apply, and the kernel's ms per axis beside each axis's
+             bound.
 3. K2      - the threefry normal kernel against its plain version: raw bits
              identical (32 and 64 bit), normals within tolerance, moments,
-             ms per draw of the golden noise batch.
+             ms per draw of the golden noise batch, beside torch.randn.
 4. MLMC    - the golden MLMC run through build_problem + MLMCManager.run()
              (float32, Darcy rtol 1e-5): dofs 17152/2240/304, |estimate -
              2.56| < 0.25, per-level consistency < 1, both kernels launched
@@ -28,52 +32,84 @@ Phases, each printing one line (or block) before the last line:
 7. K3      - the threefry uniform kernel (K2's uniform mode) through its
              entry point sample_uniforms, then against its plain version at
              (512, 4096) in float32 and float64: identical values, moments,
-             ms per draw.
+             ms per draw, beside torch.rand.
 8. anchor  - the scaled SPE10 MLMC anchor of tests/test_spe10_anchor.py on
              the card (16x32x8 grid, synthetic permeability, f64,
              cg-schur-coefmg, rtol 1e-8, init_run([32, 32, 32])): dofs
              17280/2272/312, |estimate - 361.882| < 0.5, E[Q] within 2e-3
-             of the pins, consistency < 0.1, both kernels launched; then K1
-             and K2 against their plain versions at the shapes this path
-             gives them (every level's M(w)^{-1} tables and noise draw at
-             batch 16, float64).
+             of the pins, consistency < 0.1, both kernels launched; then
+             M(w)^{-1} (K1) and K2 against their plain versions at the
+             shapes this path gives them (every level's M(w)^{-1} tables
+             and noise draw at batch 16, float64).
 9. SPE10   - the full 60x220x85 grid with the production solver settings
              (physics/spe10.full_grid_solver_defaults, float32, corlen 100,
              normalized marginals, axis_order auto, synthetic permeability):
              host setup seconds, then
    9a. K1 on the coefMG line tables: struct_mg_setup on a sampled level-1
-       field with coefmg_line_axes "auto", kernel against its plain version
-       per line axis in float32 and bfloat16 (max relative error, ms per
-       line solve). An isolated check: the production settings leave line
-       smoothing off, so 9b reaches neither the line smoother nor the bf16
-       kernel;
+       field with coefmg_line_axes "auto", kernel (the special case of
+       (n, L) tables, solved axis first) against its plain version per
+       line axis in float32 and bfloat16 (max relative error, kernel,
+       plain and bound ms per line solve). An isolated check: the
+       production settings leave line smoothing off, so 9b reaches
+       neither the line smoother nor the bf16 kernel;
    9b. MLMCManager.init_run([8, 128, 512]) (both kernels launched), then
        one timed batch per level: converged fraction 1.0, finite Q,
        iterations below the manager's pair budget; C_l, iterations and E[Q]
-       per level, peak memory, CUDA-event ms of one level-0 M(w)^{-1} apply
-       and one level-0 V-cycle; then K1 and K2 against their plain versions
-       at the shapes this path gives them: every level's M(w)^{-1} tables
-       (kinv_ref Galerkin blocks, batches 8/128/512, float32) and noise
-       draws ((8, 1122000), (128, 138600), (512, 17325)).
+       per level, peak memory, CUDA-event ms of one level-0 V-cycle; then
+       M(w)^{-1} (K1) and K2 against their plain versions at the shapes
+       this path gives them: every level's M(w)^{-1} tables (kinv_ref
+       Galerkin blocks, batches 8/128/512, float32) and noise draws ((8,
+       1122000), (128, 138600), (512, 17325)).
 
-Then one JSON line with the kernels' numbers (thomas and threefry_normal:
-launches, errors and times of the full-grid path), the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Any failure
-exits non-zero before the last line; without a CUDA card, or without the
-package beside this script, it exits non-zero and prints no result.
+Bounds (bound_ms, the least time the card could take for the same work):
+K1 moves 5 words per unknown (reads dl, d, du and the right-hand side,
+writes the solution; its c and g scratch never leaves the SM) over the
+card's 3.35 TB/s. K2 and K3 write 4 or 8 bytes per element but are bound
+by integer work: the instructions per element, counted by pipe in the SASS
+of the built library (cuobjdump -sass), over that pipe's lanes per SM x the
+SMs x the card's maximum SM clock (nvidia-smi clocks.max.sm); the busiest
+pipe (the INT32 one) sets the bound. A normal draw is held to the uniform
+draw's count, the work every element does before erfinv.
+
+Then one JSON line with the kernels' numbers (launches of each path with
+the counts at 0 before it; errors, ms, plain_ms, bound_ms and library_ms of
+the full-grid path for K1 and K2, of sample_uniforms for K3), the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
+Any failure exits non-zero before the last line; without a CUDA card, or
+without the package beside this script, it exits non-zero and prints no
+result. It also fails if the JAX package or jax was imported.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-F32_TOL_K1, F64_TOL_K1 = 1e-5, 1e-12  # rel. to max |x|; same recurrence, FMA vs not
+# rel. to max |z|: the kernel's order of operations (FMA, the segments of
+# the contiguous axis) against the plain recurrence's.
+F32_TOL_K1, F64_TOL_K1 = 1e-5, 1e-12
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+# The Mode enum of csrc/threefry_normal.cu, in order.
+THREEFRY_MODES = ("kNormalF32", "kNormalF64", "kBits32", "kBits64", "kUniformF32", "kUniformF64")
+# SASS opcodes by the pipe of a Hopper SM partition that issues them, and
+# that pipe's lanes per SM (4 partitions: 16 INT32, 32 FP32 of which 16 also
+# run IMAD, 16 FP64, 4 MUFU lanes each; the architecture white paper).
+PIPES = {
+    "int": ("IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP", "IMNMX",
+            "VIMNMX", "IABS", "PRMT", "SEL", "POPC", "FLO", "BREV", "BMSK", "SGXT"),
+    "imad": ("IMAD", "IMUL", "IDP"),
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL"),
+    "fp64": ("DADD", "DMUL", "DFMA", "DSETP"),
+    "mufu": ("MUFU",),
+}
+PIPE_LANES = {"int": 64, "imad": 64, "fp32": 128, "fp64": 64, "mufu": 16}
 F32_TOL_K2, F64_TOL_K2 = 1e-5, 1e-12  # |a-b|/(1+|b|); CUDA erfinv vs PyTorch's
 # (refinements, batch, label) of the M(w)^{-1} tables K1 is checked on.
 K1_CASES = ((2, 512, "golden 16^3"), (4, 64, "64^3"))
@@ -131,10 +167,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
 
 
 def mass_tables(refinements: int, batch: int, dtype, device):
-    """The per-axis (dl, d, du) line tables that the main path's M(w)^{-1}
-    builds on the finest level of build_problem at `refinements`, for one
-    batch of the sampler's own coefficient field, plus a random right-hand
-    side of each table's shape."""
+    """The M(w)^{-1} solver of build_problem's finest level at
+    `refinements`, its factor tables for one batch of the sampler's own
+    coefficient field, and a random right-hand side (batch, n_u)."""
     from parelagmc_tpu_torch.ops.prng import PRNGKey
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
 
@@ -144,48 +179,130 @@ def mass_tables(refinements: int, batch: int, dtype, device):
     level = prob.solver.levels[0]
     w = prob.sampler.eval(0, prob.sampler.sample(0, PRNGKey(refinements), batch))
     fac = level.mass_solver.factor(w)
-    rhs = random_rhs(fac, refinements)
-    return fac, rhs, level
-
-
-def k1_check(fac, rhs, tol: float, label: str, plain_reps: int = 5):
-    """K1 against its plain version on one M(w)^{-1} factor, every axis:
-    (max error relative to max |x|, max abs error, kernel ms, plain ms per
-    apply of all axes). Fails above `tol`."""
-    import torch
-
-    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
-
-    rel, abs_err = 0.0, 0.0
-    for (dl, d, du), b in zip(fac, rhs):
-        xk = thomas(dl, d, du, b)
-        xp = thomas_plain(dl, d, du, b)
-        torch.cuda.synchronize()
-        if not torch.isfinite(xk).all():
-            fail(f"K1 non-finite output at {label}")
-        diff = (xk - xp).abs().max().item()
-        rel = max(rel, diff / xp.abs().max().item())
-        abs_err = max(abs_err, diff)
-    if not rel <= tol:
-        fail(f"K1 {label}: rel err {rel} > {tol}")
-    ms = cuda_ms(lambda: [thomas(*t, b) for t, b in zip(fac, rhs)])
-    plain_ms = cuda_ms(lambda: [thomas_plain(*t, b) for t, b in zip(fac, rhs)], reps=plain_reps)
-    return rel, abs_err, ms, plain_ms
+    return level.mass_solver, fac, random_rhs(fac, refinements), level
 
 
 def random_rhs(fac, seed: int):
-    """A random right-hand side of each factor table's shape."""
+    """A random right-hand side of the factor tables' (B, n_u) shape."""
     import torch
 
-    d = fac[0][1]
+    d = fac[1]
     g = torch.Generator(device=d.device).manual_seed(seed)
-    return [torch.randn(t[1].shape, generator=g, device=d.device, dtype=d.dtype) for t in fac]
+    return torch.randn(d.shape, generator=g, device=d.device, dtype=d.dtype)
+
+
+def k1_bytes(n_unknowns: int, itemsize: int) -> int:
+    """The bytes K1 must move: dl, d, du and the right-hand side read once,
+    the solution written once (c and g stay on the SM)."""
+    return 5 * n_unknowns * itemsize
+
+
+def bytes_bound_ms(nbytes: int) -> float:
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def k1_check(ms_, fac, rhs, tol: float, label: str, plain_reps: int = 5):
+    """M(w)^{-1} through K1 (apply_factored on CUDA tensors) against its
+    plain composed version on one factor: a dict with the max error
+    relative to max |z|, the max abs error, kernel, plain and bound ms per
+    apply, and per axis (kernel ms, bound ms). Fails above `tol`."""
+    import torch
+
+    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas_lines
+
+    z = ms_.apply_factored(fac, rhs)
+    ref = ms_.apply_plain(fac, rhs)
+    torch.cuda.synchronize()
+    if not torch.isfinite(z).all():
+        fail(f"K1 non-finite output at {label}")
+    abs_err = (z - ref).abs().max().item()
+    rel = abs_err / ref.abs().max().item()
+    if not rel <= tol:
+        fail(f"K1 {label}: rel err {rel} > {tol}")
+    kernel_ms = cuda_ms(lambda: ms_.apply_factored(fac, rhs))
+    plain_ms = cuda_ms(lambda: ms_.apply_plain(fac, rhs), reps=plain_reps)
+    axes = []
+    for lay in ms_.layouts(rhs.shape[0]):
+        axes.append((cuda_ms(lambda: thomas_lines(*fac, rhs, z, lay)),
+                     bytes_bound_ms(k1_bytes(lay.n * lay.L, rhs.element_size()))))
+    bound = bytes_bound_ms(k1_bytes(rhs.numel(), rhs.element_size()))
+    return dict(rel=rel, abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                axes=axes)
+
+
+def k1_line(label: str, r: dict, tol: float, gpu: str) -> str:
+    axes = ", ".join(f"{ms:.4f}/{b:.4f}" for ms, b in r["axes"])
+    return (f"{label}: max_rel_err {r['rel']:.3e} (tol {tol:g}) kernel {r['ms']:.4f} "
+            f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ms/apply "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound; per axis x, y, z kernel/bound ms "
+            f"{axes}) [{gpu}]")
+
+
+@functools.lru_cache(maxsize=None)
+def sass_counts(mode: str):
+    """Instructions per element of the threefry kernel in `mode` (the enum
+    name in csrc/threefry_normal.cu, e.g. "kNormalF32") by the pipe that
+    executes them ({pipe: count}): a static count over the kernel's SASS in
+    the built library (cuobjdump -sass). Every element runs the unrolled
+    body once; the grid-stride loop's prologue is counted with it, and both
+    branches of erfinv."""
+    from parelagmc_tpu_torch import kernels
+
+    lib = kernels.library_path("threefry_normal.cu")
+    cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib}: {out.stderr.strip()}")
+    pipe_of = {op: pipe for pipe, ops in PIPES.items() for op in ops}
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = dict.fromkeys(PIPES, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if cur is not None and m and m.group(1) in pipe_of:
+            counts[cur][pipe_of[m.group(1)]] += 1
+    tag = f"threefry_kernelILNS_4ModeE{THREEFRY_MODES.index(mode)}E"
+    hits = [k for k in counts if tag in k]
+    if len(hits) != 1 or not any(counts[hits[0]].values()):
+        fail(f"SASS of {mode}: functions {sorted(counts)}")
+    return counts[hits[0]]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clocks_per_s() -> float:
+    """SMs x the maximum SM clock of this card (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
+                          "-i", "0"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def threefry_bound(mode: str, numel: int, itemsize: int):
+    """(bound ms, bound_by) of one threefry draw: the larger of its
+    instructions over the busiest pipe's lanes (per pipe: count per element
+    / lanes per SM / (SMs x clock)) and its output bytes over 3.35 TB/s.
+    A normal draw is held to the work of the uniform draw of its width -
+    the generator and the mantissa step, which every element runs - since
+    a static count of its own SASS counts both branches of erfinv and so is
+    no lower bound."""
+    counts = sass_counts(mode.replace("Normal", "Uniform"))
+    per_elem = max(counts[p] / PIPE_LANES[p] for p in PIPES)  # SM clocks per element
+    ops_ms = 1e3 * per_elem * numel / sm_clocks_per_s()
+    byte_ms = bytes_bound_ms(numel * itemsize)
+    return (ops_ms, "operations") if ops_ms >= byte_ms else (byte_ms, "bytes")
 
 
 def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int = 5):
     """K2 against its plain version on one draw of `shape`: (kernel
-    output, max abs error, max |a-b|/(1+|b|), kernel ms, plain ms). Fails
-    above `tol`."""
+    output, dict of max abs error, max |a-b|/(1+|b|), kernel, plain, bound
+    and torch.randn ms). Fails above `tol`."""
     import torch
 
     from parelagmc_tpu_torch.ops import prng
@@ -197,17 +314,28 @@ def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int 
     abs_err = (xk - xp).abs().max().item()
     if not scaled <= tol:
         fail(f"K2 normals {label}: err {scaled} > {tol}")
-    ms = cuda_ms(lambda: prng.sample_normals(key, shape, dtype, device))
-    plain_ms = cuda_ms(lambda: prng.normals_plain(key, shape, dtype, device), reps=plain_reps)
-    return xk, abs_err, scaled, ms, plain_ms
+    mode = "kNormalF32" if dtype == torch.float32 else "kNormalF64"
+    bound, bound_by = threefry_bound(mode, xk.numel(), xk.element_size())
+    return xk, dict(
+        abs_err=abs_err, scaled=scaled, bound_ms=bound, bound_by=bound_by,
+        ms=cuda_ms(lambda: prng.sample_normals(key, shape, dtype, device)),
+        plain_ms=cuda_ms(lambda: prng.normals_plain(key, shape, dtype, device), reps=plain_reps),
+        # Philox: another generator, so not jax.random's values.
+        library_ms=cuda_ms(lambda: torch.randn(shape, dtype=dtype, device=device)))
+
+
+def k2_line(label: str, r: dict, tol: float, gpu: str) -> str:
+    return (f"{label}: scaled_err {r['scaled']:.3e} (tol {tol:g}) kernel {r['ms']:.4f} "
+            f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"torch.randn {r['library_ms']:.4f} ms [{gpu}]")
 
 
 def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: str, gpu: str):
-    """K1 and K2 against their plain versions at the shapes a path gives
-    them, on every level: K1 on the M(w)^{-1} tables factored for a sampled
-    field at the level's batch, K2 on the level's noise draw. Returns
-    {kernel: (max abs error over levels, level-0 kernel ms, level-0 plain
-    ms)}."""
+    """M(w)^{-1} (K1) and K2 against their plain versions at the shapes a
+    path gives them, on every level: K1 on the M(w)^{-1} tables factored
+    for a sampled field at the level's batch, K2 on the level's noise draw.
+    Returns {kernel: level-0 result dict, with max_abs_err the largest over
+    the levels}."""
     import torch
 
     from parelagmc_tpu_torch.ops.prng import fold_in
@@ -219,23 +347,23 @@ def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: 
     for level, batch in enumerate(batches):
         lkey = fold_in(key, level)
         shape = (batch, sampler.sample_size(level))
-        _, k2_abs, k2_scaled, k2_ms, k2_plain = k2_check(
-            lkey, shape, dtype, solver.device, k2_tol, f"{label} level {level} {name}")
+        _, k2 = k2_check(lkey, shape, dtype, solver.device, k2_tol,
+                         f"{label} level {level} {name}")
         w = sampler.eval(level, sampler.sample(level, lkey, batch))
-        fac = solver.levels[level].mass_solver.factor(w)
-        k1_rel, k1_abs, k1_ms, k1_plain = k1_check(fac, random_rhs(fac, level), k1_tol,
-                                                   f"{label} level {level} {name}")
-        rows = [t[1].shape[0] for t in fac]
+        ms_ = solver.levels[level].mass_solver
+        fac = ms_.factor(w)
+        k1 = k1_check(ms_, fac, random_rhs(fac, level), k1_tol, f"{label} level {level} {name}")
         del w, fac
         torch.cuda.empty_cache()
-        print(f"{label} level {level} batch {batch} {name}: K1 M(w)^-1 tables (rows {rows}) "
-              f"max_rel_err {k1_rel:.3e} (tol {k1_tol:g}) kernel {k1_ms:.4f} plain {k1_plain:.4f} ms/apply; "
-              f"K2 noise {shape} scaled_err {k2_scaled:.3e} (tol {k2_tol:g}) kernel {k2_ms:.4f} "
-              f"plain {k2_plain:.4f} ms [{gpu}]", flush=True)
-        for k, (err, ms, plain) in (("thomas", (k1_abs, k1_ms, k1_plain)),
-                                    ("threefry_normal", (k2_abs, k2_ms, k2_plain))):
-            prev = out.get(k)
-            out[k] = (err, ms, plain) if prev is None else (max(prev[0], err), prev[1], prev[2])
+        print(k1_line(f"{label} level {level} batch {batch} {name}: K1 M(w)^-1 "
+                      f"{ms_.shape} cells", k1, k1_tol, gpu), flush=True)
+        print(k2_line(f"{label} level {level} {name}: K2 noise {shape}", k2, k2_tol, gpu),
+              flush=True)
+        for k, r, err in (("thomas", k1, k1["abs_err"]), ("threefry_normal", k2, k2["abs_err"])):
+            if k in out:
+                out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
+            else:
+                out[k] = dict(r, max_abs_err=err)
     return out
 
 
@@ -244,12 +372,13 @@ def phase_k1(device, gpu: str):
 
     for refinements, batch, label in K1_CASES:
         for dtype, tol in ((torch.float32, F32_TOL_K1), (torch.float64, F64_TOL_K1)):
-            fac, rhs, lvl = mass_tables(refinements, batch, dtype, device)
+            ms_, fac, rhs, lvl = mass_tables(refinements, batch, dtype, device)
             name = str(dtype).replace("torch.", "")
-            rel, _, ms, plain_ms = k1_check(fac, rhs, tol, f"{label} {name}")
-            print(f"K1 thomas {label} batch {batch} {name}: faces/sample {lvl.n_u} "
-                  f"max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} ms/apply "
-                  f"plain {plain_ms:.4f} ms/apply [{gpu}]", flush=True)
+            r = k1_check(ms_, fac, rhs, tol, f"{label} {name}")
+            print(k1_line(f"K1 M(w)^-1 {label} batch {batch} {name} ({lvl.n_u} faces/sample)",
+                          r, tol, gpu), flush=True)
+            del fac, rhs
+            torch.cuda.empty_cache()
 
 
 def phase_k2(device, gpu: str):
@@ -266,15 +395,16 @@ def phase_k2(device, gpu: str):
             fail(f"K2 {bw}-bit raw bits differ from the plain version")
     for dtype, tol in ((torch.float32, F32_TOL_K2), (torch.float64, F64_TOL_K2)):
         name = str(dtype).replace("torch.", "")
-        xk, abs_err, scaled, ms, plain_ms = k2_check(key, shape, dtype, device, tol,
-                                                     f"{shape} {name}")
+        xk, r = k2_check(key, shape, dtype, device, tol, f"{shape} {name}")
         x64 = xk.double()
         mean, std = x64.mean().item(), x64.std().item()
         kurt = ((x64 - mean) ** 4).mean().item() / std ** 4
-        print(f"K2 threefry normals {shape} {name}: bits32/64 identical, "
-              f"max_abs_err {abs_err:.3e} scaled_err {scaled:.3e} (tol {tol:g}) "
-              f"mean {mean:+.5f} std {std:.5f} kurtosis {kurt:.4f} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{gpu}]", flush=True)
+        mode = "kNormalF32" if dtype == torch.float32 else "kNormalF64"
+        print(k2_line(f"K2 threefry normals {shape} {name} (bits32/64 identical, max_abs_err "
+                      f"{r['abs_err']:.3e}, mean {mean:+.5f} std {std:.5f} kurtosis {kurt:.4f}, "
+                      f"SASS per element {sass_counts(mode)}, bound from "
+                      f"{sass_counts(mode.replace('Normal', 'Uniform'))})", r, tol, gpu),
+              flush=True)
         if not (abs(mean) < 0.01 and abs(std - 1.0) < 0.01 and abs(kurt - 3.0) < 0.05):
             fail(f"K2 normals {name}: moments off ({mean}, {std}, {kurt})")
 
@@ -428,15 +558,22 @@ def phase_k3(device, gpu: str):
         x64 = xk.double()
         mean, var = x64.mean().item(), x64.var().item()
         lo, hi = x64.min().item(), x64.max().item()
-        ms = cuda_ms(lambda: prng.sample_uniforms(key, K3_SHAPE, dt, device))
-        plain_ms = cuda_ms(lambda: prng.uniforms_plain(key, K3_SHAPE, dt, device), reps=5)
+        mode = "kUniformF32" if dt == torch.float32 else "kUniformF64"
+        bound, bound_by = threefry_bound(mode, xk.numel(), xk.element_size())
+        r = dict(max_abs_err=0.0, bound_ms=bound, bound_by=bound_by,
+                 ms=cuda_ms(lambda: prng.sample_uniforms(key, K3_SHAPE, dt, device)),
+                 plain_ms=cuda_ms(lambda: prng.uniforms_plain(key, K3_SHAPE, dt, device), reps=5),
+                 # Philox: another generator, so not jax.random's values.
+                 library_ms=cuda_ms(lambda: torch.rand(K3_SHAPE, dtype=dt, device=device)))
         print(f"K3 threefry uniforms {K3_SHAPE} {name}: identical to plain (tol 0) "
               f"mean {mean:.5f} var {var:.5f} (1/12 = {1 / 12:.5f}) min {lo:.3e} max {hi:.7f} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{gpu}]", flush=True)
+              f"kernel {r['ms']:.4f} plain {r['plain_ms']:.4f} bound {bound:.4f} ({bound_by}, "
+              f"SASS per element {sass_counts(mode)}) torch.rand "
+              f"{r['library_ms']:.4f} ms [{gpu}]", flush=True)
         if not (abs(mean - 0.5) < 0.005 and abs(var - 1 / 12) < 0.002 and 0.0 <= lo and hi < 1.0):
             fail(f"K3 uniforms {name}: moments off ({mean}, {var}, {lo}, {hi})")
         if dt == torch.float32:
-            main_path = (0.0, ms, plain_ms)
+            main_path = r
     return main_path, launches
 
 
@@ -530,7 +667,6 @@ def phase_k1_lines(prob, device, gpu: str):
                         torch.zeros_like(diag))
     state = cmg.struct_mg_setup(mg, dinv0)
     g = torch.Generator(device=device).manual_seed(12)
-    out = {}
     for dtype, tol in ((torch.float32, F32_TOL_LINES), (torch.bfloat16, BF16_TOL_LINES)):
         name = str(dtype).replace("torch.", "")
         tabs = cmg.cast_state(state, dtype)[0][2]
@@ -545,14 +681,14 @@ def phase_k1_lines(prob, device, gpu: str):
                 fail(f"K1 lines non-finite output ({name}, axis {a})")
             ms = cuda_ms(lambda: thomas(dl, dd, du, b))
             plain_ms = cuda_ms(lambda: thomas_plain(dl, dd, du, b), reps=3)
+            bound = bytes_bound_ms(k1_bytes(b.numel(), b.element_size()))
             print(f"K1 thomas coefMG line tables SPE10 level 1 {mesh.shape} batch {batch} "
                   f"axis {a} (n {dd.shape[0]}, lines {dd.numel() // dd.shape[0]}) {name}: "
-                  f"max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} ms/line solve "
-                  f"plain {plain_ms:.4f} ms [{gpu}]", flush=True)
+                  f"max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} plain {plain_ms:.4f} "
+                  f"bound {bound:.4f} ms/line solve ({100 * bound / ms:.1f}% of bound) [{gpu}]",
+                  flush=True)
             if not rel <= tol:
                 fail(f"K1 lines {name} axis {a}: rel err {rel} > {tol}")
-            out[(name, a)] = (rel, ms, plain_ms)
-    return out
 
 
 def phase_spe10_full(prob, setup_s: float, device, gpu: str):
@@ -639,6 +775,12 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
     return launches, checks
 
 
+def jax_modules_loaded():
+    """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "parelagmc_tpu") or m.startswith(("jax.", "parelagmc_tpu.")))
+
+
 def main() -> None:
     try:
         import torch
@@ -654,8 +796,8 @@ def main() -> None:
         fail(f"parelagmc_tpu_torch not importable beside {__file__}: {e}")
     if not os.path.abspath(parelagmc_tpu_torch.__file__).startswith(HERE + os.sep):
         fail(f"imported {parelagmc_tpu_torch.__file__}, not the checkout at {HERE}")
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    if jax_modules_loaded():
+        fail(f"imported {jax_modules_loaded()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -665,11 +807,11 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    so = kernels.build_library()
+    libs = kernels.build_library()
     kernels.library()
-    print(f"build: {os.path.relpath(so, HERE)} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'})"
-          f" [{gpu}]", flush=True)
+    print(f"build: {[os.path.relpath(p, HERE) for p in libs]} in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'}); "
+          f"SM clocks {sm_clocks_per_s() / 1e12:.3f} T/s [{gpu}]", flush=True)
 
     phase_k1(device, gpu)
     phase_k2(device, gpu)
@@ -683,35 +825,44 @@ def main() -> None:
     setup_s = time.perf_counter() - t0
     phase_k1_lines(spe10, device, gpu)
     full, checks = phase_spe10_full(spe10, setup_s, device, gpu)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    if jax_modules_loaded():
+        fail(f"imported {jax_modules_loaded()}")
 
     # launches: this slice's main path, the full-grid SPE10 run (each path
     # ran with the counts set to 0 just before it; all are listed). The
-    # errors and times of thomas and threefry_normal are that path's too:
-    # max_abs_err over its three levels, ms and plain_ms at level 0.
+    # numbers of thomas and threefry_normal are that path's too:
+    # max_abs_err over its three levels; ms, plain_ms, bound_ms and
+    # library_ms at level 0 (thomas: one M(w)^{-1} apply, three launches).
     by_path = lambda k: {"golden_mlmc": golden[k], "spe10_anchor": anchor[k],
                          "spe10_full_grid": full[k]}
-    on_path = "spe10_full_grid: every level at its production batch, float32; ms at level 0"
+    on_path = "spe10_full_grid: every level at its production batch, float32; times at level 0"
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+    k1, k2 = checks["thomas"], checks["threefry_normal"]
     report = {"kernels": [
         {"name": "thomas", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/thomas.cu",
          "replaces": "parelagmc_tpu/ops/tridiag_pallas.py:77",
          "launches": full["thomas"], "launches_by_path": by_path("thomas"),
-         "max_abs_err": checks["thomas"][0], "ms": checks["thomas"][1],
-         "plain_ms": checks["thomas"][2], "measured_on": on_path},
+         **{k: k1[k] for k in fields}, "bound_by": "bytes",
+         # PyTorch has no batched tridiagonal solve.
+         "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/threefry_normal.cu",
          "replaces": "parelagmc_tpu/ops/prng.py:40",
          "launches": full["threefry_normal"], "launches_by_path": by_path("threefry_normal"),
-         "max_abs_err": checks["threefry_normal"][0], "ms": checks["threefry_normal"][1],
-         "plain_ms": checks["threefry_normal"][2], "measured_on": on_path},
+         **{k: k2[k] for k in fields}, "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"],
+         "library_call": "torch.randn (Philox: another generator, not jax.random's values)",
+         "measured_on": on_path},
         # No path of either package draws uniforms: K3's path is its entry
         # point sample_uniforms, driven in phase 7 with the counts at 0.
         {"name": "threefry_uniform", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/threefry_normal.cu",
          "replaces": "parelagmc_tpu/ops/prng.py:127",
-         "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1], "plain_ms": k3[2]},
+         "launches": k3_launches, **{k: k3[k] for k in fields}, "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "library_call": "torch.rand (Philox: another generator, not jax.random's values)",
+         "measured_on": f"sample_uniforms {K3_SHAPE} float32"},
     ]}
     print(json.dumps(report), flush=True)
     print(gpu, flush=True)

@@ -3,7 +3,8 @@
 Duck-typed: they read the JAX objects' fields and call np.asarray on their
 arrays, so this module imports no jax. The tests use them to hold the
 port's own build functions against the reference's arrays, and to run both
-packages on identical operators.
+packages on identical operators. `device` None means cuda:0, as at every
+entry point of the port.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parelagmc_tpu_torch.device import resolve_device
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import StructCoefMG, StructMGLevel
 from parelagmc_tpu_torch.ops.mass_solve import AxisTables, MassTridiagSolver
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig
@@ -18,7 +20,7 @@ from parelagmc_tpu_torch.physics.darcy import DarcyLevel
 
 
 def _t(x, dtype, device):
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=resolve_device(device))
 
 
 def tensor_eig_from_jax(eig, dtype=torch.float64, device=None) -> TensorEig:
@@ -33,23 +35,22 @@ def tensor_eig_from_jax(eig, dtype=torch.float64, device=None) -> TensorEig:
 
 def mass_solver_from_jax(ms, dtype=torch.float64, device=None) -> MassTridiagSolver:
     """parelagmc_tpu.ops.mass_solve.MassTridiagSolver -> port solver. The
-    reference holds each axis with the solved axis LAST (perm_cell =
-    other dims + (axis,)); the port holds it FIRST, so the last array axis
-    moves to the front."""
+    reference holds each axis transposed with the solved axis LAST
+    (perm_cell = other dims + (axis,)); the port holds the natural (z, y, x)
+    grids, so the transpose is undone."""
     axes = []
     for ax in ms.axes:
         if tuple(ax.perm_face) != tuple(ax.perm_cell):
             raise ValueError("perm_face != perm_cell is not supported")
-        first = lambda x: np.moveaxis(np.asarray(x), -1, 0)
-        perm = (ax.perm_cell[-1],) + tuple(ax.perm_cell[:-1])
+        natural = lambda x: np.transpose(np.asarray(x), np.argsort(ax.perm_cell))
         axes.append(
             AxisTables(
-                m_lo=_t(first(ax.m_lo), dtype, device),
-                m_mid=_t(first(ax.m_mid), dtype, device),
-                m_hi=_t(first(ax.m_hi), dtype, device),
-                ess=_t(first(ax.ess), torch.bool, device),
+                m_lo=_t(natural(ax.m_lo), dtype, device),
+                m_mid=_t(natural(ax.m_mid), dtype, device),
+                m_hi=_t(natural(ax.m_hi), dtype, device),
+                ess=_t(natural(ax.ess), torch.bool, device),
                 n_a=ax.n_a,
-                perm=perm,
+                dim=ax.perm_cell[-1],
             )
         )
     return MassTridiagSolver(axes, tuple(ms.shape), tuple(ms.face_offsets), ms.n_u)

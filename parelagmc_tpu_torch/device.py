@@ -1,7 +1,8 @@
 """Device and dtype helpers.
 
-The port takes an explicit `device` everywhere; nothing picks a card
-implicitly, so a run that asked for "cuda" either runs there or fails.
+The port's entry points run on the card: a `device` of None means
+cuda:0, and a CUDA device that is not available raises - nothing falls
+back to the CPU. A caller that wants the CPU (the tests) asks for it.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ def torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """Normalize a device argument. None means the CPU; a CUDA device that
+    """Normalize a device argument. None means cuda:0; a CUDA device that
     is not available raises instead of silently running elsewhere."""
-    dev = torch.device("cpu" if device is None else device)
+    dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-and loaded with ctypes. The library lands in `parelagmc_tpu_torch/_build/`
-(listed in .gitignore) under a name keyed by a hash of the sources and the
-compiler flags, so an edited source rebuilds and an unchanged one loads
-the cached file - the same scheme as parelagmc_tpu/native/__init__.py uses
-for its g++ geometry kernels.
+Each source is compiled at first use with its own nvcc process, all of them
+started together, into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), and loaded with ctypes. The
+libraries land in `parelagmc_tpu_torch/_build/` (listed in .gitignore)
+under names keyed by a hash of the source and the compiler flags, so an
+edited source rebuilds and an unchanged one loads the cached file - the
+same scheme as parelagmc_tpu/native/__init__.py uses for its g++ geometry
+kernels.
 
 Nothing here runs at import time: the CPU-only test host has no nvcc, and
 the kernel wrappers only ask for the library when they are handed a CUDA
@@ -28,7 +29,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+import types
+from typing import Dict, List, Optional
 
 import torch
 
@@ -45,7 +47,7 @@ NVCC_FLAGS = (
 
 launch_counts: Dict[str, int] = {"thomas": 0, "threefry_normal": 0, "threefry_uniform": 0}
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build
 
 
@@ -72,71 +74,79 @@ def find_nvcc() -> str:
     )
 
 
-def _source_tag() -> str:
+def library_path(source: str) -> str:
+    """_build/lib<stem>_<tag>.so for one source, tag = hash of the source
+    and the flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build_library() -> str:
-    """Compile csrc/*.cu into _build/libparelagmc_kernels_<tag>.so unless
-    that file exists; returns its path. Writes to a temporary name and
-    renames, so a concurrent or interrupted build never leaves a partial
-    library under the final name."""
+def build_library() -> List[str]:
+    """Compile every csrc/*.cu whose library is missing, one nvcc process
+    per source, all started together; returns the libraries' paths. Each
+    writes to a temporary name and renames, so a concurrent or interrupted
+    build never leaves a partial library under the final name."""
     global build_seconds
-    tag = _source_tag()
-    so_path = os.path.join(BUILD_DIR, f"libparelagmc_kernels_{tag}.so")
-    if os.path.exists(so_path):
-        return so_path
+    paths = [library_path(s) for s in SOURCES]
+    todo = [(s, p) for s, p in zip(SOURCES, paths) if not os.path.exists(p)]
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        os.path.join(CSRC_DIR, s) for s in SOURCES
-    ]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed building the parelagmc_tpu_torch kernels:\n"
-            + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-    os.replace(tmp, so_path)
+    procs = []
+    for src, so_path in todo:
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        procs.append((cmd, tmp, so_path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for cmd, tmp, so_path, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(" ".join(cmd) + "\n" + out)
+        else:
+            os.replace(tmp, so_path)
+    if errors:
+        raise RuntimeError("nvcc failed building the parelagmc_tpu_torch kernels:\n"
+                           + "\n".join(errors))
     build_seconds = time.perf_counter() - t0
-    return so_path
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def library() -> types.SimpleNamespace:
+    """The kernels' C entry points, by name (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build_library())
+        thomas, threefry = (ctypes.CDLL(p) for p in build_library())
         vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
-        # int thomas_solve_{f32,f64}(dl, d, du, b, x, c, n, L, stream)
-        for fn in (lib.thomas_solve_f32, lib.thomas_solve_f64):
+        fns = {}
+        # int thomas_lines_{f32,f64,bf16}(dl, d, du, b, x, n, L, J, O, sO, sB,
+        #     sI, base, stream)
+        for name in ("thomas_lines_f32", "thomas_lines_f64", "thomas_lines_bf16"):
+            fn = getattr(thomas, name)
             fn.restype = i32
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i64, vp]
-        # int thomas_solve_bf16(dl, d, du, b, x, c, g, n, L, stream)
-        lib.thomas_solve_bf16.restype = i32
-        lib.thomas_solve_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, vp]
-        # int threefry_{normal_f32,normal_f64,bits32,bits64}(k0, k1, out, n,
-        #     lo, scale, sqrt2, stream) - lo/scale/sqrt2 ignored for bits
-        lib.threefry_normal_f32.restype = i32
-        lib.threefry_normal_f32.argtypes = [
-            u32, u32, vp, i64, ctypes.c_float, ctypes.c_float, ctypes.c_float, vp,
-        ]
-        lib.threefry_normal_f64.restype = i32
-        lib.threefry_normal_f64.argtypes = [
-            u32, u32, vp, i64, ctypes.c_double, ctypes.c_double, ctypes.c_double, vp,
-        ]
+            fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i64, i64, i64, i64, i64, vp]
+            fns[name] = fn
+        # int threefry_normal_{f32,f64}(k0, k1, out, n, lo, scale, sqrt2, stream)
+        for name, ct in (("threefry_normal_f32", ctypes.c_float),
+                         ("threefry_normal_f64", ctypes.c_double)):
+            fn = getattr(threefry, name)
+            fn.restype = i32
+            fn.argtypes = [u32, u32, vp, i64, ct, ct, ct, vp]
+            fns[name] = fn
         # int threefry_{bits32,bits64,uniform_f32,uniform_f64}(k0, k1, out, n, stream)
-        for fn in (lib.threefry_bits32, lib.threefry_bits64,
-                   lib.threefry_uniform_f32, lib.threefry_uniform_f64):
+        for name in ("threefry_bits32", "threefry_bits64",
+                     "threefry_uniform_f32", "threefry_uniform_f64"):
+            fn = getattr(threefry, name)
             fn.restype = i32
             fn.argtypes = [u32, u32, vp, i64, vp]
-        _LIB = lib
+            fns[name] = fn
+        _LIB = types.SimpleNamespace(**fns)
     return _LIB
 
 

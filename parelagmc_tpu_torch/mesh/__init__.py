@@ -1,0 +1,6 @@
+from parelagmc_tpu_torch.mesh.structured import StructuredMesh  # noqa: F401
+from parelagmc_tpu_torch.mesh.factories import (  # noqa: F401
+    SPE10_NCELLS,
+    SPE10_SPACING,
+    make_box_mesh,
+)

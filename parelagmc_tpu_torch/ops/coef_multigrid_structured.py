@@ -17,7 +17,8 @@ is a slice, a pad, a reshape-sum or a repeat:
   of 2 with a trailing group of 2 or 3 (fem/hierarchy.derefine_axis);
 * smoothers: damped Jacobi V(s, s), order-k Chebyshev(Jacobi), and line
   relaxation along `line_axes`, whose tridiagonal solves run on kernel K1
-  (ops/tridiag_pallas.thomas).
+  (ops/tridiag_pallas.thomas: its (n, L) solved-axis-first layout, the
+  special case of the kernel's strided lines).
 
 Layout: cell grids are (batch..., z, y, x) with mesh axis a at array dim
 ndim - 1 - a, as in the reference. The line tables are built once per solve
@@ -38,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from parelagmc_tpu_torch.fem.hierarchy import derefine_axis
+from parelagmc_tpu_torch.mesh.structured import StructuredMesh
 from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
 
 
@@ -66,9 +69,6 @@ def build_struct_coef_mg(mesh, cutoff: int = 5000, coarse_sweeps: int = 8, omega
                          coarsen: str = "galerkin") -> StructCoefMG:
     """MG level shapes below `mesh` (a StructuredMesh), derefining by 2 per
     axis until <= cutoff cells (the reference's ladder)."""
-    from parelagmc_tpu.fem.hierarchy import derefine_axis
-    from parelagmc_tpu.mesh.structured import StructuredMesh
-
     meshes = [mesh]
     while meshes[-1].num_cells > cutoff and max(meshes[-1].shape) > 2:
         meshes.append(StructuredMesh([derefine_axis(a) for a in meshes[-1].axes]))

@@ -5,16 +5,20 @@ axis-aligned tensor mesh M(w) is block-diagonal per axis and each axis
 block splits into independent tridiagonal systems along grid lines, so
 M(w)^{-1} is applied exactly per sample by batched Thomas solves.
 
-One solve path: `ops.tridiag_pallas.thomas`, which is the K1 CUDA kernel
-for CUDA tensors and its plain version on the CPU, at every size. (The
-reference's scan / associative-scan / tridiagonal_solve switches and its
-32,768-cell crossover were TPU measurements and are not ported.)
+Layout: everything stays in the port's natural grid layout. The static
+tables are (z, y, x) cell grids and (z, y, x) face grids per axis; the
+per-sample factor tables (dl, diag, du) are flat (B, n_u) face vectors,
+laid out like the right-hand side (axis a is the block
+face_offsets[a]:face_offsets[a+1] of each sample, a reversed face grid).
 
-Layout: per axis the static tables and the per-sample factor tables are
-held with the SOLVED axis first - (n_a, lines...) for the static tables,
-(n_a + 1, batch, lines...) for the factors - which is the (n, L) layout the
-kernel reads coalesced. The reference keeps the solved axis last; the
-converters in parelagmc_tpu_torch/convert.py move it.
+One solve per axis, two versions (the reference's scan / associative-scan /
+tridiagonal_solve switches and its 32,768-cell crossover were TPU
+measurements and are not ported):
+* CUDA tensors: the K1 kernel (ops/tridiag_pallas.thomas_lines) reads the
+  tables and r and writes z in that layout - one launch per axis straight
+  into z's slice, no permute copy, no concatenation;
+* CPU tensors: the plain composed path - slice each axis, permute its
+  solved axis first, `thomas_plain`, permute back, concatenate.
 """
 
 from __future__ import annotations
@@ -25,25 +29,27 @@ import numpy as np
 import torch
 from torch import nn
 
-from parelagmc_tpu.fem.assembly import MixedLevel
-from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
+from parelagmc_tpu_torch.fem.assembly import MixedLevel
+from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.ops.tridiag_pallas import grid_axis_layout, thomas_lines, thomas_plain
 
 
-def build_line_tables(m_lo, m_mid, m_hi, ess, w):
-    """(dl, diag, du) for the tridiagonal mass lines along dim 0: per-cell
+def build_line_tables(m_lo, m_mid, m_hi, ess, w, dim: int = 0):
+    """(dl, diag, du) for the tridiagonal mass lines along `dim`: per-cell
     blocks (m_lo, m_mid, m_hi) scaled by the sample coefficient w (cells
-    along dim 0; the face grid has one more row), with essential rows
+    along `dim`; the face grid has one more row there), with essential rows
     replaced by identity and couplings into essential neighbours zeroed.
-    The reference's build_line_tables with the solved axis first."""
+    The reference's build_line_tables, along any dim (it solves along the
+    last)."""
     c_lo = w * m_lo
     c_mid = w * m_mid
     c_hi = w * m_hi
-    zero = torch.zeros_like(c_lo[:1])
-    diag = torch.cat([c_lo, zero], dim=0) + torch.cat([zero, c_hi], dim=0)
-    du = torch.cat([c_mid, zero], dim=0)  # couples (i, i+1)
-    dl = torch.cat([zero, c_mid], dim=0)  # couples (i, i-1)
-    ess_next = torch.cat([ess[1:], ess[:1]], dim=0)
-    ess_prev = torch.cat([ess[-1:], ess[:-1]], dim=0)
+    zero = torch.zeros_like(c_lo.narrow(dim, 0, 1))
+    diag = torch.cat([c_lo, zero], dim=dim) + torch.cat([zero, c_hi], dim=dim)
+    du = torch.cat([c_mid, zero], dim=dim)  # couples (i, i+1)
+    dl = torch.cat([zero, c_mid], dim=dim)  # couples (i, i-1)
+    ess_next = torch.roll(ess, -1, dims=dim)
+    ess_prev = torch.roll(ess, 1, dims=dim)
     one = torch.ones((), dtype=diag.dtype, device=diag.device)
     nil = torch.zeros((), dtype=diag.dtype, device=diag.device)
     diag = torch.where(ess, one, diag)
@@ -53,21 +59,19 @@ def build_line_tables(m_lo, m_mid, m_hi, ess, w):
 
 
 class AxisTables(nn.Module):
-    """Static per-axis data: per-cell coefficient tables (n_a, lines...)
-    and the face essential mask (n_a + 1, lines...), solved axis first.
-    `perm` maps the (z, y, x) reversed grid to (axis, other dims...);
-    `batch_perm` does the same for a batched (B, z, y, x) grid, putting the
-    batch right after the solved axis: (axis, B, other dims...)."""
+    """Static per-axis data in the natural grid layout: per-cell
+    coefficient tables on the (z, y, x) cell grid and the essential mask on
+    the axis's (z, y, x) face grid; the axis is solved along array dim
+    `dim` (mesh axis a is dim d - 1 - a)."""
 
-    def __init__(self, m_lo, m_mid, m_hi, ess, n_a: int, perm: Tuple[int, ...]):
+    def __init__(self, m_lo, m_mid, m_hi, ess, n_a: int, dim: int):
         super().__init__()
         self.register_buffer("m_lo", m_lo)
         self.register_buffer("m_mid", m_mid)
         self.register_buffer("m_hi", m_hi)
         self.register_buffer("ess", ess)
         self.n_a = int(n_a)
-        self.perm = tuple(int(p) for p in perm)
-        self.batch_perm = (1 + self.perm[0], 0) + tuple(1 + p for p in self.perm[1:])
+        self.dim = int(dim)
 
 
 class MassTridiagSolver(nn.Module):
@@ -80,54 +84,78 @@ class MassTridiagSolver(nn.Module):
         self.shape = tuple(int(s) for s in shape)
         self.face_offsets = tuple(int(x) for x in face_offsets)
         self.n_u = int(n_u)
+        self.register_buffer("ess_flat", torch.cat([ax.ess.reshape(-1) for ax in axes]))
+        self._layouts = {}
 
     def forward(self, w: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         return self.apply_factored(self.factor(w), rhs)
 
+    def face_grid(self, a: int) -> Tuple[int, ...]:
+        """Axis a's face grid in array (z, y, x) order."""
+        fshape = list(self.shape)
+        fshape[a] += 1
+        return tuple(fshape[::-1])
+
     def factor(self, w: torch.Tensor):
-        """Per-axis (dl, diag, du), each (n_a + 1, B, lines...) contiguous,
-        for the sample coefficient w (..., n_s) flattened to B samples.
-        Built once per Krylov solve and reused by apply_factored."""
+        """(dl, diag, du), each a flat (B, n_u) face vector in the
+        right-hand side's layout, for the sample coefficient w (..., n_s)
+        flattened to B samples. Built once per Krylov solve and reused by
+        apply_factored."""
         B = int(np.prod(w.shape[:-1])) if w.dim() > 1 else 1
         wg = w.reshape((B,) + self.shape[::-1])  # (B, z, y, x)
-        factors = []
+        parts = ([], [], [])
         for ax in self.axes:
-            w_a = wg.permute(ax.batch_perm)
-            tables = build_line_tables(
-                ax.m_lo.unsqueeze(1), ax.m_mid.unsqueeze(1),
-                ax.m_hi.unsqueeze(1), ax.ess.unsqueeze(1), w_a,
-            )
-            factors.append(tuple(t.contiguous() for t in tables))
-        return tuple(factors)
+            tables = build_line_tables(ax.m_lo, ax.m_mid, ax.m_hi, ax.ess.unsqueeze(0), wg,
+                                       dim=1 + ax.dim)
+            for out, t in zip(parts, tables):
+                out.append(t.reshape(B, -1))
+        return tuple(torch.cat(p, dim=-1) for p in parts)
 
     def masked_diag(self, factors, batch: Tuple[int, ...]) -> torch.Tensor:
         """diag M(w) as a flat (batch..., n_u) face vector with essential
         faces 0 (the reference's masked ELL diagonal L.m_diag(w)), read off
         the tables factor() built: their diagonal is the same per-cell sum
         with essential rows set to 1 instead."""
-        B = int(np.prod(batch)) if batch else 1
-        outs = []
-        for a, ax in enumerate(self.axes):
-            diag = factors[a][1].masked_fill(ax.ess.unsqueeze(1), 0.0)
-            inv = tuple(int(i) for i in np.argsort(ax.batch_perm))
-            outs.append(diag.permute(inv).reshape(B, -1))
-        return torch.cat(outs, dim=-1).reshape(tuple(batch) + (self.n_u,))
+        return factors[1].masked_fill(self.ess_flat, 0.0).reshape(tuple(batch) + (self.n_u,))
+
+    def layouts(self, B: int):
+        """Per axis, the LineLayout of its lines in a flat (B, n_u) vector
+        (kept per batch size: apply_factored runs once per CG iteration)."""
+        if B not in self._layouts:
+            self._layouts[B] = [grid_axis_layout(B, self.face_grid(a), ax.dim,
+                                                 base=self.face_offsets[a], batch_stride=self.n_u)
+                                for a, ax in enumerate(self.axes)]
+        return self._layouts[B]
 
     def apply_factored(self, factors, rhs: torch.Tensor) -> torch.Tensor:
-        """z = M^{-1} rhs for tables built by factor() (same batch)."""
+        """z = M^{-1} rhs for tables built by factor() (same batch): the K1
+        kernel for CUDA tensors, the plain composed path for CPU tensors."""
         batch = rhs.shape[:-1]
         B = int(np.prod(batch)) if batch else 1
+        r = rhs.reshape(B, self.n_u)
+        if r.device.type == "cpu":
+            z = self.apply_plain(factors, r)
+        else:
+            dl, diag, du = factors
+            r = r.contiguous()
+            z = torch.empty_like(r)
+            for lay in self.layouts(B):
+                thomas_lines(dl, diag, du, r, z, lay)
+        return z.reshape(batch + (self.n_u,))
+
+    def apply_plain(self, factors, r: torch.Tensor) -> torch.Tensor:
+        """The plain composed M^{-1} on flat (B, n_u) vectors: per axis,
+        slice, move the solved axis first, thomas_plain, move it back, and
+        concatenate the axes."""
+        B = r.shape[0]
         outs = []
         for a, ax in enumerate(self.axes):
-            dl, diag, du = factors[a]
-            fshape = list(self.shape)
-            fshape[a] += 1
-            r = rhs[..., self.face_offsets[a]: self.face_offsets[a + 1]]
-            r = r.reshape((B,) + tuple(fshape[::-1]))
-            z = thomas(dl, diag, du, r.permute(ax.batch_perm).contiguous())
-            inv = tuple(int(i) for i in np.argsort(ax.batch_perm))
-            outs.append(z.permute(inv).reshape(B, -1))
-        return torch.cat(outs, dim=-1).reshape(batch + (self.n_u,))
+            lo, hi = self.face_offsets[a], self.face_offsets[a + 1]
+            grid = (B,) + self.face_grid(a)
+            first = lambda t: t[:, lo:hi].reshape(grid).movedim(1 + ax.dim, 0).contiguous()
+            z = thomas_plain(*(first(t) for t in (*factors, r)))
+            outs.append(z.movedim(0, 1 + ax.dim).reshape(B, -1))
+        return torch.cat(outs, dim=-1)
 
 
 def build_mass_tridiag_solver(
@@ -143,7 +171,8 @@ def build_mass_tridiag_solver(
     inverse permeability kinv_ref ((n_s, d) or (n_s,)) folded in, or the
     general per-cell Galerkin blocks (bll, blr, brr) of
     fem/galerkin_mass.py via `axis_blocks` (their lo and hi diagonal
-    entries differ, so m_hi comes from brr)."""
+    entries differ, so m_hi comes from brr). `device` None means cuda:0."""
+    device = resolve_device(device)
     mesh = lvl.mesh
     d = mesh.dim
     shape = mesh.shape
@@ -167,9 +196,6 @@ def build_mass_tridiag_solver(
                 m_lo = m_lo * ka
                 m_mid = m_mid * ka
             m_hi = m_lo
-        # Mesh axis a is array dim d-1-a of the (z, y, x) grid; move it first.
-        dim_a = d - 1 - a
-        perm = (dim_a,) + tuple(i for i in range(d) if i != dim_a)
         fshape = list(shape)
         fshape[a] += 1
         ess_a = ess_mask[mesh.face_offsets[a]: mesh.face_offsets[a + 1]].reshape(
@@ -177,12 +203,12 @@ def build_mass_tridiag_solver(
         )
         axes.append(
             AxisTables(
-                m_lo=as_t(np.transpose(m_lo, perm)),
-                m_mid=as_t(np.transpose(m_mid, perm)),
-                m_hi=as_t(np.transpose(m_hi, perm)),
-                ess=as_t(np.transpose(ess_a, perm), torch.bool),
+                m_lo=as_t(m_lo),
+                m_mid=as_t(m_mid),
+                m_hi=as_t(m_hi),
+                ess=as_t(ess_a, torch.bool),
                 n_a=shape[a],
-                perm=perm,
+                dim=d - 1 - a,  # mesh axis a is array dim d-1-a of the (z, y, x) grid
             )
         )
     return MassTridiagSolver(

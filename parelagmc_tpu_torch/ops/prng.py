@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from parelagmc_tpu_torch import kernels
+from parelagmc_tpu_torch.device import resolve_device
 
 Key = Tuple[int, int]
 
@@ -146,10 +147,10 @@ def _launch_threefry(fn_name: str, key: Key, out: torch.Tensor, *consts,
 
 
 def random_bits(key: Key, bit_width: int, shape: Sequence[int],
-                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+                device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """jax.random.bits as int64 (see random_bits_plain): K2 in bits mode on
-    a CUDA device, the plain version on the CPU."""
-    device = torch.device(device)
+    a CUDA device (None: cuda:0), the plain version on the CPU."""
+    device = resolve_device(device)
     if device.type == "cpu":
         return random_bits_plain(key, bit_width, shape, device)
     if device.type != "cuda":
@@ -162,11 +163,11 @@ def random_bits(key: Key, bit_width: int, shape: Sequence[int],
 
 
 def sample_normals(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.float32,
-                   device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+                   device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """N(0,1) samples of `shape`, deterministic in `key`, equal to
-    jax.random.normal(key, shape, dtype). K2 on a CUDA device (writes the
-    dtype directly), the plain version on the CPU."""
-    device = torch.device(device)
+    jax.random.normal(key, shape, dtype). K2 on a CUDA device (None:
+    cuda:0; writes the dtype directly), the plain version on the CPU."""
+    device = resolve_device(device)
     if device.type == "cpu":
         return normals_plain(key, shape, dtype, device)
     if device.type != "cuda":
@@ -180,11 +181,11 @@ def sample_normals(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.fl
 
 
 def sample_uniforms(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.float32,
-                    device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+                    device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """U[0, 1) samples of `shape`, equal to jax.random.uniform(key, shape,
     dtype) bit for bit. K3 (the uniform mode of csrc/threefry_normal.cu) on a
-    CUDA device, the plain version on the CPU."""
-    device = torch.device(device)
+    CUDA device (None: cuda:0), the plain version on the CPU."""
+    device = resolve_device(device)
     if device.type == "cpu":
         return uniforms_plain(key, shape, dtype, device)
     if device.type != "cuda":

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from parelagmc_tpu.mesh.structured import StructuredMesh, _mfem_bdr_attr
+from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.mesh.structured import StructuredMesh, _mfem_bdr_attr
 
 
 class TensorEig(nn.Module):
@@ -95,7 +96,9 @@ def build_tensor_solver(
 ) -> TensorEig:
     """Spectral factors of S = B M^{-1} B^T + alpha W on `mesh`. ess_attr
     follows the MFEM per-boundary-attribute 0/1 convention; None makes
-    every boundary velocity dof essential (the SPDE sampler's setup)."""
+    every boundary velocity dof essential (the SPDE sampler's setup).
+    `device` None means cuda:0."""
+    device = resolve_device(device)
     d = mesh.dim
 
     def side_is_ess(axis: int, side: int) -> bool:

@@ -1,29 +1,76 @@
-"""K1 wrapper: batched Thomas tridiagonal solves, solved axis first.
+"""K1 wrapper: batched Thomas tridiagonal solves on strided lines.
 
 Counterpart of parelagmc_tpu/ops/tridiag_pallas.py (the Pallas TPU kernel
 `_thomas_kernel`); the module keeps its name so the pair is easy to find.
-The CUDA kernel is csrc/thomas.cu (one thread per line); `thomas_plain`
-beside it is the same recurrence in plain PyTorch, a loop over rows that
-is vectorized over lines. Callers: M(w)^{-1} (ops/mass_solve.py) and the
-coefMG line smoother (ops/coef_multigrid_structured.py), whose tables are
+The CUDA kernel is csrc/thomas.cu; `thomas_plain` beside it is the same
+recurrence in plain PyTorch, a loop over rows that is vectorized over
+lines. Callers: M(w)^{-1} (ops/mass_solve.py, whose composed plain path
+slices, permutes and concatenates around `thomas_plain`) and the coefMG
+line smoother (ops/coef_multigrid_structured.py), whose tables are
 bfloat16 with a bfloat16 preconditioner state: bf16 lines run the
 recurrence in float32 and store x in bf16, in both versions.
 
-Layout contract: dl, d, du and b are (n, ...) tensors of one shape, the
-solved axis FIRST and every trailing dim an independent line, so the
-kernel sees (n, L) row-major arrays and each row step is coalesced. This is
-the layout `MassTridiagSolver.factor` builds its tables in (the TPU kernel
-reached the same layout with a host-side moveaxis, tridiag_pallas.py:142).
+Layout: the kernel reads dl, d, du, b and writes x through one
+`LineLayout` - line l, row i at
+`base + bb * sB + o * sO + i * sI + j` with `l = (bb * O + o) * J + j`
+(`line_index`, the arithmetic the kernel does). `grid_axis_layout` gives
+the lines along one dim of a batch of C-contiguous grids (M(w)^{-1} on the
+flat face vector, no copies); `rows_first_layout` the (n, L) row-major
+tables with the solved axis first.
 
-`thomas` runs the plain version for CPU tensors and the kernel for CUDA
-tensors; for a CUDA tensor it launches or raises, never falls back.
+`thomas` (for (n, ...) tables) and `thomas_lines` (any layout) launch the
+kernel for CUDA tensors, and `thomas` runs the plain version for CPU
+tensors; for a CUDA tensor they launch or raise, never fall back.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Sequence
+
 import torch
 
 from parelagmc_tpu_torch import kernels
+
+
+class LineLayout(NamedTuple):
+    """Where line l, row i of a batched line solve lives in a flat array
+    (all counts and strides in elements)."""
+
+    n: int  # rows per line
+    L: int  # lines
+    J: int  # lines at consecutive addresses
+    O: int  # line groups
+    sO: int  # stride between line groups
+    sB: int  # stride between batch members
+    sI: int  # stride between rows
+    base: int  # offset of line 0, row 0
+
+
+def line_index(lay: LineLayout, line, row):
+    """Flat index of (line, row) under `lay` - the offset arithmetic of
+    csrc/thomas.cu (line_base plus row * sI). Works on ints and on integer
+    tensors or arrays, broadcasting."""
+    j = line % lay.J
+    t = line // lay.J
+    return lay.base + (t // lay.O) * lay.sB + (t % lay.O) * lay.sO + row * lay.sI + j
+
+
+def grid_axis_layout(batch: int, grid: Sequence[int], dim: int, base: int = 0,
+                     batch_stride: int = 0) -> LineLayout:
+    """Lines along array dim `dim` of `batch` C-contiguous grids of shape
+    `grid`, the first at `base`, member bb at base + bb * batch_stride."""
+    grid = tuple(int(g) for g in grid)
+    n = grid[dim]
+    J = math.prod(grid[dim + 1:])
+    O = math.prod(grid[:dim])
+    return LineLayout(n=n, L=int(batch) * O * J, J=J, O=O, sO=n * J, sB=int(batch_stride),
+                      sI=J, base=int(base))
+
+
+def rows_first_layout(n: int, L: int) -> LineLayout:
+    """(n, L) row-major tables, the solved axis first."""
+    return LineLayout(n=int(n), L=int(L), J=int(L), O=1, sO=0, sB=0, sI=int(L), base=0)
 
 
 def thomas_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
@@ -55,7 +102,7 @@ def thomas_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     return x
 
 
-def _check(dl, d, du, b) -> None:
+def _check_same(dl, d, du, b) -> None:
     for name, t in (("dl", dl), ("d", d), ("du", du)):
         if t.shape != b.shape:
             raise ValueError(f"thomas: {name} has shape {tuple(t.shape)}, b {tuple(b.shape)}")
@@ -65,36 +112,50 @@ def _check(dl, d, du, b) -> None:
             raise ValueError(f"thomas: {name} on {t.device}, b on {b.device}")
     if b.dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise TypeError(f"thomas: unsupported dtype {b.dtype}")
-    if b.dim() < 1 or b.shape[0] == 0:
-        raise ValueError("thomas: need at least one row along dim 0")
+
+
+_ENTRY = {torch.float32: "thomas_lines_f32", torch.float64: "thomas_lines_f64",
+          torch.bfloat16: "thomas_lines_bf16"}
+
+
+def thomas_lines(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
+                 x: torch.Tensor, lay: LineLayout) -> None:
+    """The K1 kernel on the lines `lay` addresses in the contiguous CUDA
+    tensors dl, d, du, b (read) and x (written, same shape), on the current
+    stream. Elements that no line addresses are left as they are in x."""
+    _check_same(dl, d, du, b)
+    if x.shape != b.shape or x.dtype != b.dtype or x.device != b.device:
+        raise ValueError("thomas: x must match b in shape, dtype and device")
+    if b.device.type != "cuda":
+        raise ValueError(f"thomas: the kernel needs CUDA tensors, got {b.device}")
+    for name, t in (("dl", dl), ("d", d), ("du", du), ("b", b), ("x", x)):
+        if not t.is_contiguous():
+            raise ValueError(f"thomas: {name} must be contiguous")
+    if lay.L <= 0 or lay.n <= 0:
+        return
+    last = line_index(lay, lay.L - 1, lay.n - 1)
+    if lay.base < 0 or last >= b.numel() or min(lay.J, lay.O) < 1:
+        raise ValueError(f"thomas: layout {lay} does not fit {b.numel()} elements")
+    fn = getattr(kernels.library(), _ENTRY[b.dtype])
+    kernels.launch("thomas", b.device, fn, dl.data_ptr(), d.data_ptr(), du.data_ptr(),
+                   b.data_ptr(), x.data_ptr(), lay.n, lay.L, lay.J, lay.O, lay.sO, lay.sB,
+                   lay.sI, lay.base)
 
 
 def thomas(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
     """x with tridiag(dl, d, du) x = b along dim 0, for (n, ...) tensors of
     one shape, dtype (float32/float64/bfloat16) and device. CPU:
-    thomas_plain. CUDA: the K1 kernel on the current stream (inputs must be
-    contiguous)."""
-    _check(dl, d, du, b)
+    thomas_plain. CUDA: the K1 kernel on the (n, L) row-major layout, on the
+    current stream (inputs must be contiguous)."""
+    _check_same(dl, d, du, b)
+    if b.dim() < 1 or b.shape[0] == 0:
+        raise ValueError("thomas: need at least one row along dim 0")
     if b.device.type == "cpu":
         return thomas_plain(dl, d, du, b)
     if b.device.type != "cuda":
         raise ValueError(f"thomas: unsupported device {b.device}")
-    for name, t in (("dl", dl), ("d", d), ("du", du), ("b", b)):
-        if not t.is_contiguous():
-            raise ValueError(f"thomas: {name} must be contiguous")
-    n = int(b.shape[0])
-    L = b.numel() // n
     x = torch.empty_like(b)
-    lib = kernels.library()
-    ptrs = (dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(), x.data_ptr())
-    if b.dtype == torch.bfloat16:
-        # float32 scratch for the multipliers c and the carried g.
-        c, g = torch.empty((2,) + tuple(b.shape), dtype=torch.float32, device=b.device)
-        kernels.launch("thomas", b.device, lib.thomas_solve_bf16, *ptrs,
-                       c.data_ptr(), g.data_ptr(), n, L)
-        return x
-    c = torch.empty_like(b)  # forward-sweep multipliers; g is kept in x
-    fn = lib.thomas_solve_f32 if b.dtype == torch.float32 else lib.thomas_solve_f64
-    kernels.launch("thomas", b.device, fn, *ptrs, c.data_ptr(), n, L)
+    n = int(b.shape[0])
+    thomas_lines(dl, d, du, b, x, rows_first_layout(n, b.numel() // n))
     return x

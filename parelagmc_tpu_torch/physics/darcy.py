@@ -46,13 +46,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem.galerkin_mass import (
+from parelagmc_tpu_torch.config import ProblemConfig
+from parelagmc_tpu_torch.fem.galerkin_mass import (
     effective_kinv,
     galerkin_block_chain,
     weighted_rt_prolongator,
 )
-from parelagmc_tpu.fem.hierarchy import GeometricHierarchy
+from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy
 from parelagmc_tpu_torch.device import resolve_device
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import (
     StructCoefMG,

@@ -21,8 +21,8 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
-from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.mesh.factories import SPE10_NCELLS, SPE10_SPACING  # noqa: F401
+from parelagmc_tpu_torch.config import ProblemConfig
+from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING  # noqa: F401
 
 
 def read_spe_perm(path: str, ncells: Sequence[int] = SPE10_NCELLS) -> np.ndarray:

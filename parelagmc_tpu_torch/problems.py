@@ -26,10 +26,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem.hierarchy import GeometricHierarchy, build_geometric_hierarchy_from_fine
-from parelagmc_tpu.mesh.factories import SPE10_NCELLS, SPE10_SPACING, make_box_mesh
-from parelagmc_tpu.mesh.structured import _mfem_bdr_attr
+from parelagmc_tpu_torch.config import ProblemConfig
+from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy, build_geometric_hierarchy_from_fine
+from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING, make_box_mesh
+from parelagmc_tpu_torch.mesh.structured import _mfem_bdr_attr
 from parelagmc_tpu_torch.device import resolve_device, torch_dtype
 from parelagmc_tpu_torch.physics.darcy import DarcySolver
 from parelagmc_tpu_torch.samplers.pde import SPDESampler
@@ -151,8 +151,8 @@ def permute_config_axes(cfg: ProblemConfig, order) -> ProblemConfig:
 def build_problem(cfg: ProblemConfig, kinv_ref: Optional[np.ndarray] = None,
                   device=None) -> Problem:
     """Build the multilevel hierarchy, the SPDE sampler and the Darcy solver
-    on `device` (None: the CPU). The returned config is the relabeled one
-    when axis_order permutes the axes."""
+    on `device` (None: cuda:0; without a card pass device="cpu"). The
+    returned config is the relabeled one when axis_order permutes the axes."""
     if cfg.embedding != "none":
         raise _not_ported(f"embedding {cfg.embedding!r}", 11)
     if cfg.sampler_name != "pde":

@@ -21,9 +21,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem.hierarchy import GeometricHierarchy, axis_parent_map
-from parelagmc_tpu.utils.special import matern_spde_scaling
+from parelagmc_tpu_torch.config import ProblemConfig
+from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy, axis_parent_map
+from parelagmc_tpu_torch.utils.special import matern_spde_scaling
 from parelagmc_tpu_torch.device import resolve_device
 from parelagmc_tpu_torch.ops.prng import Key, sample_normals
 from parelagmc_tpu_torch.ops.tensorsolve import (

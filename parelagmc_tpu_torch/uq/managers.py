@@ -35,8 +35,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.utils.regression import exp_weighted_regression
+from parelagmc_tpu_torch.config import ProblemConfig
+from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager, block_until_ready
 

@@ -19,7 +19,7 @@ For each it measures the layers of one pair step:
   sampler_solve  SPDESampler.eval on the fine and the coarse level
   coarse_solve   DarcySolver.solve_fwd on the coarse level
   fine_solve     DarcySolver.solve_fwd_warm on the fine level
-  minv_apply     one M(w)^{-1} apply on the fine level (three K1 solves)
+  minv_apply     one M(w)^{-1} apply on the fine level (three K1 launches)
   prec_apply     one coefMG V-cycle on the fine level (spe10 only)
   pair_step      the whole step
 and for each layer: host wall ms per call (synchronized, no profiler),
@@ -43,6 +43,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILER_ATTEMPTS = 3  # sessions tried before a layer is reported without device time
+# (substring of a device function's name, key of the device split): K1 has
+# two device functions in csrc/thomas.cu, the Thomas path for strided rows
+# and the segment path for contiguous rows; K2/K3 share one.
+KERNEL_TAGS = (("line_solve_kernel", "K1 thomas"), ("segment_solve_kernel", "K1 thomas"),
+               ("threefry_kernel", "K2/K3 threefry"))
 
 
 def measure(fn, reps: int):
@@ -97,7 +102,8 @@ def measure(fn, reps: int):
 
 def device_split(ka, reps: int) -> dict:
     """Device ms per call by the aten operator that launched each kernel;
-    the port's own kernels (launched outside aten) by kernel name."""
+    the port's own kernels (launched outside aten) under their kernel's
+    name, all of K1's device functions summed under one key."""
     from torch.autograd import DeviceType
 
     split = {}
@@ -106,9 +112,9 @@ def device_split(ka, reps: int) -> dict:
                 and e.self_device_time_total > 0:
             split[e.key] = e.self_device_time_total / 1e3 / reps
         elif e.device_type == DeviceType.CUDA:
-            for tag in ("thomas_kernel", "threefry_kernel"):  # incl. thomas_kernel_bf16
+            for tag, name in KERNEL_TAGS:
                 if tag in e.key:
-                    split[tag] = split.get(tag, 0.0) + e.self_device_time_total / 1e3 / reps
+                    split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
@@ -191,7 +197,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_pair_step: torch.cuda.is_available() is False: needs a CUDA card")
     sys.path.insert(0, HERE)
-    from chip_smoke import gpu_info, pair_problem, spe10_full_problem
+    from chip_smoke import gpu_info, jax_modules_loaded, pair_problem, spe10_full_problem
     from parelagmc_tpu_torch import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -206,8 +212,8 @@ def main() -> None:
                                             restart_every=0), 64, 2, gpu),
         profile_config("spe10", spe10_full_problem(device), 8, 3, gpu),
     ]}
-    if "jax" in sys.modules:
-        sys.exit("profile_pair_step: jax was imported")
+    if jax_modules_loaded():
+        sys.exit(f"profile_pair_step: imported {jax_modules_loaded()}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

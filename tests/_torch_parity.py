@@ -10,12 +10,18 @@ collection, so every pytest-xdist worker collects the same tests.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 # Several pytest-xdist workers share the host: keep each one's intra-op pool small.
 torch.set_num_threads(2)
+
+# The port's entry points run on cuda:0 unless asked otherwise; the CPU
+# parity tests ask for the CPU through this constant.
+CPU = torch.device("cpu")
 
 
 @pytest.fixture
@@ -37,3 +43,17 @@ def rel_err(a, b) -> float:
     """max |a - b| / max |b| over all entries."""
     a, b = to_np(a).astype(np.float64), to_np(b).astype(np.float64)
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def port_config(cfg):
+    """The port's own config (parelagmc_tpu_torch.config) with the field
+    values of a JAX-package config, nested configs recursed into: the tests
+    build one config and hand each package its own class."""
+    from parelagmc_tpu_torch import config as tconfig
+
+    cls = getattr(tconfig, type(cfg).__name__)
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        kw[f.name] = port_config(v) if dataclasses.is_dataclass(v) else v
+    return cls(**kw)

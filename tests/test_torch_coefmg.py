@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from _torch_parity import rel_err
-from parelagmc_tpu.mesh import make_box_mesh
+from parelagmc_tpu.mesh import make_box_mesh as jax_make_box_mesh
 from parelagmc_tpu.ops import coef_multigrid_structured as jmg
 from parelagmc_tpu.physics.darcy import _parse_line_axes as jax_parse_line_axes
+from parelagmc_tpu_torch.mesh import make_box_mesh
 from parelagmc_tpu_torch.ops import coef_multigrid_structured as tmg
 from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
 
@@ -32,6 +33,10 @@ def _mesh():
     return make_box_mesh(GRID, lengths=(1.2, 2.0, 0.7))
 
 
+def _jax_mesh():
+    return jax_make_box_mesh(GRID, lengths=(1.2, 2.0, 0.7))
+
+
 def _dinv0(mesh, batch=2, seed=0):
     """Positive face conductances over 6 decades, 0 at a random 10 %
     (essential faces)."""
@@ -43,7 +48,7 @@ def _dinv0(mesh, batch=2, seed=0):
 
 def _pair(**kw):
     mesh = _mesh()
-    return mesh, jmg.build_struct_coef_mg(mesh, cutoff=CUTOFF, **kw), \
+    return mesh, jmg.build_struct_coef_mg(_jax_mesh(), cutoff=CUTOFF, **kw), \
         tmg.build_struct_coef_mg(mesh, cutoff=CUTOFF, **kw)
 
 
@@ -144,7 +149,7 @@ def test_parse_line_axes_matches_jax(spec):
     kinv = np.exp(rng.normal(size=(mesh.num_cells, 3)))
     kinv[:, 2] *= 1e-2  # z strongly coupled: "auto" picks it
     got = tmg.parse_line_axes(spec, mesh, kinv)
-    assert got == jax_parse_line_axes(spec, mesh, kinv)
+    assert got == jax_parse_line_axes(spec, _jax_mesh(), kinv)
     if spec == "auto":
         assert 2 in got
     assert tmg.parse_line_axes("auto", mesh, None) == ()

@@ -9,13 +9,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import rel_err, to_np
+from _torch_parity import CPU, port_config, rel_err, to_np
 from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem import build_geometric_hierarchy
-from parelagmc_tpu.mesh import make_box_mesh
+from parelagmc_tpu.fem import build_geometric_hierarchy as jax_build_geometric_hierarchy
+from parelagmc_tpu.mesh import make_box_mesh as jax_make_box_mesh
 from parelagmc_tpu.ops.solvers import pcg as jax_pcg
 from parelagmc_tpu.physics import DarcySolver as JaxDarcySolver
 from parelagmc_tpu_torch.convert import darcy_level_from_jax
+from parelagmc_tpu_torch.fem import build_geometric_hierarchy
+from parelagmc_tpu_torch.mesh import make_box_mesh
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.ops.solvers import pcg
 from parelagmc_tpu_torch.physics import DarcySolver
@@ -69,13 +71,21 @@ def test_pcg_unconverged_rows_are_flagged():
     assert info.iterations == 3 and not bool(info.converged.any())
 
 
+def _hierarchies(ncells, nlevels):
+    """(port, JAX) hierarchies of one box of side 2: each package builds
+    its own."""
+    args = (ncells, (2.0, 2.0, 2.0))
+    return (build_geometric_hierarchy(make_box_mesh(*args), nlevels),
+            jax_build_geometric_hierarchy(jax_make_box_mesh(*args), nlevels))
+
+
 def _solvers(refinements=1, **solver_kw):
-    base = make_box_mesh((4, 4, 4), lengths=(2.0, 2.0, 2.0))
-    hier = build_geometric_hierarchy(base, refinements + 1)
+    hier, jhier = _hierarchies((4, 4, 4), refinements + 1)
     cfg = ProblemConfig(refinements=refinements)
     for k, v in solver_kw.items():
         setattr(cfg.darcy_solver, k, v)
-    return hier, cfg, JaxDarcySolver(hier, cfg, jnp.float64), DarcySolver(hier, cfg, F64)
+    return (hier, cfg, JaxDarcySolver(jhier, cfg, jnp.float64),
+            DarcySolver(hier, port_config(cfg), F64, device=CPU))
 
 
 def _levels_equal(a, b):
@@ -94,13 +104,12 @@ def _levels_equal(a, b):
 
 @pytest.mark.parametrize("qoi", ["eff_perm", "p_int", "local_avg_p"])
 def test_darcy_level_build_equals_converted_jax(qoi):
-    base = make_box_mesh((4, 4, 4), lengths=(2.0, 2.0, 2.0))
-    hier = build_geometric_hierarchy(base, 2)
+    hier, jhier = _hierarchies((4, 4, 4), 2)
     cfg = ProblemConfig(refinements=1, qoi=qoi)
-    js = JaxDarcySolver(hier, cfg, jnp.float64)
-    ts = DarcySolver(hier, cfg, F64)
+    js = JaxDarcySolver(jhier, cfg, jnp.float64)
+    ts = DarcySolver(hier, port_config(cfg), F64, device=CPU)
     for l in range(2):
-        _levels_equal(ts.levels[l], darcy_level_from_jax(js.levels[l]))
+        _levels_equal(ts.levels[l], darcy_level_from_jax(js.levels[l], device=CPU))
         assert ts.num_dofs(l) == js.num_dofs(l)
 
 
@@ -132,7 +141,7 @@ def test_solve_fwd_pair_matches_jax_and_runs_on_converted_levels():
     assert got[3].iterations == int(ref[3].iterations)
     assert rel_err(got[0], ref[0]) < 1e-9 and rel_err(got[1], ref[1]) < 1e-9
     # Identical operators by construction: swap in the converted levels.
-    ts.levels = torch.nn.ModuleList([darcy_level_from_jax(L) for L in js.levels])
+    ts.levels = torch.nn.ModuleList([darcy_level_from_jax(L, device=CPU) for L in js.levels])
     again = ts.solve_fwd_pair(0, torch.from_numpy(w_f), torch.from_numpy(w_c))
     assert rel_err(again[0], ref[0]) < 1e-9
 
@@ -141,7 +150,7 @@ def test_darcy_random_input_anchors():
     """examples/darcy_random_input.py on the port: the per-level anchors of
     tests/test_examples.py:47 (f64, seed 0, rtol 1e-4)."""
     cfg = ProblemConfig(refinements=2, dtype="float64", seed=0)
-    prob = build_problem(cfg)
+    prob = build_problem(port_config(cfg), device=CPU)
     key = PRNGKey(cfg.seed)
     golden = {0: 2.6480155, 1: 2.7483976, 2: 1.8151928}
     for level in range(3):
@@ -168,10 +177,9 @@ def test_constant_coefficient_gives_unit_slab_flux():
      dict(adjoint_qoi=True, adjoint_stacked=True), dict(spatial_shards=2)],
 )
 def test_not_ported_solver_options_raise(options):
-    base = make_box_mesh((2, 2, 2), lengths=(2.0, 2.0, 2.0))
-    hier = build_geometric_hierarchy(base, 1)
+    hier, _ = _hierarchies((2, 2, 2), 1)
     cfg = ProblemConfig(refinements=0)
     for field, value in options.items():
         setattr(cfg.darcy_solver, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DarcySolver(hier, cfg, F64)
+        DarcySolver(hier, port_config(cfg), F64, device=CPU)

@@ -1,61 +1,93 @@
-"""The port stands without jax, builds nothing at import, and refuses what
-it has not ported instead of running something else."""
+"""The port stands without jax and without the JAX package: it imports
+neither, keeps its own copy of the host code it needs (held here to the
+originals), builds nothing at import, runs on the card unless asked for the
+CPU, and refuses what it has not ported instead of running something else."""
 
+import dataclasses
 import os
+import pkgutil
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (thread count)
-from parelagmc_tpu.config import ProblemConfig
+import parelagmc_tpu_torch
+from _torch_parity import CPU, port_config
+from parelagmc_tpu import config as jconfig
+from parelagmc_tpu.fem import assembly as jassembly
+from parelagmc_tpu.fem import galerkin_mass as jgalerkin
+from parelagmc_tpu.fem import hierarchy as jhierarchy
+from parelagmc_tpu.mesh import factories as jfactories
+from parelagmc_tpu.mesh import structured as jstructured
+from parelagmc_tpu.utils import regression as jregression
+from parelagmc_tpu.utils import special as jspecial
+from parelagmc_tpu_torch import config as tconfig
 from parelagmc_tpu_torch.device import resolve_device, torch_dtype
+from parelagmc_tpu_torch.fem import assembly as tassembly
+from parelagmc_tpu_torch.fem import galerkin_mass as tgalerkin
+from parelagmc_tpu_torch.fem import hierarchy as thierarchy
+from parelagmc_tpu_torch.mesh import factories as tfactories
+from parelagmc_tpu_torch.mesh import structured as tstructured
 from parelagmc_tpu_torch.problems import build_problem
+from parelagmc_tpu_torch.utils import regression as tregression
+from parelagmc_tpu_torch.utils import special as tspecial
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "parelagmc_tpu_torch")
-MODULES = [
-    "parelagmc_tpu_torch",
-    "parelagmc_tpu_torch.convert",
-    "parelagmc_tpu_torch.device",
-    "parelagmc_tpu_torch.kernels",
-    "parelagmc_tpu_torch.ops.coef_multigrid_structured",
-    "parelagmc_tpu_torch.ops.mass_solve",
-    "parelagmc_tpu_torch.ops.prng",
-    "parelagmc_tpu_torch.ops.solvers",
-    "parelagmc_tpu_torch.ops.tensorsolve",
-    "parelagmc_tpu_torch.ops.tridiag_pallas",
-    "parelagmc_tpu_torch.physics.darcy",
-    "parelagmc_tpu_torch.physics.spe10",
-    "parelagmc_tpu_torch.problems",
-    "parelagmc_tpu_torch.samplers.pde",
-    "parelagmc_tpu_torch.uq.managers",
-    "parelagmc_tpu_torch.utils.timing",
-]
+MODULES = ["parelagmc_tpu_torch"] + sorted(
+    m.name for m in pkgutil.walk_packages(parelagmc_tpu_torch.__path__, "parelagmc_tpu_torch."))
+# Program files of the port outside the package.
+SCRIPTS = ("chip_smoke.py", "profile_pair_step.py")
 
 
 def test_port_imports_leave_jax_out():
+    """Every module of the port, imported in a fresh interpreter, loads
+    neither jax nor any module of the JAX package parelagmc_tpu."""
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "print('jax' in sys.modules, any(k.startswith('jax.') for k in sys.modules))\n"
+        "print(any(k == 'jax' or k.startswith('jax.') for k in sys.modules),\n"
+        "      any(k == 'parelagmc_tpu' or k.startswith('parelagmc_tpu.') for k in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False"]
+    assert len(MODULES) > 20 and "parelagmc_tpu_torch.fem.galerkin_mass" in MODULES
+
+
+def _program_sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    for f in SCRIPTS:
+        yield os.path.join(REPO, f)
 
 
 def test_no_jax_import_in_package_sources():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    for root, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    assert not pat.search(fh.read()), f
+    for path in _program_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_no_jax_package_import_in_port_sources():
+    """No `import parelagmc_tpu` / `from parelagmc_tpu...` in the package,
+    chip_smoke.py or profile_pair_step.py (word-bounded, so the port's own
+    name passes)."""
+    pat = re.compile(r"^\s*(import\s+parelagmc_tpu\b(?!_torch)|from\s+parelagmc_tpu\b(?!_torch))",
+                     re.M)
+    for path in _program_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+    assert pat.search("from parelagmc_tpu.fem import x") and pat.search("import parelagmc_tpu")
+    assert not pat.search("from parelagmc_tpu_torch.fem import x")
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -63,7 +95,44 @@ def test_kernel_sources_ship_with_the_package():
 
     for name in kernels.SOURCES:
         assert os.path.isfile(os.path.join(kernels.CSRC_DIR, name))
+        assert os.path.dirname(kernels.library_path(name)) == kernels.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_profile_split_names_every_kernel():
+    """profile_pair_step.py's device split attributes every device function
+    of the port's CUDA sources to its kernel: K1's Thomas and segment paths
+    sum under one key."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location("profile_pair_step",
+                                                  os.path.join(REPO, "profile_pair_step.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    csrc = os.path.join(PKG, "csrc")
+    names = []
+    for f in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, f)) as fh:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                fh.read())
+    assert {"line_solve_kernel", "segment_solve_kernel", "threefry_kernel"} <= set(names)
+    for name in names:
+        assert sum(tag in name for tag, _ in prof.KERNEL_TAGS) == 1, name
+
+    def kernel(key, us):
+        return SimpleNamespace(device_type=DeviceType.CUDA, key=key, is_user_annotation=False,
+                               self_device_time_total=us)
+
+    ka = [kernel("void (anonymous namespace)::line_solve_kernel<float>(...)", 300.0),
+          kernel("void (anonymous namespace)::segment_solve_kernel<float>(...)", 100.0),
+          kernel("void threefry_kernel<float>(...)", 50.0),
+          SimpleNamespace(device_type=DeviceType.CPU, key="aten::mul", is_user_annotation=False,
+                          self_device_time_total=200.0)]
+    assert prof.device_split(ka, 2) == {"K1 thomas": 0.2, "aten::mul": 0.1,
+                                        "K2/K3 threefry": 0.025}
 
 
 def test_device_and_dtype_helpers():
@@ -71,10 +140,49 @@ def test_device_and_dtype_helpers():
     assert torch_dtype(torch.float64) is torch.float64
     with pytest.raises(NotImplementedError):
         torch_dtype("bfloat16")
-    assert resolve_device(None) == torch.device("cpu")
-    if not torch.cuda.is_available():
+    assert resolve_device("cpu") == CPU
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda", 0)
+    else:
+        # The card is the default; without one nothing falls back to the CPU.
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                resolve_device(dev)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card every entry point with a `device` argument raises when
+    it is not given one, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default runs there")
+    from types import SimpleNamespace
+
+    from parelagmc_tpu_torch.convert import tensor_eig_from_jax
+    from parelagmc_tpu_torch.ops import prng
+    from parelagmc_tpu_torch.ops.mass_solve import build_mass_tridiag_solver
+    from parelagmc_tpu_torch.ops.tensorsolve import build_tensor_solver
+    from parelagmc_tpu_torch.physics import DarcySolver
+    from parelagmc_tpu_torch.samplers import SPDESampler
+
+    mesh = tfactories.make_box_mesh((2, 2, 2))
+    lvl = tassembly.build_mixed_level(mesh)
+    hier = thierarchy.build_geometric_hierarchy(mesh, 1)
+    cfg = tconfig.ProblemConfig(refinements=0)
+    eig = SimpleNamespace(V=[np.eye(2)], lam=np.ones(2), w_sqrt=np.ones(2), shape=(2,))
+    calls = [
+        lambda: build_problem(cfg),
+        lambda: DarcySolver(hier, cfg),
+        lambda: SPDESampler(hier, cfg),
+        lambda: tensor_eig_from_jax(eig),
+        lambda: build_mass_tridiag_solver(lvl, np.zeros(lvl.n_u, bool)),
+        lambda: build_tensor_solver(mesh, 1.0),
+        lambda: prng.sample_normals(prng.PRNGKey(0), (2,)),
+        lambda: prng.sample_uniforms(prng.PRNGKey(0), (2,)),
+        lambda: prng.random_bits(prng.PRNGKey(0), 32, (2,)),
+    ]
+    for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            resolve_device("cuda")
+            call()
 
 
 @pytest.mark.parametrize(
@@ -83,6 +191,113 @@ def test_device_and_dtype_helpers():
      ("mesh", "cube.mesh"), ("dtype", "bfloat16")],
 )
 def test_build_problem_refuses_unported_configs(field, value):
-    cfg = ProblemConfig(refinements=0, **{field: value})
+    cfg = tconfig.ProblemConfig(refinements=0, **{field: value})
     with pytest.raises(NotImplementedError):
-        build_problem(cfg)
+        build_problem(cfg, device=CPU)
+
+
+# -- the port's copy of the host code against the JAX package's ------------------
+
+
+def test_problem_config_fields_match_the_jax_package():
+    """A field added or changed on one side is caught here."""
+    assert dataclasses.asdict(tconfig.ProblemConfig()) == dataclasses.asdict(
+        jconfig.ProblemConfig())
+    assert dataclasses.asdict(tconfig.SolverConfig()) == dataclasses.asdict(
+        jconfig.SolverConfig())
+    cfg = jconfig.ProblemConfig(refinements=3, ncells=(2, 3, 4), batch_size_per_level=[4, 8])
+    cfg.darcy_solver.coefmg_line_axes = "zy"
+    mine = port_config(cfg)
+    assert type(mine) is tconfig.ProblemConfig
+    assert type(mine.darcy_solver) is tconfig.SolverConfig
+    assert dataclasses.asdict(mine) == dataclasses.asdict(cfg)
+    assert mine.dim == cfg.dim and mine.nlevels == cfg.nlevels == 4
+
+
+def _both_meshes(kind):
+    """(JAX mesh, port mesh) of the same fine grid: the golden box or a
+    16x32x8 SPE10-shaped grid with SPE10's spacings."""
+    if kind == "golden":
+        args = dict(ncells=(16, 16, 16), lengths=(2.0, 2.0, 2.0))
+    else:
+        args = dict(ncells=(16, 32, 8), spacings=tfactories.SPE10_SPACING)
+    return jfactories.make_box_mesh(**args), tfactories.make_box_mesh(**args)
+
+
+def _assert_same(a, b, what):
+    if hasattr(a, "toarray"):
+        a, b = a.tocsr(), b.tocsr()
+        a.sort_indices()
+        b.sort_indices()
+        for f in ("indptr", "indices", "data"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=what)
+        return
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=what)
+
+
+@pytest.mark.parametrize("kind", ["golden", "spe10"])
+def test_host_copies_match_the_jax_package(kind):
+    """The copied host builders reproduce the originals exactly: meshes,
+    MixedLevel arrays, hierarchy parents and RT prolongators, the Galerkin
+    block chain with its line weights, effective_kinv and the weighted
+    prolongators."""
+    jm, tm = _both_meshes(kind)
+    assert jfactories.SPE10_NCELLS == tfactories.SPE10_NCELLS
+    for a, b in zip(jm.axes, tm.axes):
+        _assert_same(a, b, "axes")
+    jh = jhierarchy.build_geometric_hierarchy_from_fine(jm, 3)
+    th = thierarchy.build_geometric_hierarchy_from_fine(tm, 3)
+    for l, (jl, tl) in enumerate(zip(jh.levels, th.levels)):
+        assert isinstance(tl, tassembly.MixedLevel)
+        for f in dataclasses.fields(jassembly.MixedLevel):
+            if f.name != "mesh":
+                _assert_same(getattr(jl, f.name), getattr(tl, f.name), f"level {l} {f.name}")
+        _assert_same(jl.mesh.attributes, tl.mesh.attributes, f"level {l} attributes")
+        ess = np.array([0, 1, 1, 1, 1, 0])
+        _assert_same(jl.ess_faces(ess), tl.ess_faces(ess), f"level {l} ess")
+        _assert_same(jl.mass_csr(), tl.mass_csr(), f"level {l} mass")
+    for l in range(2):
+        _assert_same(jh.parent[l], th.parent[l], f"parent {l}")
+        _assert_same(jh.P_rt[l], th.P_rt[l], f"P_rt {l}")
+        _assert_same(jh.p_l2(l), th.p_l2(l), f"p_l2 {l}")
+    # Refinement from the coarse end builds the same levels.
+    jr = jhierarchy.build_geometric_hierarchy(jh.levels[-1].mesh, 3)
+    tr = thierarchy.build_geometric_hierarchy(th.levels[-1].mesh, 3)
+    for jl, tl in zip(jr.levels, tr.levels):
+        _assert_same(jl.cell_faces, tl.cell_faces, "refined cell_faces")
+    kinv = np.exp(np.random.default_rng(1).normal(size=(tm.num_cells, 3)))
+    meshes_j = [lvl.mesh for lvl in jh.levels]
+    meshes_t = [lvl.mesh for lvl in th.levels]
+    jchain, jw = jgalerkin.galerkin_block_chain(meshes_j, kinv)
+    tchain, tw = tgalerkin.galerkin_block_chain(meshes_t, kinv)
+    for l in range(3):
+        for k in range(3):
+            _assert_same(jchain[l][k], tchain[l][k], f"blocks {l}.{k}")
+        _assert_same(jgalerkin.effective_kinv(meshes_j[l], jchain[l]),
+                     tgalerkin.effective_kinv(meshes_t[l], tchain[l]), f"effective_kinv {l}")
+    for l in range(2):
+        for a in range(3):
+            _assert_same(jw[l][a], tw[l][a], f"line weights {l}.{a}")
+        _assert_same(jgalerkin.weighted_rt_prolongator(meshes_j[l], meshes_j[l + 1], jw[l]),
+                     tgalerkin.weighted_rt_prolongator(meshes_t[l], meshes_t[l + 1], tw[l]),
+                     f"weighted P_rt {l}")
+        assert (thierarchy.axis_parent_map(meshes_t[l].axes[2], meshes_t[l + 1].axes[2])
+                == jhierarchy.axis_parent_map(meshes_j[l].axes[2], meshes_j[l + 1].axes[2])).all()
+    for a in range(3):
+        _assert_same(jhierarchy.derefine_axis(jm.axes[a]), thierarchy.derefine_axis(tm.axes[a]),
+                     "derefine_axis")
+    for d in (2, 3):
+        for a in range(d):
+            for side in (0, 1):
+                assert (tstructured._mfem_bdr_attr(d, a, side)
+                        == jstructured._mfem_bdr_attr(d, a, side))
+
+
+def test_scalar_helper_copies_match_the_jax_package():
+    for corlen, d in ((0.1, 3), (100.0, 3), (0.3, 2)):
+        assert tspecial.matern_spde_scaling(corlen, d) == jspecial.matern_spde_scaling(corlen, d)
+    y = np.array([1.0, 0.4, 0.1, 0.02])
+    x = np.array([64.0, 512.0, 4096.0, 32768.0])
+    for skip in (0, 1, 3):
+        assert (tregression.exp_weighted_regression(y, x, skip)
+                == jregression.exp_weighted_regression(y, x, skip))

@@ -7,13 +7,17 @@ without a card the card tests skip through the `cuda_device` fixture; the
 CPU tests here pin the wrappers' dispatch and the build's error path.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from _torch_parity import cuda_device  # noqa: F401
+from _torch_parity import CPU, cuda_device  # noqa: F401
 from parelagmc_tpu_torch import kernels
+from parelagmc_tpu_torch.fem import build_mixed_level
+from parelagmc_tpu_torch.mesh import make_box_mesh
 from parelagmc_tpu_torch.ops import prng
-from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
+from parelagmc_tpu_torch.ops.mass_solve import build_mass_tridiag_solver
+from parelagmc_tpu_torch.ops.tridiag_pallas import LineLayout, thomas, thomas_lines, thomas_plain
 
 
 def _lines(n, L, dtype, device, seed=0):
@@ -37,14 +41,14 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     before = dict(kernels.launch_counts)
     dl, d, du, b = _lines(5, 7, torch.float64, "cpu")
     assert torch.equal(thomas(dl, d, du, b), thomas_plain(dl, d, du, b))
-    prng.sample_normals(prng.PRNGKey(2), (3, 4), torch.float64, "cpu")
-    prng.sample_uniforms(prng.PRNGKey(2), (3, 4), torch.float32, "cpu")
+    prng.sample_normals(prng.PRNGKey(2), (3, 4), torch.float64, CPU)
+    prng.sample_uniforms(prng.PRNGKey(2), (3, 4), torch.float32, CPU)
     assert kernels.launch_counts == before
 
 
 def test_thomas_plain_bfloat16_runs_float32_and_rounds_once():
     """bf16 lines: the recurrence in float32, x rounded to bf16 at the end
-    (what thomas_solve_bf16 does), so the result is the float32 solve of the
+    (what the kernel's bf16 instantiation does), so the result is the float32 solve of the
     bf16 tables, rounded."""
     dl, d, du, b = _lines(9, 11, torch.bfloat16, "cpu", seed=4)
     x = thomas(dl, d, du, b)
@@ -62,7 +66,7 @@ def test_full_precision_float32_matmul_is_the_default():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("n,L", [(17, 131072), (65, 4099), (1, 3)])
+@pytest.mark.parametrize("n,L", [(17, 131072), (65, 4099), (1, 3), (221, 1000)])
 def test_thomas_kernel_matches_plain(cuda_device, dtype, tol, n, L):
     dl, d, du, b = _lines(n, L, dtype, cuda_device, seed=n)
     n0 = kernels.launch_counts["thomas"]
@@ -127,3 +131,68 @@ def test_threefry_uniform_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, ref)
     assert 0.0 <= got.min().item() and got.max().item() < 1.0
+
+
+def _mass_solver(shape, ess_attr, dtype, device):
+    """M(w)^{-1} on a box of `shape` cells, built by the port's own builders."""
+    lvl = build_mixed_level(make_box_mesh(shape))
+    ess = lvl.ess_faces(np.array(ess_attr))
+    return lvl, build_mass_tridiag_solver(lvl, ess, dtype=dtype, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape,B", [((16, 16, 16), 4), ((22, 6, 9), 3), ((220, 3, 2), 2),
+                                     ((7, 5), 5)])
+def test_minv_kernel_on_the_face_layout_matches_plain(cuda_device, dtype, tol, shape, B):
+    """apply_factored on CUDA tensors (K1 on the flat face layout, one
+    launch per axis) against the plain composed path on the same tables,
+    relative to max |z|. (220, 3, 2) runs x lines of 221 rows: several
+    chunks of the load ring."""
+    lvl, ms = _mass_solver(shape, [0, 1, 1, 1, 1, 0][: 2 * len(shape)], dtype, cuda_device)
+    rng = np.random.default_rng(len(shape) + B)
+    w = torch.from_numpy(np.exp(rng.normal(size=(B, lvl.n_s)))).to(cuda_device, dtype)
+    r = torch.from_numpy(rng.normal(size=(B, lvl.n_u))).to(cuda_device, dtype)
+    fac = ms.factor(w)
+    n0 = kernels.launch_counts["thomas"]
+    z = ms.apply_factored(fac, r)
+    assert kernels.launch_counts["thomas"] == n0 + len(shape)
+    ref = ms.apply_plain(fac, r)
+    torch.cuda.synchronize()
+    assert torch.isfinite(z).all()
+    assert ((z - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n", [2, 3, 16, 17, 33, 221, 400])
+def test_segment_path_matches_plain(cuda_device, dtype, tol, n):
+    """Contiguous lines (sI = 1) take the kernel's segment path: one
+    segment of 2 or 3 rows, segments of 8 to 16 rows, up to 25 segments
+    per line. Nonzero dl[0] and du[n-1] must be ignored, as the plain
+    recurrence ignores them."""
+    L = 1000
+    dl, d, du, b = (t.t().contiguous() for t in _lines(n, L, dtype, cuda_device, seed=n))
+    x = torch.empty_like(b)
+    thomas_lines(dl, d, du, b, x, LineLayout(n=n, L=L, J=1, O=L, sO=n, sB=0, sI=1, base=0))
+    ref = thomas_plain(dl.t(), d.t(), du.t(), b.t()).t()
+    torch.cuda.synchronize()
+    assert ((x - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.gpu
+def test_thomas_lines_leaves_unaddressed_elements_and_refuses_long_lines(cuda_device):
+    """A layout covering part of a vector writes only its lines; a line too
+    long for the shared memory is refused, not run."""
+    n, L = 9, 40
+    dl, d, du, b = _lines(n, L, torch.float64, cuda_device, seed=3)
+    x = torch.full_like(b, 7.0)
+    half = LineLayout(n=n, L=L // 2, J=L // 2, O=1, sO=0, sB=0, sI=L, base=0)
+    thomas_lines(dl, d, du, b, x, half)
+    ref = thomas_plain(dl[:, : L // 2], d[:, : L // 2], du[:, : L // 2], b[:, : L // 2])
+    torch.cuda.synchronize()
+    assert ((x[:, : L // 2] - ref).abs().max() / ref.abs().max()).item() <= 1e-12
+    assert (x[:, L // 2:] == 7.0).all()
+    dl, d, du, b = _lines(2000, 3, torch.float64, cuda_device)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        thomas(dl, d, du, b)

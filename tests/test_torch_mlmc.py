@@ -10,14 +10,16 @@ import torch
 
 import jax.numpy as jnp
 
-import _torch_parity  # noqa: F401  (thread count)
+from _torch_parity import CPU, port_config
 from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem import build_geometric_hierarchy
-from parelagmc_tpu.mesh import make_box_mesh
+from parelagmc_tpu.fem import build_geometric_hierarchy as jax_build_geometric_hierarchy
+from parelagmc_tpu.mesh import make_box_mesh as jax_make_box_mesh
 from parelagmc_tpu.physics import DarcySolver as JaxDarcySolver
 from parelagmc_tpu.problems import build_problem as jax_build_problem
 from parelagmc_tpu.samplers import SPDESampler as JaxSPDESampler
 from parelagmc_tpu.uq import MLMCManager as JaxMLMCManager
+from parelagmc_tpu_torch.fem import build_geometric_hierarchy
+from parelagmc_tpu_torch.mesh import make_box_mesh
 from parelagmc_tpu_torch.physics import DarcySolver
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.samplers.pde import SPDESampler
@@ -43,8 +45,9 @@ def test_mlmc_small_matches_jax_manager(tmp_path, monkeypatch):
     jprob = jax_build_problem(cfg)
     jmgr = JaxMLMCManager(jprob.solver, jprob.sampler, cfg)
     ref = jmgr.run()
-    prob = build_problem(cfg)
-    mgr = MLMCManager(prob.solver, prob.sampler, cfg)
+    tcfg = port_config(cfg)
+    prob = build_problem(tcfg, device=CPU)
+    mgr = MLMCManager(prob.solver, prob.sampler, tcfg)
     est = mgr.run()
     np.testing.assert_array_equal(mgr.level_nsamples, jmgr.level_nsamples)
     np.testing.assert_allclose(est, ref, rtol=1e-9)
@@ -57,9 +60,9 @@ def test_mlmc_small_anchor(tmp_path, monkeypatch, capsys):
     """The examples/mlmc.py SMALL run of tests/test_examples.py:53-62 on the
     port, as examples/mlmc.py runs it (float32, walltime cost, .dat log)."""
     monkeypatch.chdir(tmp_path)
-    cfg = parse_config(SMALL)
+    cfg = port_config(parse_config(SMALL))
     cfg.verbose = True
-    prob = build_problem(cfg)
+    prob = build_problem(cfg, device=CPU)
     mgr = MLMCManager(prob.solver, prob.sampler, cfg)
     est = mgr.run()
     mgr.close()
@@ -82,10 +85,10 @@ def test_key_schedule_and_warmup_batch(tmp_path, monkeypatch):
     level under the walltime model runs one discarded warm-up batch that
     moves neither the counter nor the statistics."""
     monkeypatch.chdir(tmp_path)
-    cfg = parse_config(["--refinements", "1", "--batch", "4", "--samples", "4",
-                        "--dtype", "float64"])
+    cfg = port_config(parse_config(["--refinements", "1", "--batch", "4", "--samples", "4",
+                                    "--dtype", "float64"]))
     cfg.output_filename = ""
-    prob = build_problem(cfg)
+    prob = build_problem(cfg, device=CPU)
     mgr = MLMCManager(prob.solver, prob.sampler, cfg)
     mgr.init_run([4, 4])
     assert mgr._counter == 2
@@ -110,9 +113,9 @@ def test_steady_cost_ledger_and_timer():
 
 
 def test_manager_rejects_sample_sharding():
-    cfg = parse_config(["--refinements", "0", "--sample-shards", "2"])
+    cfg = port_config(parse_config(["--refinements", "0", "--sample-shards", "2"]))
     cfg.output_filename = ""
-    prob = build_problem(cfg)
+    prob = build_problem(cfg, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MLMCManager(prob.solver, prob.sampler, cfg)
 
@@ -120,11 +123,15 @@ def test_manager_rejects_sample_sharding():
 def _managers_problem(port: bool, **kw):
     """tests/test_managers.py's build_problem (8^3 box of side 2, 3 levels,
     float64) on either package."""
-    hier = build_geometric_hierarchy(make_box_mesh((2, 2, 2), lengths=(2.0, 2.0, 2.0)), 3)
     cfg = ProblemConfig(refinements=2, mse=5e-3, batch_size=16, initial_samples=16,
                         output_filename="", seed=13, **kw)
+    args = ((2, 2, 2), (2.0, 2.0, 2.0))
     if port:
-        return SPDESampler(hier, cfg, torch.float64), DarcySolver(hier, cfg, torch.float64), cfg
+        hier = build_geometric_hierarchy(make_box_mesh(*args), 3)
+        cfg = port_config(cfg)
+        return (SPDESampler(hier, cfg, torch.float64, device=CPU),
+                DarcySolver(hier, cfg, torch.float64, device=CPU), cfg)
+    hier = jax_build_geometric_hierarchy(jax_make_box_mesh(*args), 3)
     return JaxSPDESampler(hier, cfg, jnp.float64), JaxDarcySolver(hier, cfg, jnp.float64), cfg
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_parity  # noqa: F401  (thread count)
+from _torch_parity import CPU
 from parelagmc_tpu_torch import kernels
 from parelagmc_tpu_torch.ops import prng
 
@@ -38,7 +38,7 @@ def test_random_bits_match_jax_exactly(bit_width, shape):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
         ref = np.asarray(jax.random.bits(key, shape, jnp.uint32 if bit_width == 32 else jnp.uint64))
         ref = ref.astype(np.int64) if bit_width == 32 else ref.view(np.int64)
-        got = prng.random_bits(_key_data(key), bit_width, shape).numpy()
+        got = prng.random_bits(_key_data(key), bit_width, shape, CPU).numpy()
         assert got.shape == ref.shape
         np.testing.assert_array_equal(got, ref)
 
@@ -52,7 +52,7 @@ def test_normals_match_jax(dtype, tdtype, atol, shape):
     for seed in SEEDS:
         key = jax.random.PRNGKey(seed)
         ref = np.asarray(jax.random.normal(key, shape, dtype))
-        got = prng.sample_normals(prng.PRNGKey(seed), shape, tdtype)
+        got = prng.sample_normals(prng.PRNGKey(seed), shape, tdtype, CPU)
         assert got.dtype == tdtype and tuple(got.shape) == shape
         # The bits are identical; the gap is erfinv's implementation alone.
         np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=atol)
@@ -67,21 +67,21 @@ def test_uniforms_match_jax_bit_for_bit(dtype, tdtype, shape):
     for seed in SEEDS:
         key = jax.random.fold_in(jax.random.PRNGKey(seed), 9)
         ref = np.asarray(jax.random.uniform(key, shape, dtype))
-        got = prng.sample_uniforms(_key_data(key), shape, tdtype).numpy()
+        got = prng.sample_uniforms(_key_data(key), shape, tdtype, CPU).numpy()
         assert got.dtype == ref.dtype and got.shape == ref.shape
         np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
 
 
 def test_uniform_moments():
     """The uniform moments test of tests/test_misc.py:22 on the port."""
-    u = prng.sample_uniforms(prng.PRNGKey(1), (2000,), torch.float64).numpy()
+    u = prng.sample_uniforms(prng.PRNGKey(1), (2000,), torch.float64, CPU).numpy()
     assert 0.0 <= u.min() and u.max() < 1.0
     assert abs(u.mean() - 0.5) < 0.05 and abs(u.var() - 1.0 / 12.0) < 0.01
 
 
 def test_normal_moments():
     """The moments test of tests/test_misc.py:17 on the port's stream."""
-    x = prng.sample_normals(prng.PRNGKey(0), (1000, 50), torch.float64).numpy()
+    x = prng.sample_normals(prng.PRNGKey(0), (1000, 50), torch.float64, CPU).numpy()
     assert abs(x.mean()) < 0.05 and abs(x.std() - 1.0) < 0.05
     # Tails are reached and finite (the uniform is clipped at nextafter(-1, 0)).
     assert np.isfinite(x).all() and np.abs(x).max() > 3.0
@@ -89,9 +89,9 @@ def test_normal_moments():
 
 def test_cpu_draws_do_not_count_as_kernel_launches():
     before = dict(kernels.launch_counts)
-    prng.sample_normals(prng.PRNGKey(1), (4, 9), torch.float32)
-    prng.random_bits(prng.PRNGKey(1), 64, (4, 9))
-    prng.sample_uniforms(prng.PRNGKey(1), (4, 9), torch.float64)
+    prng.sample_normals(prng.PRNGKey(1), (4, 9), torch.float32, CPU)
+    prng.random_bits(prng.PRNGKey(1), 64, (4, 9), CPU)
+    prng.sample_uniforms(prng.PRNGKey(1), (4, 9), torch.float64, CPU)
     assert kernels.launch_counts == before
     with pytest.raises(NotImplementedError):
-        prng.sample_uniforms(prng.PRNGKey(1), (4, 9), torch.bfloat16)
+        prng.sample_uniforms(prng.PRNGKey(1), (4, 9), torch.bfloat16, CPU)

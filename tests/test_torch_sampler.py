@@ -7,13 +7,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import rel_err, to_np
+from _torch_parity import CPU, port_config, rel_err, to_np
 from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem import build_geometric_hierarchy
-from parelagmc_tpu.mesh import make_box_mesh
+from parelagmc_tpu.fem import build_geometric_hierarchy as jax_build_geometric_hierarchy
+from parelagmc_tpu.mesh import make_box_mesh as jax_make_box_mesh
 from parelagmc_tpu.ops import tensorsolve as jts
 from parelagmc_tpu.samplers import SPDESampler as JaxSPDESampler
 from parelagmc_tpu_torch.convert import tensor_eig_from_jax
+from parelagmc_tpu_torch.fem import build_geometric_hierarchy
+from parelagmc_tpu_torch.mesh import make_box_mesh
 from parelagmc_tpu_torch.ops import tensorsolve as tts
 from parelagmc_tpu_torch.samplers import SPDESampler
 
@@ -30,9 +32,10 @@ F64 = torch.float64
 )
 def test_tensor_eig_build_and_solve_match_jax(ncells, lengths, alpha, ess_attr):
     mesh = make_box_mesh(ncells, lengths=lengths)
-    ref = jts.build_tensor_solver(mesh, alpha, ess_attr=ess_attr, dtype=jnp.float64)
-    mine = tts.build_tensor_solver(mesh, alpha, ess_attr=ess_attr, dtype=F64)
-    conv = tensor_eig_from_jax(ref)
+    ref = jts.build_tensor_solver(jax_make_box_mesh(ncells, lengths=lengths), alpha,
+                                  ess_attr=ess_attr, dtype=jnp.float64)
+    mine = tts.build_tensor_solver(mesh, alpha, ess_attr=ess_attr, dtype=F64, device=CPU)
+    conv = tensor_eig_from_jax(ref, device=CPU)
     assert mine.shape == conv.shape
     for a, b in zip(mine.V, conv.V):
         assert torch.equal(a, b)
@@ -46,10 +49,14 @@ def test_tensor_eig_build_and_solve_match_jax(ncells, lengths, alpha, ess_attr):
 
 
 def _pair(refinements=1, **cfg_kw):
-    base = make_box_mesh((4, 4, 4), lengths=(2.0, 2.0, 2.0))
-    hier = build_geometric_hierarchy(base, refinements + 1)
+    """(port hierarchy, config, JAX sampler, port sampler) on the golden
+    box; each package gets its own hierarchy and config class."""
+    base = ((4, 4, 4), (2.0, 2.0, 2.0))
+    hier = build_geometric_hierarchy(make_box_mesh(*base), refinements + 1)
+    jhier = jax_build_geometric_hierarchy(jax_make_box_mesh(*base), refinements + 1)
     cfg = ProblemConfig(refinements=refinements, **cfg_kw)
-    return hier, cfg, JaxSPDESampler(hier, cfg, jnp.float64), SPDESampler(hier, cfg, F64)
+    return (hier, cfg, JaxSPDESampler(jhier, cfg, jnp.float64),
+            SPDESampler(hier, port_config(cfg), F64, device=CPU))
 
 
 def test_sampler_noise_equals_jax():
@@ -95,7 +102,7 @@ def test_restrict_cells_matmul_matches_parent_sum():
     hier, cfg, js, ts = _pair()
     f, c = hier.levels[0], hier.levels[1]
     x = np.random.default_rng(0).normal(size=(2, f.n_s))
-    mats = axis_restriction_matrices(f.mesh, c.mesh, F64)
+    mats = axis_restriction_matrices(f.mesh, c.mesh, F64, CPU)
     got = to_np(restrict_cells_matmul(torch.from_numpy(x), mats, f.mesh.shape))
     want = np.stack([np.bincount(hier.parent[0], weights=row, minlength=c.n_s) for row in x])
     np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)

@@ -5,6 +5,7 @@ masked mass diagonal, the cg-schur-coefmg Darcy solver (plain, adjoint,
 meanfield, bfloat16 state, line smoother) on the SPE10 class at a small
 non-dyadic grid, and the fixed-seed scaled SPE10 MLMC anchor."""
 
+import dataclasses
 import os
 import sys
 
@@ -14,19 +15,25 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import rel_err, to_np
+from _torch_parity import CPU, port_config, rel_err, to_np
 from parelagmc_tpu import problems as jproblems
 from parelagmc_tpu.config import ProblemConfig
-from parelagmc_tpu.fem import build_mixed_level
-from parelagmc_tpu.fem.galerkin_mass import blocks_mass_csr, galerkin_block_chain
-from parelagmc_tpu.fem.hierarchy import build_geometric_hierarchy_from_fine
-from parelagmc_tpu.mesh import make_box_mesh
-from parelagmc_tpu.mesh.factories import SPE10_NCELLS, SPE10_SPACING
+from parelagmc_tpu.fem import build_mixed_level as jax_build_mixed_level
+from parelagmc_tpu.fem.galerkin_mass import blocks_mass_csr
+from parelagmc_tpu.fem.galerkin_mass import galerkin_block_chain as jax_galerkin_block_chain
+from parelagmc_tpu.fem.hierarchy import (
+    build_geometric_hierarchy_from_fine as jax_build_geometric_hierarchy_from_fine,
+)
+from parelagmc_tpu.mesh import make_box_mesh as jax_make_box_mesh
 from parelagmc_tpu.ops import mass_solve as jms
 from parelagmc_tpu.physics import DarcySolver as JaxDarcySolver
 from parelagmc_tpu.physics import spe10 as jspe10
 from parelagmc_tpu_torch import problems as tproblems
 from parelagmc_tpu_torch.convert import darcy_level_from_jax, mass_solver_from_jax
+from parelagmc_tpu_torch.fem import build_mixed_level
+from parelagmc_tpu_torch.fem.galerkin_mass import galerkin_block_chain
+from parelagmc_tpu_torch.fem.hierarchy import build_geometric_hierarchy_from_fine
+from parelagmc_tpu_torch.mesh import SPE10_NCELLS, SPE10_SPACING, make_box_mesh
 from parelagmc_tpu_torch.ops import mass_solve as tms
 from parelagmc_tpu_torch.ops.prng import PRNGKey
 from parelagmc_tpu_torch.physics import DarcySolver
@@ -84,9 +91,9 @@ def test_full_grid_solver_defaults_match_example(opts):
     kw = dict(mesh="spe10", correlation_length=100.0, normalize_marginals=True,
               axis_order="auto")
     ref = jax_full_grid_defaults(parse_config(argv, **kw), argv)
-    got = tspe10.full_grid_solver_defaults(parse_config(argv, **kw),
+    got = tspe10.full_grid_solver_defaults(port_config(parse_config(argv, **kw)),
                                            overrides=[o.partition("=")[0] for o in opts])
-    assert got == ref
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.batch_size_per_level == [8, 128, 512]
     assert got.split_pair_programs and got.solve_segments == 4
 
@@ -110,15 +117,15 @@ def test_axis_relabeling_matches_jax(order):
     cfg = ProblemConfig(ncells=(1, 2, 3), lengths=(4.0, 5.0, 6.0), qoi_point=(0.1, 0.2, 0.3),
                         bayes_obs_coords=(1.0, 2.0, 3.0, 4.0, 5.0, 6.0), axis_order=order)
     cfg.darcy_solver.coefmg_line_axes = "zx"
-    assert (tproblems.permute_config_axes(cfg, perm)
-            == jproblems._permute_config_axes(cfg, perm))
+    assert (dataclasses.asdict(tproblems.permute_config_axes(port_config(cfg), perm))
+            == dataclasses.asdict(jproblems._permute_config_axes(cfg, perm)))
     with pytest.raises(ValueError):
         tproblems.resolve_axis_order((0, 0, 1), ncells)
 
 
 def test_spe10_mesh_spec_and_auto_order():
     cfg = ProblemConfig(mesh="spe10", refinements=2)
-    assert tproblems.fine_mesh_spec(cfg) == jproblems.fine_mesh_spec(cfg)
+    assert tproblems.fine_mesh_spec(port_config(cfg)) == jproblems.fine_mesh_spec(cfg)
     ncells, _ = tproblems.fine_mesh_spec(cfg)
     assert ncells == (60, 220, 85)
     assert tproblems.resolve_axis_order("auto", ncells) == (1, 0, 2)
@@ -145,8 +152,8 @@ def test_build_problem_with_auto_axis_order_matches_jax():
     cfg.darcy_solver.coefmg_line_axes = "z"
     kinv = tspe10.load_spe10_kinv(None, ncells=(6, 10, 4))
     jp = jproblems.build_problem(cfg, kinv_ref=kinv)
-    tp = tproblems.build_problem(cfg, kinv_ref=kinv)
-    assert tp.config == jp.config
+    tp = tproblems.build_problem(port_config(cfg), kinv_ref=kinv, device=CPU)
+    assert dataclasses.asdict(tp.config) == dataclasses.asdict(jp.config)
     assert tp.hierarchy.levels[0].mesh.shape == (10, 6, 4)
     assert tp.solver.levels[0].coef_mg.line_axes == (2,)
     xi = tp.sampler.sample(0, PRNGKey(3), 2)
@@ -167,17 +174,24 @@ def _hierarchy(nlevels=3):
     return build_geometric_hierarchy_from_fine(fine, nlevels)
 
 
+def _jax_hierarchy(nlevels=3):
+    fine = jax_make_box_mesh(GRID, spacings=SPE10_SPACING)
+    return jax_build_geometric_hierarchy_from_fine(fine, nlevels)
+
+
 def test_galerkin_mass_solver_matches_jax_and_dense():
-    hier = _hierarchy()
+    hier, jhier = _hierarchy(), _jax_hierarchy()
     kinv = tspe10.load_spe10_kinv(None, ncells=GRID)
     chain, _ = galerkin_block_chain([lvl.mesh for lvl in hier.levels], kinv)
+    jchain, _ = jax_galerkin_block_chain([lvl.mesh for lvl in jhier.levels], kinv)
     rng = np.random.default_rng(2)
     ess_attr = np.array([0, 1, 1, 1, 1, 0])
-    for l, lvl in enumerate(hier.levels):
+    for l, (lvl, jlvl) in enumerate(zip(hier.levels, jhier.levels)):
         ess = lvl.ess_faces(ess_attr)
-        mine = tms.build_mass_tridiag_solver(lvl, ess, dtype=F64, axis_blocks=chain[l])
-        jsol = jms.build_mass_tridiag_solver(lvl, ess, dtype=jnp.float64, axis_blocks=chain[l])
-        for a, b in zip(mine.axes, mass_solver_from_jax(jsol).axes):
+        mine = tms.build_mass_tridiag_solver(lvl, ess, dtype=F64, device=CPU,
+                                             axis_blocks=chain[l])
+        jsol = jms.build_mass_tridiag_solver(jlvl, ess, dtype=jnp.float64, axis_blocks=jchain[l])
+        for a, b in zip(mine.axes, mass_solver_from_jax(jsol, device=CPU).axes):
             for name in ("m_lo", "m_mid", "m_hi", "ess"):
                 assert torch.equal(getattr(a, name), getattr(b, name)), (l, name)
         w = np.exp(rng.normal(size=(2, lvl.n_s)))
@@ -188,7 +202,7 @@ def test_galerkin_mass_solver_matches_jax_and_dense():
         assert rel_err(got, ref) < 1e-12
         if l > 0:  # coarse Galerkin blocks: bll != brr
             assert not np.allclose(chain[l][0], chain[l][2])
-        M = blocks_mass_csr(lvl, chain[l], w[0]).toarray()
+        M = blocks_mass_csr(jlvl, jchain[l], w[0]).toarray()
         M[ess, :] = 0.0
         M[:, ess] = 0.0
         M[np.nonzero(ess)[0], np.nonzero(ess)[0]] = 1.0
@@ -196,15 +210,16 @@ def test_galerkin_mass_solver_matches_jax_and_dense():
 
 
 def test_kinv_mass_solver_matches_jax():
-    mesh = make_box_mesh((5, 4, 3), lengths=(1.0, 2.0, 0.5))
-    lvl = build_mixed_level(mesh)
+    args = ((5, 4, 3), (1.0, 2.0, 0.5))
+    lvl = build_mixed_level(make_box_mesh(*args))
+    jlvl = jax_build_mixed_level(jax_make_box_mesh(*args))
     ess = lvl.ess_faces(np.array([1, 0, 1, 0, 1, 1]))
     rng = np.random.default_rng(3)
     w = np.exp(rng.normal(size=(2, lvl.n_s)))
     rhs = rng.normal(size=(2, lvl.n_u))
     for kinv in (np.exp(rng.normal(size=(lvl.n_s, 3))), np.exp(rng.normal(size=lvl.n_s))):
-        mine = tms.build_mass_tridiag_solver(lvl, ess, kinv_ref=kinv, dtype=F64)
-        jsol = jms.build_mass_tridiag_solver(lvl, ess, kinv_ref=kinv, dtype=jnp.float64)
+        mine = tms.build_mass_tridiag_solver(lvl, ess, kinv_ref=kinv, dtype=F64, device=CPU)
+        jsol = jms.build_mass_tridiag_solver(jlvl, ess, kinv_ref=kinv, dtype=jnp.float64)
         got = to_np(mine(torch.from_numpy(w), torch.from_numpy(rhs)))
         assert rel_err(got, np.asarray(jsol(jnp.asarray(w), jnp.asarray(rhs)))) < 1e-12
 
@@ -230,15 +245,15 @@ def _spe10_solvers(coarse_operators="galerkin", **solver_kw):
     for k, v in solver_kw.items():
         setattr(ds, k, v)
     kinv = tspe10.load_spe10_kinv(None, ncells=GRID)
-    return (hier, JaxDarcySolver(hier, cfg, jnp.float64, kinv_ref=kinv),
-            DarcySolver(hier, cfg, F64, kinv_ref=kinv))
+    return (hier, JaxDarcySolver(_jax_hierarchy(), cfg, jnp.float64, kinv_ref=kinv),
+            DarcySolver(hier, port_config(cfg), F64, device=CPU, kinv_ref=kinv))
 
 
 @pytest.mark.parametrize("coarse_operators", ["galerkin", "rediscretize"])
 def test_kinv_levels_equal_converted_jax(coarse_operators):
     hier, js, ts = _spe10_solvers(coarse_operators, coefmg_line_axes="auto")
     for l in range(3):
-        a, b = ts.levels[l], darcy_level_from_jax(js.levels[l])
+        a, b = ts.levels[l], darcy_level_from_jax(js.levels[l], device=CPU)
         for name in ("rhs", "obs_func"):
             assert rel_err(getattr(a, name), getattr(b, name)) < 1e-13, (l, name)
         assert a.coef_mg == b.coef_mg
@@ -334,7 +349,8 @@ def test_unported_kinv_options_raise(kw, msg):
     for k, v in kw.items():
         setattr(cfg.darcy_solver, k, v)
     with pytest.raises(NotImplementedError, match=msg):
-        DarcySolver(hier, cfg, F64, kinv_ref=np.ones((hier.levels[0].n_s, 3)))
+        DarcySolver(hier, port_config(cfg), F64, device=CPU,
+                    kinv_ref=np.ones((hier.levels[0].n_s, 3)))
 
 
 # -- the fixed-seed scaled SPE10 MLMC anchor ---------------------------------------
@@ -353,7 +369,9 @@ def test_spe10_scaled_anchor_on_the_port():
     cfg.darcy_solver.name = "cg-schur-coefmg"
     cfg.darcy_solver.relative_tolerance = 1e-8
     cfg.darcy_solver.max_iterations = 2000
-    prob = tproblems.build_problem(cfg, kinv_ref=tspe10.load_spe10_kinv(None, ncells=grid))
+    cfg = port_config(cfg)
+    prob = tproblems.build_problem(cfg, kinv_ref=tspe10.load_spe10_kinv(None, ncells=grid),
+                                   device=CPU)
     mgr = MLMCManager(prob.solver, prob.sampler, cfg)
     mgr.init_run([32, 32, 32])
     assert [prob.solver.num_dofs(l) for l in range(3)] == [17280, 2272, 312]
