@@ -61,6 +61,42 @@ Phases, each printing one line (or block) before the last line:
        Galerkin blocks, batches 8/128/512, float32) and noise draws ((8,
        1122000), (128, 138600), (512, 17325)).
 
+10. samplers - on the golden box (16^3/8^3/4^3, float32, batch 512) the
+             matching and the projection embedding (n_buffer 1) and the
+             analytic and Matern KL samplers, each through build_problem:
+             a draw and an evaluation on every level, the coupled coarse
+             one included (finite, of the field's shape); K2 against its
+             plain version at each new draw shape; matching and projection
+             agree on their common embedded mesh; one MLMCManager.init_run
+             per sampler (finite E[Q], both kernels launched) and one cold
+             solve per level with converged fraction 1.0. Then the
+             projection sampler at 64^3 cells (buffer 8 fine cells a side,
+             float64, batch 64): ms per eval, ELL width, peak memory. Then
+             the Egg model (60x60x7, projection embedding, float64, the run
+             of tests/test_nondyadic.py:115-131): embedded shapes (64, 64,
+             11) and (32, 32, 5) and the estimate (see EGG below).
+11. ratio anchor - examples/spe10_ratio_mlmc.py --grid 16,32,8
+             --refinements 1 --samples 8 --batch 8 --dtype float64 through
+             build_problem, BayesianInverseProblem and BayesRatioManager
+             (cg-schur-coefmg: the static Schur multigrid of "cg-schur"
+             under a kinv_ref is not ported): ratio estimate within 2e-3 of
+             354.436, splitting estimate (the same moment table) within
+             2e-3 of 350.767, 8 samples per level, E[Z] > 0.01.
+12. ratio  - the Bayesian ratio estimators on the full SPE10 grid, this
+             slice's full width: phase 9's problem (its config carries the
+             three wells of examples/spe10_ratio_mlmc.py, radius 30 ft),
+             observation data from one prior draw, the example's solver
+             canary (8 samples and one cold solve per level: converged
+             fraction 1.0 required), BayesRatioManager.init_run([8, 128,
+             512]) (one batch per level after a discarded warm-up batch),
+             both estimates from the one moment table, show_me(), C_l,
+             launches of K1 and K2, peak memory; finite estimates and
+             E[Z] > 0 on every level required.
+
+K2 and K3 at (512, 4096) are also read by device time: a CUDA graph of
+GRAPH_LAUNCHES launches into one buffer, replayed, timed with CUDA events
+(ms per launch without the host's launch path between the kernels).
+
 Bounds (bound_ms, the least time the card could take for the same work):
 K1 moves 5 words per unknown (reads dl, d, du and the right-hand side,
 writes the solution; its c and g scratch never leaves the SM) over the
@@ -72,8 +108,10 @@ pipe (the INT32 one) sets the bound. A normal draw is held to the uniform
 draw's count, the work every element does before erfinv.
 
 Then one JSON line with the kernels' numbers (launches of each path with
-the counts at 0 before it; errors, ms, plain_ms, bound_ms and library_ms of
-the full-grid path for K1 and K2, of sample_uniforms for K3), the card's
+the counts at 0 before it, `launches` being the ratio full-grid run's;
+errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
+K1 and K2, which the MLMC and the ratio run share, of sample_uniforms for
+K3), the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line; without a CUDA card, or
 without the package beside this script, it exits non-zero and prints no
@@ -130,6 +168,26 @@ K3_SHAPE = (512, 4096)
 F32_TOL_LINES, BF16_TOL_LINES = 1e-5, 2.0 ** -8
 SPE10_ANCHOR = dict(estimate=361.882, est_tol=0.5, eq=(330.433, 308.151, 298.182),
                     eq_rtol=2e-3, dofs=[17280, 2272, 312])
+# Launches per CUDA graph and replays, for the device time of a small draw.
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 200, 10
+SAMPLER_BATCH = 512
+SAMPLER_CASES = (("matching", dict(embedding="matching")),
+                 ("projection", dict(embedding="projection")),
+                 ("analytic", dict(sampler_name="analytic")),
+                 ("matern", dict(sampler_name="matern")))
+# Matching selection against mortar projection on one embedded mesh, float32.
+EMBED_AGREE_TOL = 1e-4
+# Three wells at mid-depth along the long axis (ft), local averages of
+# radius 30 ft (examples/spe10_ratio_mlmc.py).
+OBS_COORDS = (300.0, 550.0, 85.0, 600.0, 1100.0, 85.0, 900.0, 1650.0, 85.0)
+OBS_EPS = 30.0
+# tests/test_nondyadic.py:115-131. The pin comes from solves cut at 500
+# iterations (both levels run to the limit), so it holds the unconverged
+# iterates of the reference's float64 CG, which another package's rounding
+# moves by about 1e-3 (the port reads 99934.08 on an H100): rtol 3e-3 here
+# against 1e-3 there.
+EGG = dict(estimate=99835.47, rtol=3e-3, embedded=[(64, 64, 11), (32, 32, 5)])
+RATIO_ANCHOR = dict(ratio=354.436, splitting=350.767, rtol=2e-3)
 SPE10_DOFS = [4_525_000, 563_580, 71_595]
 SPE10_CELLS = [1_122_000, 138_600, 17_325]
 
@@ -164,6 +222,32 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(launch, launches: int = GRAPH_LAUNCHES, replays: int = GRAPH_REPLAYS) -> float:
+    """Device milliseconds per call of `launch` (a wrapper launching its
+    kernel on the current stream into a preallocated `out`): `launches` calls captured
+    into one CUDA graph, the graph replayed `replays` times between two
+    CUDA events. Nothing of the host's launch path sits between the
+    kernels."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def mass_tables(refinements: int, batch: int, dtype, device):
@@ -316,9 +400,11 @@ def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int 
         fail(f"K2 normals {label}: err {scaled} > {tol}")
     mode = "kNormalF32" if dtype == torch.float32 else "kNormalF64"
     bound, bound_by = threefry_bound(mode, xk.numel(), xk.element_size())
+    buf = torch.empty_like(xk)
     return xk, dict(
         abs_err=abs_err, scaled=scaled, bound_ms=bound, bound_by=bound_by,
         ms=cuda_ms(lambda: prng.sample_normals(key, shape, dtype, device)),
+        device_ms=graph_ms(lambda: prng.sample_normals(key, shape, dtype, device, out=buf)),
         plain_ms=cuda_ms(lambda: prng.normals_plain(key, shape, dtype, device), reps=plain_reps),
         # Philox: another generator, so not jax.random's values.
         library_ms=cuda_ms(lambda: torch.randn(shape, dtype=dtype, device=device)))
@@ -326,6 +412,8 @@ def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int 
 
 def k2_line(label: str, r: dict, tol: float, gpu: str) -> str:
     return (f"{label}: scaled_err {r['scaled']:.3e} (tol {tol:g}) kernel {r['ms']:.4f} "
+            f"(events around calls) {r['device_ms']:.4f} (device, CUDA graph of {GRAPH_LAUNCHES} "
+            f"launches: {100 * r['bound_ms'] / r['device_ms']:.1f}% of bound) "
             f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
             f"torch.randn {r['library_ms']:.4f} ms [{gpu}]")
 
@@ -560,14 +648,19 @@ def phase_k3(device, gpu: str):
         lo, hi = x64.min().item(), x64.max().item()
         mode = "kUniformF32" if dt == torch.float32 else "kUniformF64"
         bound, bound_by = threefry_bound(mode, xk.numel(), xk.element_size())
+        buf = torch.empty_like(xk)
         r = dict(max_abs_err=0.0, bound_ms=bound, bound_by=bound_by,
                  ms=cuda_ms(lambda: prng.sample_uniforms(key, K3_SHAPE, dt, device)),
+                 device_ms=graph_ms(lambda: prng.sample_uniforms(key, K3_SHAPE, dt, device,
+                                                                 out=buf)),
                  plain_ms=cuda_ms(lambda: prng.uniforms_plain(key, K3_SHAPE, dt, device), reps=5),
                  # Philox: another generator, so not jax.random's values.
                  library_ms=cuda_ms(lambda: torch.rand(K3_SHAPE, dtype=dt, device=device)))
         print(f"K3 threefry uniforms {K3_SHAPE} {name}: identical to plain (tol 0) "
               f"mean {mean:.5f} var {var:.5f} (1/12 = {1 / 12:.5f}) min {lo:.3e} max {hi:.7f} "
-              f"kernel {r['ms']:.4f} plain {r['plain_ms']:.4f} bound {bound:.4f} ({bound_by}, "
+              f"kernel {r['ms']:.4f} (events around calls) {r['device_ms']:.4f} (device, CUDA "
+              f"graph of {GRAPH_LAUNCHES} launches: {100 * bound / r['device_ms']:.1f}% of bound) "
+              f"plain {r['plain_ms']:.4f} bound {bound:.4f} ({bound_by}, "
               f"SASS per element {sass_counts(mode)}) torch.rand "
               f"{r['library_ms']:.4f} ms [{gpu}]", flush=True)
         if not (abs(mean - 0.5) < 0.005 and abs(var - 1 / 12) < 0.002 and 0.0 <= lo and hi < 1.0):
@@ -627,14 +720,19 @@ def phase_spe10_anchor(device, gpu: str):
 
 
 def spe10_full_problem(device):
-    """The full-grid production problem of examples/spe10_mlmc.py
-    (--refinements 2 --dtype float32, synthetic permeability)."""
+    """The full-grid production problem of examples/spe10_mlmc.py and
+    examples/spe10_ratio_mlmc.py (--refinements 2 --dtype float32, synthetic
+    permeability)."""
     from parelagmc_tpu_torch.physics.spe10 import full_grid_solver_defaults, load_spe10_kinv
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
 
     cfg = ProblemConfig(mesh="spe10", refinements=2, dtype="float32", correlation_length=100.0,
                         mse=-1.0, initial_samples=32, batch_size=32, normalize_marginals=True,
-                        axis_order="auto", output_filename="")
+                        axis_order="auto", output_filename="",
+                        # Read by the ratio run only (examples/spe10_ratio_mlmc.py);
+                        # axis_order relabels the coordinates with the mesh.
+                        bayes_num_obs=3, bayes_obs_coords=OBS_COORDS, bayes_eps=OBS_EPS,
+                        bayes_generate_ref_data=True, bayes_ref_data_file="")
     full_grid_solver_defaults(cfg)
     kinv = load_spe10_kinv(None, ncells=(60, 220, 85))
     return build_problem(cfg, kinv_ref=kinv, device=device)
@@ -775,6 +873,238 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
     return launches, checks
 
 
+def solver_canary(prob, level: int, nsamples: int, key, max_iters=None):
+    """One cold solve of `nsamples` sampled fields at `level`, as the
+    likelihoods run it: (converged fraction, iterations, Q)."""
+    xi = prob.sampler.sample(level, key, nsamples)
+    w = prob.sampler.eval(level, xi)
+    q, _, info, _ = prob.solver.solve_fwd(level, w, return_pressure=True, max_iters=max_iters)
+    return float(info.converged.float().mean()), int(info.iterations), q
+
+
+def phase_samplers(device, gpu: str):
+    """Phase 10: the embedded, projection and KL samplers on the golden box,
+    the projection sampler at 64^3, the Egg model."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    batch, f32 = SAMPLER_BATCH, torch.float32
+    launches, seen_shapes, fields = {}, set(), {}
+    for name, kw in SAMPLER_CASES:
+        cfg = ProblemConfig(refinements=2, batch_size=batch, n_buffer=(1,), output_filename="",
+                            **kw)
+        cfg.darcy_solver.relative_tolerance = 1e-5
+        t0 = time.perf_counter()
+        prob = build_problem(cfg, device=device)
+        setup_s = time.perf_counter() - t0
+        sampler = prob.sampler
+        for level in range(3):
+            key = fold_in(PRNGKey(10), level)  # shared by the cases: the embedded ones compare
+            shape = (batch, sampler.sample_size(level))
+            if shape not in seen_shapes:
+                seen_shapes.add(shape)
+                _, k2 = k2_check(key, shape, f32, device, F32_TOL_K2, f"samplers {name} {shape}")
+                print(k2_line(f"samplers {name} level {level}: K2 noise {shape} float32", k2,
+                              F32_TOL_K2, gpu), flush=True)
+            xi = sampler.sample(level, key, batch)
+            outs = [sampler.eval(level, xi)]
+            if level < 2:
+                outs.append(sampler.eval(level + 1, xi, xi_level=level))
+            for lv, s in zip((level, level + 1), outs):
+                if tuple(s.shape) != (batch, prob.hierarchy.levels[lv].n_s):
+                    fail(f"samplers {name}: eval on level {lv} has shape {tuple(s.shape)}")
+                if not torch.isfinite(s).all():
+                    fail(f"samplers {name}: non-finite field on level {lv}")
+            fields[name, level] = outs
+        mgr = MLMCManager(prob.solver, sampler, cfg)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        mgr.init_run([batch] * 3)
+        run_s = time.perf_counter() - t0
+        launches[name] = dict(kernels.launch_counts)
+        conv = [solver_canary(prob, level, batch, fold_in(PRNGKey(11), level))[:2]
+                for level in range(3)]
+        print(f"samplers {name} ({type(sampler).__name__}, noise sizes "
+              f"{[sampler.sample_size(l) for l in range(3)]}, setup {setup_s:.2f} s): "
+              f"init_run {run_s:.2f} s estimate {mgr.estimate:.4f} E[Q] {mgr.eQ.tolist()} "
+              f"iterations {mgr.solver_iterations.tolist()} canary (converged, iterations) {conv} "
+              f"launches {launches[name]} [{gpu}]", flush=True)
+        if not (np_isfinite(mgr.eQ) and math.isfinite(mgr.estimate)):
+            fail(f"samplers {name}: non-finite E[Q] {mgr.eQ.tolist()}")
+        if any(c < 1.0 for c, _ in conv):
+            fail(f"samplers {name}: converged fraction {conv}")
+        for k in ("thomas", "threefry_normal"):
+            if launches[name][k] <= 0:
+                fail(f"kernel {k} was not launched by the {name} MLMC round")
+    worst = 0.0
+    for level in range(3):
+        for a, b in zip(fields["matching", level], fields["projection", level]):
+            worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
+    print(f"samplers: matching selection vs mortar projection on the common embedded mesh, "
+          f"max rel diff {worst:.3e} (tol {EMBED_AGREE_TOL:g}) [{gpu}]", flush=True)
+    if not worst <= EMBED_AGREE_TOL:
+        fail(f"matching and projection samplers differ by {worst}")
+    del fields
+
+    # The projection sampler at 64^3 cells, 8 buffer cells a side.
+    cfg = ProblemConfig(ncells=(8, 8, 8), refinements=3, embedding="projection", n_buffer=(1,),
+                        dtype="float64", batch_size=BIG_BATCH, output_filename="")
+    cfg.darcy_solver.local_schur_scaling = True
+    prob = build_problem(cfg, device=device)
+    sampler = prob.sampler
+    eshape = prob.embed_hierarchy.levels[0].mesh.shape
+    if prob.hierarchy.levels[0].mesh.shape != (64, 64, 64) or eshape != (80, 80, 80):
+        fail(f"64^3 projection: meshes {prob.hierarchy.levels[0].mesh.shape} in {eshape}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    xi = sampler.sample(0, PRNGKey(12), BIG_BATCH)
+    s = sampler.eval(0, xi)
+    sc = sampler.eval(1, xi, xi_level=0)
+    if not (torch.isfinite(s).all() and torch.isfinite(sc).all()):
+        fail("64^3 projection: non-finite field")
+    eval_ms = cuda_ms(lambda: sampler.eval(0, xi), reps=5)
+    solve_ms = cuda_ms(lambda: sampler.embed_eval(0, xi), reps=5)
+    coarse_ms = cuda_ms(lambda: sampler.eval(1, xi, xi_level=0), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"projection sampler 64^3 in {eshape} (float64, batch {BIG_BATCH}, ELL width "
+          f"{sampler.G[0].cols.shape[1]}): eval {eval_ms:.3f} ms (embedded solve alone "
+          f"{solve_ms:.3f} ms), coupled coarse eval {coarse_ms:.3f} ms, peak memory "
+          f"{peak_gb:.2f} GB [{gpu}]", flush=True)
+    del prob, sampler, xi, s, sc
+    torch.cuda.empty_cache()
+
+    # The Egg model with the projection embedding (non-dyadic z = 7).
+    cfg = ProblemConfig(mesh="egg", embedding="projection", refinements=1, dtype="float64",
+                        seed=0, correlation_length=30.0, mse=1e10, initial_samples=16,
+                        batch_size=16, output_filename="")
+    prob = build_problem(cfg, device=device)
+    shapes = [lvl.mesh.shape for lvl in prob.embed_hierarchy.levels]
+    mgr = MLMCManager(prob.solver, prob.sampler, cfg)
+    t0 = time.perf_counter()
+    mgr.init_run([16, 16])
+    print(f"Egg model {prob.hierarchy.levels[0].mesh.shape} projection embedding, embedded "
+          f"{shapes} (float64): estimate {mgr.estimate:.3f} (pin {EGG['estimate']}, rtol "
+          f"{EGG['rtol']:g}) iterations {mgr.solver_iterations.tolist()} consistency "
+          f"{mgr.consistency[:1].tolist()} run {time.perf_counter() - t0:.2f} s [{gpu}]", flush=True)
+    if prob.hierarchy.levels[0].mesh.shape != (60, 60, 7) or shapes != EGG["embedded"]:
+        fail(f"Egg meshes {prob.hierarchy.levels[0].mesh.shape} embedded {shapes}")
+    if not abs(mgr.estimate - EGG["estimate"]) <= EGG["rtol"] * EGG["estimate"]:
+        fail(f"Egg estimate {mgr.estimate}")
+    if not (mgr.consistency[:1] < 1.0).all() or not np_isfinite(mgr.varY):
+        fail(f"Egg consistency {mgr.consistency.tolist()} Var[Y] {mgr.varY.tolist()}")
+    return launches
+
+
+def np_isfinite(a) -> bool:
+    return all(math.isfinite(float(x)) for x in a)
+
+
+def phase_ratio_anchor(device, gpu: str):
+    """Phase 11: tests/test_spe10_anchor.py's scaled ratio and splitting
+    anchors on the card (both estimators read one moment table: the
+    splitting run of the test draws the same stream)."""
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
+    from parelagmc_tpu_torch.uq.ratio_managers import YRATIO, Z
+
+    grid = (16, 32, 8)
+    lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
+    # Coarser cells than the real grid's: widen the radius to keep a cell in range.
+    eps = max(OBS_EPS, 0.75 * max(L / n for L, n in zip(lengths, grid)))
+    cfg = ProblemConfig(mesh="box", ncells=tuple(g // 2 for g in grid), lengths=lengths,
+                        refinements=1, correlation_length=100.0, mse=1e10, initial_samples=8,
+                        batch_size=8, normalize_marginals=True, axis_order="auto",
+                        dtype="float64", bayes_num_obs=3, bayes_obs_coords=OBS_COORDS,
+                        bayes_eps=eps, bayes_generate_ref_data=True, bayes_ref_data_file="",
+                        output_filename="")
+    cfg.darcy_solver.name = "cg-schur-coefmg"
+    prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
+    bip = BayesianInverseProblem(prob.solver, prob.sampler, prob.config, prob.dtype)
+    mgr = BayesRatioManager(bip, prob.config)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    y = bip.generate_observational_data()
+    mgr.init_run([8, 8])
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    ratio, splitting = mgr.estimate, float(mgr.E[:, YRATIO].sum())
+    ez = mgr.E[:, Z].tolist()
+    print(f"SPE10 scaled ratio anchor (16x32x8, f64, cg-schur-coefmg, rtol 1e-6): observation "
+          f"data {y.tolist()} ratio estimate {ratio:.6f} (pin {RATIO_ANCHOR['ratio']}) splitting "
+          f"estimate {splitting:.6f} (pin {RATIO_ANCHOR['splitting']}) samples "
+          f"{mgr.level_nsamples.tolist()} E[Z] {ez} run {dt:.2f} s launches {launches} [{gpu}]",
+          flush=True)
+    for name, got in (("ratio", ratio), ("splitting", splitting)):
+        if not abs(got - RATIO_ANCHOR[name]) <= RATIO_ANCHOR["rtol"] * RATIO_ANCHOR[name]:
+            fail(f"ratio anchor: {name} estimate {got} not within 2e-3 of {RATIO_ANCHOR[name]}")
+    if mgr.level_nsamples.tolist() != [8, 8] or not min(ez) > 0.01:
+        fail(f"ratio anchor: samples {mgr.level_nsamples.tolist()} E[Z] {ez}")
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the ratio anchor run")
+    return launches
+
+
+def phase_ratio_full(prob, device, gpu: str):
+    """Phase 12: examples/spe10_ratio_mlmc.py --refinements 2 on the full
+    grid, one batch per level."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey
+    from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
+    from parelagmc_tpu_torch.uq.ratio_managers import YRATIO, Z
+
+    cfg = prob.config
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    bip = BayesianInverseProblem(prob.solver, prob.sampler, cfg, prob.dtype)
+    mgr = BayesRatioManager(bip, cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    y = bip.generate_observational_data()
+    obs_s = time.perf_counter() - t0
+    print(f"SPE10 ratio full grid: wells {cfg.bayes_obs_coords} (mesh axes) radius "
+          f"{cfg.bayes_eps} ft, cells per functional "
+          f"{[int((g > 0).sum()) for g in bip.g_obs[0]]}, observation data y = {y.tolist()} "
+          f"({obs_s:.2f} s) [{gpu}]", flush=True)
+    budget = mgr.solve_budget
+    for level in range(cfg.nlevels):
+        conv, its, q = solver_canary(prob, level, 8, PRNGKey(99 + level), max_iters=budget)
+        print(f"SPE10 ratio full grid canary level {level}: converged fraction {conv} "
+              f"iterations {its} (budget {budget} each for primal and adjoint) "
+              f"E[Q] {float(q.double().mean()):.4f} [{gpu}]", flush=True)
+        if conv < 1.0:
+            fail(f"SPE10 ratio full grid canary level {level}: converged fraction {conv}")
+    t0 = time.perf_counter()
+    mgr.init_run(list(cfg.batch_size_per_level))
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    ratio, splitting = mgr.estimate, float(mgr.E[:, YRATIO].sum())
+    print(mgr.show_me(), flush=True)
+    print(f"SPE10 ratio full grid init_run({cfg.batch_size_per_level}): {run_s:.2f} s (incl. one "
+          f"discarded warm-up batch per level) ratio estimate {ratio:.6f} splitting estimate "
+          f"{splitting:.6f} C_l {mgr.cost.tolist()} s/sample E[Z] {mgr.E[:, Z].tolist()} "
+          f"launches {launches} peak memory {peak_gb:.2f} GB [{gpu}]", flush=True)
+    if not (math.isfinite(ratio) and math.isfinite(splitting)):
+        fail(f"SPE10 ratio full grid: estimates {ratio}, {splitting}")
+    if mgr.level_nsamples.tolist() != list(cfg.batch_size_per_level):
+        fail(f"SPE10 ratio full grid: samples {mgr.level_nsamples.tolist()}")
+    if not (mgr.E[:, Z] > 0).all():
+        fail(f"SPE10 ratio full grid: E[Z] {mgr.E[:, Z].tolist()}")
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the SPE10 ratio run")
+    return launches
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -820,37 +1150,45 @@ def main() -> None:
     phase_bench(device, gpu)
     phase_64(device, gpu)
     anchor, _ = phase_spe10_anchor(device, gpu)
+    samplers = phase_samplers(device, gpu)
+    ratio_anchor = phase_ratio_anchor(device, gpu)
     t0 = time.perf_counter()
     spe10 = spe10_full_problem(device)
     setup_s = time.perf_counter() - t0
     phase_k1_lines(spe10, device, gpu)
     full, checks = phase_spe10_full(spe10, setup_s, device, gpu)
+    ratio_full = phase_ratio_full(spe10, device, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
-    # launches: this slice's main path, the full-grid SPE10 run (each path
-    # ran with the counts set to 0 just before it; all are listed). The
-    # numbers of thomas and threefry_normal are that path's too:
+    # launches: this slice's main path, the ratio run on the full SPE10
+    # grid (each path ran with the counts set to 0 just before it; all are
+    # listed). The numbers of thomas and threefry_normal are at that grid's
+    # shapes, taken in the full-grid MLMC phase:
     # max_abs_err over its three levels; ms, plain_ms, bound_ms and
     # library_ms at level 0 (thomas: one M(w)^{-1} apply, three launches).
     by_path = lambda k: {"golden_mlmc": golden[k], "spe10_anchor": anchor[k],
-                         "spe10_full_grid": full[k]}
-    on_path = "spe10_full_grid: every level at its production batch, float32; times at level 0"
+                         "spe10_full_grid": full[k], "ratio_anchor": ratio_anchor[k],
+                         "ratio_full_grid": ratio_full[k],
+                         **{f"sampler_{name}_mlmc": n[k] for name, n in samplers.items()}}
+    on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
+               "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     k1, k2 = checks["thomas"], checks["threefry_normal"]
     report = {"kernels": [
         {"name": "thomas", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/thomas.cu",
          "replaces": "parelagmc_tpu/ops/tridiag_pallas.py:77",
-         "launches": full["thomas"], "launches_by_path": by_path("thomas"),
+         "launches": ratio_full["thomas"], "launches_by_path": by_path("thomas"),
          **{k: k1[k] for k in fields}, "bound_by": "bytes",
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/threefry_normal.cu",
          "replaces": "parelagmc_tpu/ops/prng.py:40",
-         "launches": full["threefry_normal"], "launches_by_path": by_path("threefry_normal"),
-         **{k: k2[k] for k in fields}, "bound_by": k2["bound_by"],
+         "launches": ratio_full["threefry_normal"],
+         "launches_by_path": by_path("threefry_normal"),
+         **{k: k2[k] for k in fields}, "device_ms": k2["device_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
          "library_call": "torch.randn (Philox: another generator, not jax.random's values)",
          "measured_on": on_path},
@@ -859,7 +1197,8 @@ def main() -> None:
         {"name": "threefry_uniform", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/threefry_normal.cu",
          "replaces": "parelagmc_tpu/ops/prng.py:127",
-         "launches": k3_launches, **{k: k3[k] for k in fields}, "bound_by": k3["bound_by"],
+         "launches": k3_launches, **{k: k3[k] for k in fields}, "device_ms": k3["device_ms"],
+         "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],
          "library_call": "torch.rand (Philox: another generator, not jax.random's values)",
          "measured_on": f"sample_uniforms {K3_SHAPE} float32"},

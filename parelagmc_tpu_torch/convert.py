@@ -14,9 +14,12 @@ import torch
 
 from parelagmc_tpu_torch.device import resolve_device
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import StructCoefMG, StructMGLevel
+from parelagmc_tpu_torch.ops.ell import ELL
 from parelagmc_tpu_torch.ops.mass_solve import AxisTables, MassTridiagSolver
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig
 from parelagmc_tpu_torch.physics.darcy import DarcyLevel
+from parelagmc_tpu_torch.samplers import kl as tkl
+from parelagmc_tpu_torch.samplers import pde as tpde
 
 
 def _t(x, dtype, device):
@@ -88,3 +91,60 @@ def darcy_level_from_jax(L, dtype=torch.float64, device=None) -> DarcyLevel:
         b_masks=[_t(m, dtype, device) for m in masks],
         coef_mg=struct_coef_mg_from_jax(L.coef_mg) if L.coef_mg is not None else None,
     )
+
+
+def ell_from_jax(ell, dtype=torch.float64, device=None) -> ELL:
+    """parelagmc_tpu.ops.ell.ELL -> port ELL (int32 columns become int64)."""
+    return ELL(_t(ell.cols, torch.int64, device), _t(ell.vals, dtype, device))
+
+
+def sampler_from_jax(js, hierarchy, config, dtype=torch.float64, device=None,
+                     orig_hierarchy=None):
+    """A sampler of the JAX package (SPDESampler, EmbeddedSPDESampler,
+    L2ProjectionSPDESampler or KLSampler, matched by class name) -> the
+    port's sampler of the same name carrying the reference's arrays: eigen
+    factors, w_sqrt, restriction matrices, field_scale, selection, the G/Gt
+    ELL tables and winv_*, or the KL modes. `hierarchy` is the port's
+    hierarchy the sampler solves on (the embedded one for the embedded
+    variants, whose `orig_hierarchy` is the original mesh's); it supplies
+    the host-side level data only."""
+    name = type(js).__name__
+    dev = resolve_device(device)
+    t = lambda x, dt=dtype: _t(x, dt, dev)
+    if name == "KLSampler":
+        out = tkl.KLSampler.__new__(tkl.KLSampler)
+        out.hierarchy, out.covariance, out.config = hierarchy, js.covariance, config
+        out.dtype, out.device = dtype, dev
+        out.sigma, out.lognormal, out.nmodes = js.sigma, js.lognormal, js.nmodes
+        out.sqrt_theta = t(js.sqrt_theta)
+        out.modes = [t(m) for m in js.modes]
+        return out
+    cls = getattr(tpde, name)
+    out = cls.__new__(cls)
+    out.hierarchy, out.config, out.dtype, out.device = hierarchy, config, dtype, dev
+    for f in ("ndim", "corlen", "alpha", "g", "sigma", "lognormal"):
+        setattr(out, f, getattr(js, f))
+    out.eigs = [tensor_eig_from_jax(e, dtype, dev) for e in js.eigs]
+    out.field_scale = None if js.field_scale is None else [t(x) for x in js.field_scale]
+    out.w_sqrt = [t(x) for x in js.w_sqrt]
+    out.shapes = [tuple(sh) for sh in js.shapes]
+    out.restrict_mats = [tuple(t(m) for m in mats) for mats in js.restrict_mats]
+    if name == "SPDESampler":
+        out._flux = {}
+        return out
+    out.orig_hierarchy = orig_hierarchy
+    if name == "EmbeddedSPDESampler":
+        out.selection = [t(x, torch.int64) for x in js.selection]
+    else:
+        out.G = [ell_from_jax(e, dtype, dev) for e in js.G]
+        out.Gt = [ell_from_jax(e, dtype, dev) for e in js.Gt]
+        out.winv_orig = [t(x) for x in js.winv_orig]
+        out.winv_embed = [t(x) for x in js.winv_embed]
+    return out
+
+
+def bayes_obs_from_jax(jbip, dtype=torch.float64, device=None):
+    """(g_obs per level, G_obs or None) of a JAX BayesianInverseProblem as
+    port tensors."""
+    g_obs = [_t(g, dtype, device) for g in jbip.g_obs]
+    return g_obs, (None if jbip.G_obs is None else _t(jbip.G_obs, dtype, device))

@@ -3,4 +3,7 @@ from parelagmc_tpu_torch.mesh.factories import (  # noqa: F401
     SPE10_NCELLS,
     SPE10_SPACING,
     make_box_mesh,
+    make_egg_mesh,
+    make_embedded_box_mesh,
+    make_spe10_mesh,
 )

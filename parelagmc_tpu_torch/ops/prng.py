@@ -10,6 +10,11 @@ implementation and `jax_threefry_partitionable=True` - bit for bit:
   (`PRNGKey(s) = (s >> 32, s & 0xffffffff)`), so deriving keys never
   touches the device;
 * `fold_in(k, d) = threefry2x32(k, (0, d))`;
+* `split(k, num)[i] = threefry2x32(k, (0, i))`: with
+  `jax_threefry_partitionable` the split runs the generator over an iota of
+  64-bit counters, like a draw, and keeps both output words as the new key
+  (so `split(k)[1] == fold_in(k, 1)`; the older layout, which paired the
+  halves of one 2*num draw, is not reproduced);
 * element i of a draw of shape S runs threefry2x32(k, (i >> 32, i &
   0xffffffff)) -> (y0, y1); 32-bit bits are y0 ^ y1, 64-bit bits
   (y0 << 32) | y1;
@@ -31,7 +36,7 @@ float64.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,6 +78,13 @@ def PRNGKey(seed: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """jax.random.fold_in: the new key is threefry2x32(key, (0, data))."""
     return threefry2x32(key[0], key[1], 0, int(data) & _MASK)
+
+
+def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
+    """jax.random.split(key, num) under jax_threefry_partitionable: key i is
+    both output words of threefry2x32(key, (i >> 32, i & 0xffffffff))."""
+    return tuple(threefry2x32(key[0], key[1], (i >> 32) & _MASK, i & _MASK)
+                 for i in range(int(num)))
 
 
 def _numel(shape: Sequence[int]) -> int:
@@ -162,37 +174,55 @@ def random_bits(key: Key, bit_width: int, shape: Sequence[int],
     return out
 
 
+def _out_buffer(out: Optional[torch.Tensor], shape: Sequence[int], dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """The tensor a CUDA draw writes: a new one, or the caller's `out`
+    (contiguous, of the draw's shape, dtype and device)."""
+    if out is None:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype or out.device != device
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(shape)} {dtype} tensor on {device}")
+    return out
+
+
 def sample_normals(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.float32,
-                   device: Union[str, torch.device, None] = None) -> torch.Tensor:
+                   device: Union[str, torch.device, None] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """N(0,1) samples of `shape`, deterministic in `key`, equal to
     jax.random.normal(key, shape, dtype). K2 on a CUDA device (None:
-    cuda:0; writes the dtype directly), the plain version on the CPU."""
+    cuda:0; writes the dtype directly, into `out` if given), the plain
+    version on the CPU."""
     device = resolve_device(device)
     if device.type == "cpu":
-        return normals_plain(key, shape, dtype, device)
+        x = normals_plain(key, shape, dtype, device)
+        return x if out is None else out.copy_(x)
     if device.type != "cuda":
         raise ValueError(f"sample_normals: unsupported device {device}")
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"normals in {dtype} are not supported")
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    out = _out_buffer(out, shape, dtype, device)
     name = "threefry_normal_f32" if dtype == torch.float32 else "threefry_normal_f64"
     _launch_threefry(name, key, out, *_normal_constants(dtype))
     return out
 
 
 def sample_uniforms(key: Key, shape: Sequence[int], dtype: torch.dtype = torch.float32,
-                    device: Union[str, torch.device, None] = None) -> torch.Tensor:
+                    device: Union[str, torch.device, None] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """U[0, 1) samples of `shape`, equal to jax.random.uniform(key, shape,
     dtype) bit for bit. K3 (the uniform mode of csrc/threefry_normal.cu) on a
-    CUDA device (None: cuda:0), the plain version on the CPU."""
+    CUDA device (None: cuda:0; into `out` if given), the plain version on
+    the CPU."""
     device = resolve_device(device)
     if device.type == "cpu":
-        return uniforms_plain(key, shape, dtype, device)
+        x = uniforms_plain(key, shape, dtype, device)
+        return x if out is None else out.copy_(x)
     if device.type != "cuda":
         raise ValueError(f"sample_uniforms: unsupported device {device}")
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"random floats in {dtype} are not supported")
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    out = _out_buffer(out, shape, dtype, device)
     name = "threefry_uniform_f32" if dtype == torch.float32 else "threefry_uniform_f64"
     _launch_threefry(name, key, out, count="threefry_uniform")
     return out

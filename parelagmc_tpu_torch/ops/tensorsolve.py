@@ -168,3 +168,13 @@ def tensor_solve(eig: TensorEig, b: torch.Tensor) -> torch.Tensor:
     z = z / eig.lam.reshape(-1)
     z = _transform(z, V, eig.shape, transpose=True)  # V along each axis
     return z / eig.w_sqrt
+
+
+def tensor_sample(eig: TensorEig, xi: torch.Tensor, scale: float) -> torch.Tensor:
+    """s = scale * W^{-1/2} V diag(1/lam) V^T xi: the SPDE sampler's field
+    for white noise xi, the closed form of S^{-1}(scale * W^{1/2} xi)."""
+    V = eig.V
+    z = _transform(xi, V, eig.shape, transpose=False)
+    z = z / eig.lam.reshape(-1)
+    z = _transform(z, V, eig.shape, transpose=True)
+    return scale * z / eig.w_sqrt

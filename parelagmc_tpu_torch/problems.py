@@ -6,6 +6,8 @@ Port of parelagmc_tpu/problems.py for the tensor-grid configurations:
 * "spe10": the full 60x220x85-cell SPE10 grid (20x10x2 ft cells); its odd
   z-count coarsens non-dyadically (the trailing layer merges into the last
   coarse cell);
+* "egg": the Egg-model grid (60x60x7 cells of 8x8x4); cfg.embedding adds
+  the buffer layers;
 * `axis_order` relabels the mesh axes ("auto": the largest cell count
   becomes x) together with every axis-coupled input - kinv_ref, the
   boundary-side attributes, lengths, qoi_point, the coefMG line-axis
@@ -13,14 +15,19 @@ Port of parelagmc_tpu/problems.py for the tensor-grid configurations:
   cells exactly as in the reference;
 * a static `kinv_ref` (finest mesh, (n_s, d) or (n_s,)) goes to the solver.
 
-The sampler is the SPDE sampler, without embedding. The Egg mesh, mesh
-files, embeddings and the KL samplers raise NotImplementedError naming
-their ROADMAP item instead of running something else.
+The sampler follows cfg.sampler_name and cfg.embedding: the SPDE sampler
+on the original mesh ("pde", "none"), on a matching enlarged mesh
+("matching") or on a non-matching one with mortar projection
+("projection"), or a KL sampler over the analytic exponential or the
+Matern covariance ("analytic", "matern"). Mesh files (the unstructured
+stack) raise NotImplementedError naming their ROADMAP item instead of
+running something else.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,17 +35,36 @@ import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy, build_geometric_hierarchy_from_fine
-from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING, make_box_mesh
+from parelagmc_tpu_torch.mesh.factories import (
+    EGG_NCELLS,
+    EGG_SPACING,
+    SPE10_NCELLS,
+    SPE10_SPACING,
+    make_box_mesh,
+    make_embedded_box_mesh,
+)
 from parelagmc_tpu_torch.mesh.structured import _mfem_bdr_attr
 from parelagmc_tpu_torch.device import resolve_device, torch_dtype
 from parelagmc_tpu_torch.physics.darcy import DarcySolver
-from parelagmc_tpu_torch.samplers.pde import SPDESampler
+from parelagmc_tpu_torch.samplers.base import MLSampler
+from parelagmc_tpu_torch.samplers.covariance import (
+    AnalyticExponentialCovariance,
+    MaternCovariance,
+)
+from parelagmc_tpu_torch.samplers.kl import KLSampler
+from parelagmc_tpu_torch.samplers.pde import (
+    EmbeddedSPDESampler,
+    L2ProjectionSPDESampler,
+    SPDESampler,
+    _TensorSPDEBase,
+)
 
 
 class Problem(NamedTuple):
     config: ProblemConfig
     hierarchy: GeometricHierarchy
-    sampler: SPDESampler
+    embed_hierarchy: Optional[GeometricHierarchy]
+    sampler: MLSampler
     solver: DarcySolver
     dtype: torch.dtype
     device: torch.device
@@ -57,8 +83,10 @@ def fine_mesh_spec(cfg: ProblemConfig):
     if cfg.mesh == "spe10":
         return tuple(SPE10_NCELLS), list(SPE10_SPACING)
     if cfg.mesh == "egg":
-        raise _not_ported("mesh 'egg'", 7)
-    raise _not_ported(f"mesh {cfg.mesh!r}", 15)
+        return tuple(EGG_NCELLS), list(EGG_SPACING)
+    if cfg.mesh.endswith(".mesh"):
+        raise _not_ported(f"mesh file {cfg.mesh!r}", 15)
+    raise ValueError(f"unknown mesh '{cfg.mesh}'")
 
 
 def resolve_axis_order(axis_order, fine_ncells) -> tuple:
@@ -150,13 +178,10 @@ def permute_config_axes(cfg: ProblemConfig, order) -> ProblemConfig:
 
 def build_problem(cfg: ProblemConfig, kinv_ref: Optional[np.ndarray] = None,
                   device=None) -> Problem:
-    """Build the multilevel hierarchy, the SPDE sampler and the Darcy solver
-    on `device` (None: cuda:0; without a card pass device="cpu"). The
-    returned config is the relabeled one when axis_order permutes the axes."""
-    if cfg.embedding != "none":
-        raise _not_ported(f"embedding {cfg.embedding!r}", 11)
-    if cfg.sampler_name != "pde":
-        raise _not_ported(f"sampler {cfg.sampler_name!r}", 11)
+    """Build the multilevel hierarchy (and the embedded one, if any), the
+    sampler and the Darcy solver on `device` (None: cuda:0; without a card
+    pass device="cpu"). The returned config is the relabeled one when
+    axis_order permutes the axes."""
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
     fine_ncells, fine_spacings = fine_mesh_spec(cfg)
@@ -166,8 +191,67 @@ def build_problem(cfg: ProblemConfig, kinv_ref: Optional[np.ndarray] = None,
         cfg = permute_config_axes(cfg, order)
         fine_ncells = tuple(fine_ncells[a] for a in order)
         fine_spacings = [fine_spacings[a] for a in order]
+    if cfg.embedding == "matching" and any(n % 2 ** cfg.refinements for n in fine_ncells):
+        # Matching embedding needs the 0/1 cell selection to hold on EVERY
+        # level: with a non-dyadic axis both hierarchies merge their
+        # trailing layer, but the original mesh merges at its own end and
+        # the embedded mesh inside the buffer, so the interiors stop
+        # aligning. Projection embedding has no such constraint: the mortar
+        # coupling is the exact cell-overlap operator of each level pair.
+        raise ValueError(
+            "matching embedding requires per-axis cell counts divisible by "
+            f"2^{cfg.refinements} so the embedded hierarchies stay aligned "
+            "(use embedding='projection' for non-dyadic grids)"
+        )
     fine = make_box_mesh(fine_ncells, spacings=fine_spacings)
     hier = build_geometric_hierarchy_from_fine(fine, cfg.nlevels)
-    sampler = SPDESampler(hier, cfg, dtype, device)
+
+    embed_hier = None
+    if cfg.embedding != "none":
+        nb = list(cfg.n_buffer)
+        if len(nb) == 1:
+            nb = nb * len(fine_ncells)
+        f = 2 ** cfg.refinements
+        # The buffer is given in coarsest-level cells (the enlarged base
+        # mesh adds whole coarse layers).
+        embed_fine = make_embedded_box_mesh(fine_ncells, spacings=fine_spacings,
+                                            n_buffer=[b * f for b in nb])
+        embed_hier = build_geometric_hierarchy_from_fine(embed_fine, cfg.nlevels)
+
+    fine_mesh = hier.levels[0].mesh
+    if cfg.sampler_name == "pde":
+        if cfg.embedding == "matching":
+            sampler = EmbeddedSPDESampler(hier, embed_hier, cfg, dtype, device)
+        elif cfg.embedding == "projection":
+            sampler = L2ProjectionSPDESampler(hier, embed_hier, cfg, dtype, device)
+        elif cfg.embedding == "none":
+            sampler = SPDESampler(hier, cfg, dtype, device)
+        else:
+            raise ValueError(f"unknown embedding '{cfg.embedding}'")
+    elif cfg.sampler_name == "analytic":
+        d = fine_mesh.dim
+        nmodes = max(2, round(cfg.number_of_modes ** (1.0 / d)))
+        cov = AnalyticExponentialCovariance(fine_mesh, cfg.correlation_length, [nmodes] * d)
+        sampler = KLSampler(hier, cov, cfg, dtype, device)
+    elif cfg.sampler_name == "matern":
+        cov = MaternCovariance(fine_mesh, cfg.correlation_length, cfg.number_of_modes)
+        sampler = KLSampler(hier, cov, cfg, dtype, device)
+    else:
+        raise ValueError(f"unknown sampler '{cfg.sampler_name}'")
+
+    _check_marginal_norm_support(cfg, sampler)
     solver = DarcySolver(hier, cfg, dtype, device, kinv_ref=kinv_ref)
-    return Problem(cfg, hier, sampler, solver, dtype, device)
+    return Problem(cfg, hier, embed_hier, sampler, solver, dtype, device)
+
+
+def _check_marginal_norm_support(cfg: ProblemConfig, sampler) -> None:
+    """normalize_marginals is implemented by the tensor SPDE samplers (the
+    closed spectral form of the covariance diagonal); every other sampler
+    ignores it. Warn instead of silently dropping the flag."""
+    if cfg.normalize_marginals and not isinstance(sampler, _TensorSPDEBase):
+        warnings.warn(
+            "normalize_marginals=True has no effect on "
+            f"{type(sampler).__name__} (only the tensor-grid SPDE "
+            "samplers implement exact marginal normalization); the field "
+            "keeps its raw per-level marginal variances"
+        )

@@ -20,8 +20,12 @@ continues an unconverged pair solve for up to n executions of
 max_iterations each. Here each pair solve runs composed, as one solve with
 that total budget, n * max_iterations.
 
-Not ported yet: save_state/load_state/resume, MCManager and sample
-sharding (ROADMAP.md Queue 1, items 8 and 14).
+`save_state`/`load_state`/`resume` round-trip the estimator state (moment
+sums, sample counts, key counter, MSE target, cost timers and ledger)
+through one .npz file, so an interrupted adaptive run continues with the
+same key stream. `MCManager` is the one-level special case.
+
+Not ported yet: sample sharding (ROADMAP.md Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -252,6 +256,16 @@ class MLMCManager:
         self.level_nsamples_missing[:] = 0
         self._iter_sums[:] = 0.0
         self.init_run(self.init_nsamples)
+        self._adaptive_loop()
+        if self.verbose:
+            print("FINAL MLMC ERRORS")
+            print(self.show_me())
+        return self.estimate
+
+    def _adaptive_loop(self) -> None:
+        """Grow the per-level rounds toward the missing-samples target until
+        the estimator variance meets ratio * eps^2 (shared by run and
+        resume, so a resumed run follows the same schedule)."""
         grain = [0] * self.nlevels
         while self.ml_estimator_variance > self.ratio * self.eps2:
             for l in range(self.nlevels):
@@ -261,10 +275,6 @@ class MLMCManager:
                     + int(self.level_nsamples_missing[l]) // 10,
                 )
             self.init_run(grain)
-        if self.verbose:
-            print("FINAL MLMC ERRORS")
-            print(self.show_me())
-        return self.estimate
 
     @property
     def estimate(self) -> float:
@@ -359,6 +369,46 @@ class MLMCManager:
         self.level_nsamples_missing = np.maximum(missing, 0).astype(np.int64)
         self.VC = self.varY * self.cost
 
+    # -- checkpoint / resume -----------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Write the estimator state to `path` (.npz)."""
+        cost_elapsed = np.array(
+            [TimeManager.elapsed(f"MC Sample -- Level {l}") for l in range(self.nlevels)]
+        )
+        np.savez(
+            path,
+            sums=self.sums,
+            level_nsamples=self.level_nsamples,
+            level_nsamples_missing=self.level_nsamples_missing,
+            counter=self._counter,
+            eps2=self.eps2,
+            seed=self.config.seed,
+            cost_elapsed=cost_elapsed,
+            iter_sums=self._iter_sums,
+            **self._cost_ledger.state(),
+        )
+
+    def load_state(self, path: str) -> None:
+        data = np.load(path)
+        if int(data["seed"]) != int(self.config.seed):
+            raise ValueError("checkpoint seed does not match config.seed")
+        self.sums = data["sums"]
+        self.level_nsamples = data["level_nsamples"]
+        self.level_nsamples_missing = data["level_nsamples_missing"]
+        self._counter = int(data["counter"])
+        self.eps2 = float(data["eps2"])
+        self._iter_sums = data["iter_sums"]
+        for l, t in enumerate(data["cost_elapsed"]):
+            TimeManager.get_watch(f"MC Sample -- Level {l}").elapsed = float(t)
+        self._cost_ledger.load(data)
+        self.compute_nsamples_mse()
+
+    def resume(self, path: str) -> float:
+        """Load a checkpoint and continue the adaptive run to the target."""
+        self.load_state(path)
+        self._adaptive_loop()
+        return self.estimate
+
     # -- reporting --------------------------------------------------------------
     def show_me(self) -> str:
         w = 42
@@ -404,3 +454,15 @@ class MLMCManager:
         if self._logger is not None:
             self._logger.close()
             self._logger = None
+
+
+class MCManager(MLMCManager):
+    """Single-level Monte Carlo on the finest level with on-the-fly N to hit
+    the target MSE (reference: src/MC_Manager.cpp): the one-level special
+    case of the MLMC machinery (Y == Q, zero bias estimate)."""
+
+    def __init__(self, solver, sampler, config: ProblemConfig, batch_size=None):
+        super().__init__(solver, sampler, config, nlevels=1, batch_size=batch_size)
+
+    def show_me(self) -> str:
+        return super().show_me().replace("MLMC Manager", "SLMC Manager")

@@ -136,3 +136,23 @@ class SteadyCostLedger:
         if self.nsamples[level] > 0:
             return float(self.time[level]) / float(self.nsamples[level])
         return float(fallback_time) / max(int(fallback_n), 1)
+
+    def state(self) -> dict:
+        """The ledger as arrays for a checkpoint (np.savez keywords)."""
+        return {
+            "cost_ss_time": self.time,
+            "cost_ss_n": self.nsamples,
+            "cost_first_time": self.first_time,
+            "cost_first_n": self.first_nsamples,
+        }
+
+    def load(self, data) -> None:
+        """Restore from a checkpoint mapping; a checkpoint without the
+        ledger keeps zeros (its cost falls back to the all-inclusive
+        timer). The levels seen by this process are not restored: a resumed
+        process pays its one-time costs again."""
+        if "cost_ss_time" in getattr(data, "files", data):
+            self.time = data["cost_ss_time"].copy()
+            self.nsamples = data["cost_ss_n"].copy()
+            self.first_time = data["cost_first_time"].copy()
+            self.first_nsamples = data["cost_first_n"].copy()

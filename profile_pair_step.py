@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's MLMC pair step goes, on one CUDA card.
+"""Where the time of the port's MLMC pair step and ratio step goes, on one
+CUDA card.
 
-Run from the root of a checkout:  python3 profile_pair_step.py [--out FILE]
+Run from the root of a checkout:
+    python3 profile_pair_step.py [--out FILE] [--configs bench,64^3,spe10,ratio]
 
-Three configurations, pair steps chip_smoke.py times:
+Four configurations, steps chip_smoke.py times:
   bench  golden levels 0/1 with bench.py's settings: batch 512, float32,
          rtol 1e-4, 50 iterations, local Schur scaling;
   64^3   refinements=4 (64^3 against 32^3), batch 64, float64, local
@@ -12,7 +14,14 @@ Three configurations, pair steps chip_smoke.py times:
          cost is what the split measures);
   spe10  the full 60x220x85 SPE10 grid, levels 0/1, with the production
          settings (cg-schur-coefmg with a bf16 cheb3 V-cycle, adjoint QoI,
-         mean-field x0, float32, batch 8; synthetic permeability).
+         mean-field x0, float32, batch 8; synthetic permeability);
+  ratio  the same problem's level-0 step of BayesRatioManager at batch 8:
+         two independent noise streams (Z and R), each evaluated on levels
+         0 and 1, and four cold solves (mean-field x0, no coarse warm
+         start), each with its pressure read for the likelihood. Its rows:
+         noise is both draws, sampler_solve one stream's two evaluations,
+         coarse_solve and fine_solve one cold solve with the pressure
+         returned on level 1 and level 0, pair_step the whole ratio step.
 
 For each it measures the layers of one pair step:
   noise          SPDESampler.sample of the level-0 noise (K2)
@@ -118,7 +127,33 @@ def device_split(ka, reps: int) -> dict:
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
-def profile_config(label: str, prob, batch: int, reps: int, gpu: str) -> dict:
+def ratio_layers(prob, batch: int, key, s_f, s_c):
+    """(layers, iterations) of the level-0 ratio step: the manager's own
+    step, and its cold solves one by one."""
+    from parelagmc_tpu_torch.ops.prng import split
+    from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
+
+    sampler, solver = prob.sampler, prob.solver
+    bip = BayesianInverseProblem(solver, sampler, prob.config, prob.dtype)
+    bip.generate_observational_data()
+    mgr = BayesRatioManager(bip, prob.config)
+    if mgr.level_batch[0] != batch:
+        raise ValueError(f"ratio step batch {mgr.level_batch[0]} != {batch}")
+    step, budget = mgr._step(0), mgr.solve_budget
+    kz, kr = split(key)
+    cold = lambda level, w: solver.solve_fwd(level, w, return_pressure=True, max_iters=budget)
+    layers = {
+        "noise": lambda: (sampler.sample(0, kz, batch), sampler.sample(0, kr, batch)),
+        "coarse_solve": lambda: cold(1, s_c),
+        "fine_solve": lambda: cold(0, s_f),
+        "pair_step": lambda: step(key),
+    }
+    its = {"coarse": int(cold(1, s_c)[2].iterations), "fine": int(cold(0, s_f)[2].iterations)}
+    return layers, its
+
+
+def profile_config(label: str, prob, batch: int, reps: int, gpu: str,
+                   ratio: bool = False) -> dict:
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 
     sampler, solver = prob.sampler, prob.solver
@@ -153,9 +188,11 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str) -> dict:
         r = s_f.new_ones(batch, L0.n_s)
         layers["prec_apply"] = lambda: prec(r)
     layers["pair_step"] = pair_step
-    out = {"config": label, "batch": batch, "card": gpu,
-           "iterations": {"coarse": int(info_c.iterations), "fine": int(info_f.iterations)},
-           "layers": {}}
+    its = {"coarse": int(info_c.iterations), "fine": int(info_f.iterations)}
+    if ratio:
+        over, its = ratio_layers(prob, batch, key, s_f, s_c)
+        layers.update(over)
+    out = {"config": label, "batch": batch, "card": gpu, "iterations": its, "layers": {}}
     cheap = ("noise", "sampler_solve", "minv_apply", "prec_apply")
     for name, fn in layers.items():
         # A profiler session can lose a few device events; the cheap layers
@@ -191,7 +228,13 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="write the report as JSON to this file")
+    ap.add_argument("--configs", default="bench,64^3,spe10,ratio",
+                    help="comma-separated configurations to profile")
     args = ap.parse_args()
+    wanted = args.configs.split(",")
+    unknown = sorted(set(wanted) - {"bench", "64^3", "spe10", "ratio"})
+    if unknown:
+        sys.exit(f"profile_pair_step: unknown configurations {unknown}")
     import torch
 
     if not torch.cuda.is_available():
@@ -205,13 +248,21 @@ def main() -> None:
     device = torch.device("cuda", 0)
     gpu = gpu_info()
     kernels.library()
-    report = {"torch": torch.__version__, "cuda": torch.version.cuda, "configs": [
-        profile_config("bench", pair_problem(2, 512, 1e-4, 50, "float32", device),
-                       512, 5, gpu),
-        profile_config("64^3", pair_problem(4, 64, 1e-5, 100, "float64", device,
-                                            restart_every=0), 64, 2, gpu),
-        profile_config("spe10", spe10_full_problem(device), 8, 3, gpu),
-    ]}
+    configs = []
+    if "bench" in wanted:
+        configs.append(profile_config(
+            "bench", pair_problem(2, 512, 1e-4, 50, "float32", device), 512, 5, gpu))
+    if "64^3" in wanted:
+        configs.append(profile_config(
+            "64^3", pair_problem(4, 64, 1e-5, 100, "float64", device, restart_every=0),
+            64, 2, gpu))
+    if "spe10" in wanted or "ratio" in wanted:
+        spe10 = spe10_full_problem(device)
+        if "spe10" in wanted:
+            configs.append(profile_config("spe10", spe10, 8, 3, gpu))
+        if "ratio" in wanted:
+            configs.append(profile_config("ratio", spe10, 8, 3, gpu, ratio=True))
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda, "configs": configs}
     if jax_modules_loaded():
         sys.exit(f"profile_pair_step: imported {jax_modules_loaded()}")
     if args.out:

@@ -3,7 +3,9 @@ neither, keeps its own copy of the host code it needs (held here to the
 originals), builds nothing at import, runs on the card unless asked for the
 CPU, and refuses what it has not ported instead of running something else."""
 
+import ast
 import dataclasses
+import inspect
 import os
 import pkgutil
 import re
@@ -58,7 +60,9 @@ def test_port_imports_leave_jax_out():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False"]
-    assert len(MODULES) > 20 and "parelagmc_tpu_torch.fem.galerkin_mass" in MODULES
+    assert len(MODULES) > 25 and "parelagmc_tpu_torch.fem.galerkin_mass" in MODULES
+    for name in ("ops.ell", "samplers.covariance", "samplers.kl", "uq.bayes", "uq.ratio_managers"):
+        assert f"parelagmc_tpu_torch.{name}" in MODULES
 
 
 def _program_sources():
@@ -157,12 +161,21 @@ def test_entry_points_default_to_the_card():
         pytest.skip("this host has a card: the default runs there")
     from types import SimpleNamespace
 
-    from parelagmc_tpu_torch.convert import tensor_eig_from_jax
+    import scipy.sparse as sp
+
+    from parelagmc_tpu_torch.convert import ell_from_jax, tensor_eig_from_jax
     from parelagmc_tpu_torch.ops import prng
+    from parelagmc_tpu_torch.ops.ell import pack_csr_to_ell
     from parelagmc_tpu_torch.ops.mass_solve import build_mass_tridiag_solver
     from parelagmc_tpu_torch.ops.tensorsolve import build_tensor_solver
     from parelagmc_tpu_torch.physics import DarcySolver
-    from parelagmc_tpu_torch.samplers import SPDESampler
+    from parelagmc_tpu_torch.samplers import (
+        EmbeddedSPDESampler,
+        L2ProjectionSPDESampler,
+        SPDESampler,
+    )
+    from parelagmc_tpu_torch.samplers.covariance import MaternCovariance
+    from parelagmc_tpu_torch.samplers.kl import KLSampler
 
     mesh = tfactories.make_box_mesh((2, 2, 2))
     lvl = tassembly.build_mixed_level(mesh)
@@ -173,6 +186,11 @@ def test_entry_points_default_to_the_card():
         lambda: build_problem(cfg),
         lambda: DarcySolver(hier, cfg),
         lambda: SPDESampler(hier, cfg),
+        lambda: EmbeddedSPDESampler(hier, hier, cfg),
+        lambda: L2ProjectionSPDESampler(hier, hier, cfg),
+        lambda: KLSampler(hier, MaternCovariance(mesh, 0.3, 2), cfg),
+        lambda: pack_csr_to_ell(sp.identity(2, format="csr")),
+        lambda: ell_from_jax(SimpleNamespace(cols=np.zeros((2, 1), int), vals=np.ones((2, 1)))),
         lambda: tensor_eig_from_jax(eig),
         lambda: build_mass_tridiag_solver(lvl, np.zeros(lvl.n_u, bool)),
         lambda: build_tensor_solver(mesh, 1.0),
@@ -186,14 +204,51 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize(
-    "field,value",
-    [("mesh", "egg"), ("embedding", "matching"), ("sampler_name", "matern"),
-     ("mesh", "cube.mesh"), ("dtype", "bfloat16")],
+    "field,value,item",
+    [("mesh", "cube.mesh", 15), ("dtype", "bfloat16", None),
+     ("darcy_solver.spatial_shards", 2, 14), ("darcy_solver.name", "minres-bj", 13),
+     ("darcy_solver.coefmg_impl", "gather", 13)],
 )
-def test_build_problem_refuses_unported_configs(field, value):
-    cfg = tconfig.ProblemConfig(refinements=0, **{field: value})
-    with pytest.raises(NotImplementedError):
+def test_build_problem_refuses_unported_configs(field, value, item):
+    """What is not ported raises, naming its ROADMAP item (mesh files, the
+    unstructured stack; sharding; the other solvers), instead of running
+    something else."""
+    cfg = tconfig.ProblemConfig(refinements=0)
+    if field == "darcy_solver.coefmg_impl":
+        cfg.darcy_solver.name = "cg-schur-coefmg"
+    target = cfg
+    *path, leaf = field.split(".")
+    for name in path:
+        target = getattr(target, name)
+    setattr(target, leaf, value)
+    with pytest.raises(NotImplementedError, match=f"item {item}" if item else "not supported"):
         build_problem(cfg, device=CPU)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(embedding="matching"), dict(embedding="projection"), dict(sampler_name="analytic"),
+     dict(sampler_name="matern"), dict(mesh="egg", embedding="projection")],
+    ids=lambda kw: "-".join(kw.values()),
+)
+def test_build_problem_builds_every_structured_config(kw):
+    """Every embedding, sampler and tensor-grid mesh of the structured
+    build_problem builds; the sample-sharded managers raise for item 14."""
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg = tconfig.ProblemConfig(refinements=1, dtype="float64", **kw)
+    prob = build_problem(cfg, device=CPU)
+    assert (prob.embed_hierarchy is not None) == ("embedding" in kw)
+    assert prob.sampler.field_size(0) == prob.hierarchy.levels[0].n_s
+    xi = prob.sampler.sample(1, (0, 1), 2)
+    assert torch.isfinite(prob.sampler.eval(1, xi)).all()
+    if kw.get("mesh") == "egg":
+        assert prob.hierarchy.levels[0].mesh.shape == (60, 60, 7)
+        assert prob.embed_hierarchy.levels[0].mesh.shape == (64, 64, 11)
+        assert prob.embed_hierarchy.levels[1].mesh.shape == (32, 32, 5)
+    cfg.sample_shards = 2
+    with pytest.raises(NotImplementedError, match="item 14"):
+        MLMCManager(prob.solver, prob.sampler, cfg)
 
 
 # -- the port's copy of the host code against the JAX package's ------------------
@@ -301,3 +356,40 @@ def test_scalar_helper_copies_match_the_jax_package():
     for skip in (0, 1, 3):
         assert (tregression.exp_weighted_regression(y, x, skip)
                 == jregression.exp_weighted_regression(y, x, skip))
+
+
+def _defs_without_docstrings(module):
+    """{name: ast dump} of a module's top-level functions, classes and
+    constants, docstrings dropped."""
+    tree = ast.parse(inspect.getsource(module))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            for sub in ast.walk(node):
+                body = getattr(sub, "body", None)
+                if (isinstance(sub, (ast.FunctionDef, ast.ClassDef)) and body
+                        and isinstance(body[0], ast.Expr)
+                        and isinstance(getattr(body[0], "value", None), ast.Constant)
+                        and isinstance(body[0].value.value, str)):
+                    sub.body = body[1:] or [ast.Pass()]
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+def test_copied_host_modules_match_the_jax_package():
+    """mesh/factories.py and samplers/covariance.py are copies (numpy/scipy
+    only): every function, class and constant has the original's code, and
+    the Bessel functions of utils/special.py too."""
+    from parelagmc_tpu.samplers import covariance as jcovariance
+    from parelagmc_tpu_torch.samplers import covariance as tcovariance
+
+    for jm, tm in ((jfactories, tfactories), (jcovariance, tcovariance)):
+        mine, ref = _defs_without_docstrings(tm), _defs_without_docstrings(jm)
+        assert set(mine) == set(ref) and len(mine) >= 5
+        for name in ref:
+            assert mine[name] == ref[name], f"{tm.__name__}.{name}"
+    mine, ref = _defs_without_docstrings(tspecial), _defs_without_docstrings(jspecial)
+    for name in ("bessi1", "bessk1", "matern_spde_scaling"):
+        assert mine[name] == ref[name]
