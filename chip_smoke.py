@@ -78,10 +78,10 @@ Phases, each printing one line (or block) before the last line:
 11. ratio anchor - examples/spe10_ratio_mlmc.py --grid 16,32,8
              --refinements 1 --samples 8 --batch 8 --dtype float64 through
              build_problem, BayesianInverseProblem and BayesRatioManager
-             (cg-schur-coefmg: the static Schur multigrid of "cg-schur"
-             under a kinv_ref is not ported): ratio estimate within 2e-3 of
-             354.436, splitting estimate (the same moment table) within
-             2e-3 of 350.767, 8 samples per level, E[Z] > 0.01.
+             on cg-schur-coefmg: ratio estimate within 2e-3 of 354.436,
+             splitting estimate (the same moment table) within 2e-3 of
+             350.767, 8 samples per level, E[Z] > 0.01. (The pins were taken
+             on "cg-schur": phase 13a.)
 12. ratio  - the Bayesian ratio estimators on the full SPE10 grid, this
              slice's full width: phase 9's problem (its config carries the
              three wells of examples/spe10_ratio_mlmc.py, radius 30 ft),
@@ -92,6 +92,41 @@ Phases, each printing one line (or block) before the last line:
              both estimates from the one moment table, show_me(), C_l,
              launches of K1 and K2, peak memory; finite estimates and
              E[Z] > 0 on every level required.
+
+13. solvers - the remaining Darcy solvers.
+   13a. On the scaled SPE10 grid (16x32x8, float64, rtol 1e-8, phase 8's
+       run): the MLMC estimate under "cg-schur" with a kinv_ref (the static
+       Schur multigrid: geometric-mean and local scaling, and with the line
+       smoother on K1's static tables), cg-schur-diag, cg-schur-exact,
+       cg-schur-coefmg with the gather tables and minres-bj, each within
+       0.5 of 361.882 with one cold solve of 16 samples per level converged
+       1.0. minres-bj is the longest case (~52 000 MINRES iterations a
+       level-0 solve, 5 to 8 minutes on an H100 with the host's speed for
+       the run and the cold solves); its cold solves are those of the next
+       check: minres-bj against cg-schur on every level of that grid (Q per
+       sample to 1e-4, both converged 1.0); then phase 11's ratio and
+       splitting anchors on "cg-schur" within 1e-3 of 354.436 / 350.767.
+   13b. Full width, one batch per level of the full SPE10 grid at the
+       production settings: the sequential against the stacked adjoint
+       (Q per sample equal to 1e-3 relative, iterations, ms per step, K1
+       launches; K1 solves two right-hand sides per table set there); the
+       structured against the gather coefMG on levels 1 and 2 (Q per sample
+       to 1e-3, iterations within 2, ms of both, the gather's peak memory).
+       At rtol 1e-4 with a bfloat16 preconditioner state Q is only as sharp
+       as the solver's tolerance leaves it, so both comparisons are made
+       again with a float32 state at rtol 1e-5, where Q must agree to 1e-5;
+       "cg-schur" with the static multigrid, its line smoother and the local
+       scaling on every level (iterations, converged fraction, ms: reported,
+       only finite Q required - this is the preconditioner the per-sample
+       coefMG replaced), and K1 with R = batch on the level-1 grid's static
+       line tables against its plain version; minres-bj against cg-schur on
+       the 64^3 box (float64, batch 4, rtol 1e-9: Q per sample to 1e-6,
+       both iteration counts) on a mild field (log-std 0.2): on the golden
+       field (variance 1) 40 000 MINRES iterations (85 s on an H100) do not
+       reach the 2-norm target (PERF.md).
+Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
+right-hand sides per table set on the same tables against its plain
+version (bound: tables once, b and x twice).
 
 K2 and K3 at (512, 4096) are also read by device time: a CUDA graph of
 GRAPH_LAUNCHES launches into one buffer, replayed, timed with CUDA events
@@ -104,8 +139,11 @@ card's 3.35 TB/s. K2 and K3 write 4 or 8 bytes per element but are bound
 by integer work: the instructions per element, counted by pipe in the SASS
 of the built library (cuobjdump -sass), over that pipe's lanes per SM x the
 SMs x the card's maximum SM clock (nvidia-smi clocks.max.sm); the busiest
-pipe (the INT32 one) sets the bound. A normal draw is held to the uniform
-draw's count, the work every element does before erfinv.
+pipe (the INT32 one) sets the bound. A float32 normal draw is held to the
+uniform draw's count, the work every element does before erfinv; a float64
+normal draw to the instructions of its own executed path (the common erfinv
+branch, see executed_path): the busiest pipe over them or, if larger, all of
+them over the SM's dispatch width.
 
 Then one JSON line with the kernels' numbers (launches of each path with
 the counts at 0 before it, `launches` being the ratio full-grid run's;
@@ -188,6 +226,52 @@ OBS_EPS = 30.0
 # against 1e-3 there.
 EGG = dict(estimate=99835.47, rtol=3e-3, embedded=[(64, 64, 11), (32, 32, 5)])
 RATIO_ANCHOR = dict(ratio=354.436, splitting=350.767, rtol=2e-3)
+# Phase 13a: (label, darcy_solver options, sampler_solver.coarse_dense_cutoff
+# or None for the default) on the scaled SPE10 grid. The static multigrid is
+# one dense inverse at that grid's 4096 cells under the default cutoff, so
+# the line-smoother case lowers it to give the hierarchy levels (and K1 the
+# static line tables with R = batch). cg-schur-exact runs with the local
+# sqrt(w kinv) scaling: under the geometric-mean one it needs ~43 000
+# iterations a solve at this contrast, as minres-bj does, and one such
+# solver in the phase is enough. minres-bj takes ~52 000 iterations a
+# level-0 solve there (its S(1) preconditioner sees nothing of the
+# kinv_ref's contrast): 3.2 to 5.6 minutes for the anchor's run on an H100,
+# with the host's speed, the longest case of the script, and half as much
+# again for its level-0 cold solve (phase_minres_scaled).
+SOLVER_CASES = (
+    ("cg-schur static MG", dict(name="cg-schur"), None),
+    ("cg-schur static MG local scaling", dict(name="cg-schur", local_schur_scaling=True), None),
+    ("cg-schur static MG line smoother", dict(name="cg-schur", mg_line_smoother=True,
+                                              local_schur_scaling=True), 500),
+    ("cg-schur-diag", dict(name="cg-schur-diag"), None),
+    ("cg-schur-exact local scaling", dict(name="cg-schur-exact", local_schur_scaling=True), None),
+    ("cg-schur-coefmg gather", dict(name="cg-schur-coefmg", coefmg_impl="gather"), None),
+    ("minres-bj", dict(name="minres-bj"), None),
+)
+SOLVER_MAXIT = 80_000
+RATIO_ANCHOR_CG_SCHUR_RTOL = 1e-3  # the pins were taken on cg-schur
+# Phase 13b, Q per sample of two solves that differ in the form of the
+# solver alone (stacked against sequential adjoint; gather against structured
+# coefMG). At the production settings (rtol 1e-4, bfloat16 preconditioner
+# state) each Q is only as sharp as its solve: they differ by up to 9e-4
+# (stacked, level 1, where the stacked loop's primal runs on after its
+# tolerance until the adjoint has met its own) and 3e-4 (gather). TIGHT is
+# the same comparison with a float32 state at rtol 1e-5, where the
+# adjoint-corrected Q of either form is sharp to 2e-6 and less (measured).
+PRODUCTION_Q_RTOL = 1e-3
+TIGHT_SETTINGS = dict(coefmg_prec_dtype="", relative_tolerance=1e-5)
+TIGHT_Q_RTOL = 1e-5
+MINRES_Q_RTOL = 1e-6  # minres-bj against cg-schur on the 64^3 box, Q per sample
+# The same on the scaled SPE10 grid at rtol 1e-8: at that contrast the flux
+# QoI carries 4 (level 2) to 4000 (level 0) x the relative residual MINRES
+# stops at (3.9e-8, 6.0e-7 and 4.1e-5 measured on levels 2, 1, 0).
+MINRES_SCALED_Q_RTOL = 1e-4
+# minres-bj against cg-schur on the 64^3 box (float64, batch 4, rtol 1e-9). On
+# the golden field (variance 1) its block-diagonal preconditioner leaves
+# MINRES short of rtol 1e-7 after 40 000 iterations (85 s on an H100, Q
+# equal to 3e-7 by then; PERF.md), so the comparison takes a mild field
+# (log-std 0.2), where both solvers converge in hundreds of iterations.
+MINRES_BOX = dict(refinements=4, batch=4, rtol=1e-9, variance=0.04, maxit=5_000)
 SPE10_DOFS = [4_525_000, 563_580, 71_595]
 SPE10_CELLS = [1_122_000, 138_600, 17_325]
 
@@ -322,14 +406,47 @@ def k1_line(label: str, r: dict, tol: float, gpu: str) -> str:
             f"{axes}) [{gpu}]")
 
 
+def k1_rhs_bytes(n_unknowns: int, rhs: int, itemsize: int) -> int:
+    """The bytes K1 must move with `rhs` right-hand sides per table set: dl,
+    d, du read once, each right-hand side read and each solution written
+    once."""
+    return (3 + 2 * rhs) * n_unknowns * itemsize
+
+
+def k1_rhs_check(ms_, fac, tol: float, label: str, gpu: str, one_ms: float, R: int = 2,
+                 plain_reps: int = 3):
+    """M(w)^{-1} on (B, R, n_u): K1 with R right-hand sides per sample's
+    tables (one launch per axis) against the plain composed version; prints
+    and returns its numbers. `one_ms` is the same tables' single-vector
+    apply, for the saving over R separate applies."""
+    import torch
+
+    d = fac[1]
+    g = torch.Generator(device=d.device).manual_seed(R)
+    rhs = torch.randn((d.shape[0], R, d.shape[1]), generator=g, device=d.device, dtype=d.dtype)
+    z = ms_.apply_factored(fac, rhs)
+    ref = ms_.apply_plain(fac, rhs)
+    torch.cuda.synchronize()
+    if not torch.isfinite(z).all():
+        fail(f"K1 R={R} non-finite output at {label}")
+    abs_err = (z - ref).abs().max().item()
+    rel = abs_err / ref.abs().max().item()
+    if not rel <= tol:
+        fail(f"K1 R={R} {label}: rel err {rel} > {tol}")
+    ms = cuda_ms(lambda: ms_.apply_factored(fac, rhs))
+    plain_ms = cuda_ms(lambda: ms_.apply_plain(fac, rhs), reps=plain_reps)
+    bound = bytes_bound_ms(k1_rhs_bytes(d.numel(), R, d.element_size()))
+    print(f"{label}: K1 M(w)^-1 with R = {R} right-hand sides per table set: max_rel_err "
+          f"{rel:.3e} (tol {tol:g}) kernel {ms:.4f} plain {plain_ms:.4f} bound {bound:.4f} "
+          f"ms/apply ({100 * bound / ms:.1f}% of bound; {R} single applies {R * one_ms:.4f} ms: "
+          f"x{R * one_ms / ms:.2f}) [{gpu}]", flush=True)
+    return dict(R=R, rel=rel, abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+
+
 @functools.lru_cache(maxsize=None)
-def sass_counts(mode: str):
-    """Instructions per element of the threefry kernel in `mode` (the enum
-    name in csrc/threefry_normal.cu, e.g. "kNormalF32") by the pipe that
-    executes them ({pipe: count}): a static count over the kernel's SASS in
-    the built library (cuobjdump -sass). Every element runs the unrolled
-    body once; the grid-stride loop's prologue is counted with it, and both
-    branches of erfinv."""
+def threefry_sass():
+    """{function name: [(address, predicated, opcode, branch target or None),
+    ...]} of the built threefry library (cuobjdump -sass)."""
     from parelagmc_tpu_torch import kernels
 
     lib = kernels.library_path("threefry_normal.cu")
@@ -337,22 +454,131 @@ def sass_counts(mode: str):
     out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump -sass {lib}: {out.stderr.strip()}")
-    pipe_of = {op: pipe for pipe, ops in PIPES.items() for op in ops}
-    counts, cur = {}, None
-    for line in out.stdout.splitlines():
+    return parse_sass(out.stdout)
+
+
+def parse_sass(text: str):
+    funcs, cur = {}, None
+    for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1)
-            counts[cur] = dict.fromkeys(PIPES, 0)
+            cur = funcs.setdefault(m.group(1), [])
             continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
-        if cur is not None and m and m.group(1) in pipe_of:
-            counts[cur][pipe_of[m.group(1)]] += 1
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)(\S*)\s*([^;]*);",
+                     line)
+        if cur is not None and m:
+            target = re.search(r"0x([0-9a-f]+)\s*$", m.group(5)) if m.group(3) == "BRA" else None
+            cur.append((int(m.group(1), 16), bool(m.group(2)), m.group(3) + m.group(4),
+                        int(target.group(1), 16) if target else None))
+    return funcs
+
+
+def threefry_function(mode: str):
+    """The SASS of the threefry kernel in `mode` (the enum name in
+    csrc/threefry_normal.cu, e.g. "kNormalF32")."""
     tag = f"threefry_kernelILNS_4ModeE{THREEFRY_MODES.index(mode)}E"
-    hits = [k for k in counts if tag in k]
-    if len(hits) != 1 or not any(counts[hits[0]].values()):
-        fail(f"SASS of {mode}: functions {sorted(counts)}")
-    return counts[hits[0]]
+    hits = [k for k in threefry_sass() if tag in k]
+    if len(hits) != 1 or not threefry_sass()[hits[0]]:
+        fail(f"SASS of {mode}: functions {sorted(threefry_sass())}")
+    return threefry_sass()[hits[0]]
+
+
+def pipe_counts(insts):
+    pipe_of = {op: pipe for pipe, ops in PIPES.items() for op in ops}
+    counts = dict.fromkeys(PIPES, 0)
+    for _, _, op, _ in insts:
+        base = op.split(".")[0]
+        if base in pipe_of:
+            counts[pipe_of[base]] += 1
+    return counts
+
+
+@functools.lru_cache(maxsize=None)
+def sass_counts(mode: str):
+    """Instructions per element of the threefry kernel in `mode` by the pipe
+    that executes them ({pipe: count}): a static count over the kernel's
+    SASS in the built library. Every element runs the unrolled body once;
+    the grid-stride loop's prologue is counted with it, and both branches
+    of erfinv."""
+    counts = pipe_counts(threefry_function(mode))
+    if not any(counts.values()):
+        fail(f"SASS of {mode}: no instruction of a known pipe")
+    return counts
+
+
+def executed_path(insts):
+    """The SASS one element of a normal draw executes in the common case,
+    separated like this: the kernel is cut into basic
+    blocks at its branches and their targets; the loop body runs from the
+    target of the one backward branch to that branch; among the paths
+    through the body that avoid every block holding MUFU.RSQ64H, the longest
+    is taken. erfinv's two tail branches (|log(1 - u^2)| >= 6.125, 0.1 % of
+    uniform draws) are the only code that takes a reciprocal square root
+    (directly or through the subroutine they CALL, which lies behind the
+    EXIT), so avoiding them leaves the central branch and the short cuts
+    for |u| >= 1, NaN and infinity, which the longest path leaves out too.
+    The loop's prologue (before the body) is counted with the path, as in
+    sass_counts."""
+    addrs = [i[0] for i in insts]
+    index = {a: k for k, a in enumerate(addrs)}
+    # (The self-branch that pads the end of the function is no loop.)
+    back = [(a, t) for a, _, op, t in insts if op == "BRA" and t is not None and t < a]
+    if len(back) != 1:
+        fail(f"executed_path: {len(back)} backward branches, expected the loop's one")
+    tail_addr, head_addr = back[0]
+    leaders = {addrs[0], head_addr}
+    for k, (a, pred, op, t) in enumerate(insts):
+        base = op.split(".")[0]
+        if base in ("BRA", "EXIT", "RET") and k + 1 < len(insts):
+            leaders.add(addrs[k + 1])
+        if base == "BRA" and t in index:
+            leaders.add(t)
+    starts = sorted(leaders)
+    blocks = {}
+    for b, start in enumerate(starts):
+        stop = starts[b + 1] if b + 1 < len(starts) else addrs[-1] + 1
+        blocks[start] = [i for i in insts if start <= i[0] < stop]
+    succ = {}
+    for b, start in enumerate(starts):
+        a, pred, op, t = blocks[start][-1]
+        base = op.split(".")[0]
+        nxt = starts[b + 1] if b + 1 < len(starts) else None
+        out = []
+        if base == "BRA":
+            if t is not None and t > a:  # forward edges only: the body is a DAG
+                out.append(t)
+            if pred and nxt is not None:
+                out.append(nxt)
+        elif base in ("EXIT", "RET"):
+            if pred and nxt is not None:
+                out.append(nxt)
+        elif nxt is not None:
+            out.append(nxt)
+        succ[start] = out
+    last = max(s for s in starts if s <= tail_addr)
+    banned = {s for s, blk in blocks.items() if any(i[2].startswith("MUFU.RSQ64H") for i in blk)}
+
+    @functools.lru_cache(maxsize=None)
+    def longest(start):
+        if start in banned:
+            return None
+        if start == last:
+            return (len(blocks[start]), (start,))
+        best = None
+        for nxt in succ[start]:
+            sub = longest(nxt)
+            if sub is not None and (best is None or sub[0] > best[0]):
+                best = sub
+        return None if best is None else (best[0] + len(blocks[start]), (start,) + best[1])
+
+    path = longest(head_addr)
+    if path is None:
+        fail("executed_path: no path through the loop body avoids the erfinv tails")
+    prologue = [i for i in insts if i[0] < head_addr]
+    return prologue + [i for s in path[1] for i in blocks[s]]
+
+
+DISPATCH_LANES = 128  # 4 warp schedulers x 1 instruction per clock x 32 lanes, per SM
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,15 +598,31 @@ def threefry_bound(mode: str, numel: int, itemsize: int):
     """(bound ms, bound_by) of one threefry draw: the larger of its
     instructions over the busiest pipe's lanes (per pipe: count per element
     / lanes per SM / (SMs x clock)) and its output bytes over 3.35 TB/s.
-    A normal draw is held to the work of the uniform draw of its width -
-    the generator and the mantissa step, which every element runs - since
-    a static count of its own SASS counts both branches of erfinv and so is
-    no lower bound."""
-    counts = sass_counts(mode.replace("Normal", "Uniform"))
-    per_elem = max(counts[p] / PIPE_LANES[p] for p in PIPES)  # SM clocks per element
+    A float32 normal draw is held to the work of the uniform draw of its
+    width - the generator and the mantissa step, which every element runs -
+    since a static count of its own SASS counts both branches of erfinv and
+    so is no lower bound. A float64 normal draw is held to its own executed
+    path (executed_path: the common erfinv branch, 99.9 % of draws): the
+    busiest pipe over it - the FP64 one, with erfinv's polynomials - or,
+    if larger, all its instructions over the SM's dispatch width."""
+    if mode == "kNormalF64":
+        path = executed_path(threefry_function(mode))
+        counts = pipe_counts(path)
+        per_elem = max(max(counts[p] / PIPE_LANES[p] for p in PIPES), len(path) / DISPATCH_LANES)
+    else:
+        counts = sass_counts(mode.replace("Normal", "Uniform"))
+        per_elem = max(counts[p] / PIPE_LANES[p] for p in PIPES)  # SM clocks per element
     ops_ms = 1e3 * per_elem * numel / sm_clocks_per_s()
     byte_ms = bytes_bound_ms(numel * itemsize)
     return (ops_ms, "operations") if ops_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def bound_basis(mode: str) -> str:
+    """What threefry_bound counted for `mode`, for the printed line."""
+    if mode == "kNormalF64":
+        path = executed_path(threefry_function(mode))
+        return f"its executed path: {pipe_counts(path)}, {len(path)} instructions dispatched"
+    return f"{sass_counts(mode.replace('Normal', 'Uniform'))}"
 
 
 def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int = 5):
@@ -441,13 +683,16 @@ def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: 
         ms_ = solver.levels[level].mass_solver
         fac = ms_.factor(w)
         k1 = k1_check(ms_, fac, random_rhs(fac, level), k1_tol, f"{label} level {level} {name}")
-        del w, fac
-        torch.cuda.empty_cache()
         print(k1_line(f"{label} level {level} batch {batch} {name}: K1 M(w)^-1 "
                       f"{ms_.shape} cells", k1, k1_tol, gpu), flush=True)
+        k1["rhs2"] = k1_rhs_check(ms_, fac, k1_tol, f"{label} level {level} batch {batch} {name}",
+                                  gpu, k1["ms"])
+        del w, fac
+        torch.cuda.empty_cache()
         print(k2_line(f"{label} level {level} {name}: K2 noise {shape}", k2, k2_tol, gpu),
               flush=True)
-        for k, r, err in (("thomas", k1, k1["abs_err"]), ("threefry_normal", k2, k2["abs_err"])):
+        for k, r, err in (("thomas", k1, max(k1["abs_err"], k1["rhs2"]["abs_err"])),
+                          ("threefry_normal", k2, k2["abs_err"])):
             if k in out:
                 out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
             else:
@@ -491,7 +736,7 @@ def phase_k2(device, gpu: str):
         print(k2_line(f"K2 threefry normals {shape} {name} (bits32/64 identical, max_abs_err "
                       f"{r['abs_err']:.3e}, mean {mean:+.5f} std {std:.5f} kurtosis {kurt:.4f}, "
                       f"SASS per element {sass_counts(mode)}, bound from "
-                      f"{sass_counts(mode.replace('Normal', 'Uniform'))})", r, tol, gpu),
+                      f"{bound_basis(mode)})", r, tol, gpu),
               flush=True)
         if not (abs(mean) < 0.01 and abs(std - 1.0) < 0.01 and abs(kurt - 3.0) < 0.05):
             fail(f"K2 normals {name}: moments off ({mean}, {std}, {kurt})")
@@ -1003,10 +1248,13 @@ def np_isfinite(a) -> bool:
     return all(math.isfinite(float(x)) for x in a)
 
 
-def phase_ratio_anchor(device, gpu: str):
+def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
+                       rtol: float = RATIO_ANCHOR["rtol"]):
     """Phase 11: tests/test_spe10_anchor.py's scaled ratio and splitting
     anchors on the card (both estimators read one moment table: the
-    splitting run of the test draws the same stream)."""
+    splitting run of the test draws the same stream), under `solver`; the
+    pins were taken on "cg-schur" (phase 13a holds that run to `rtol`
+    1e-3)."""
     from parelagmc_tpu_torch import kernels
     from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
@@ -1023,7 +1271,7 @@ def phase_ratio_anchor(device, gpu: str):
                         dtype="float64", bayes_num_obs=3, bayes_obs_coords=OBS_COORDS,
                         bayes_eps=eps, bayes_generate_ref_data=True, bayes_ref_data_file="",
                         output_filename="")
-    cfg.darcy_solver.name = "cg-schur-coefmg"
+    cfg.darcy_solver.name = solver
     prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
     bip = BayesianInverseProblem(prob.solver, prob.sampler, prob.config, prob.dtype)
     mgr = BayesRatioManager(bip, prob.config)
@@ -1035,14 +1283,15 @@ def phase_ratio_anchor(device, gpu: str):
     launches = dict(kernels.launch_counts)
     ratio, splitting = mgr.estimate, float(mgr.E[:, YRATIO].sum())
     ez = mgr.E[:, Z].tolist()
-    print(f"SPE10 scaled ratio anchor (16x32x8, f64, cg-schur-coefmg, rtol 1e-6): observation "
+    print(f"SPE10 scaled ratio anchor (16x32x8, f64, {solver}, rtol 1e-6): observation "
           f"data {y.tolist()} ratio estimate {ratio:.6f} (pin {RATIO_ANCHOR['ratio']}) splitting "
           f"estimate {splitting:.6f} (pin {RATIO_ANCHOR['splitting']}) samples "
           f"{mgr.level_nsamples.tolist()} E[Z] {ez} run {dt:.2f} s launches {launches} [{gpu}]",
           flush=True)
     for name, got in (("ratio", ratio), ("splitting", splitting)):
-        if not abs(got - RATIO_ANCHOR[name]) <= RATIO_ANCHOR["rtol"] * RATIO_ANCHOR[name]:
-            fail(f"ratio anchor: {name} estimate {got} not within 2e-3 of {RATIO_ANCHOR[name]}")
+        if not abs(got - RATIO_ANCHOR[name]) <= rtol * RATIO_ANCHOR[name]:
+            fail(f"ratio anchor ({solver}): {name} estimate {got} not within {rtol:g} of "
+                 f"{RATIO_ANCHOR[name]}")
     if mgr.level_nsamples.tolist() != [8, 8] or not min(ez) > 0.01:
         fail(f"ratio anchor: samples {mgr.level_nsamples.tolist()} E[Z] {ez}")
     for k in ("thomas", "threefry_normal"):
@@ -1105,6 +1354,384 @@ def phase_ratio_full(prob, device, gpu: str):
     return launches
 
 
+def scaled_spe10_problem(solver_opts: dict, sampler_cutoff, device):
+    """The scaled SPE10 anchor's problem (phase 8) under other Darcy
+    solver options."""
+    from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+
+    grid = (16, 32, 8)
+    lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
+    cfg = ProblemConfig(mesh="box", ncells=tuple(g // 4 for g in grid), lengths=lengths,
+                        refinements=2, correlation_length=100.0, dtype="float64", mse=1e10,
+                        initial_samples=32, batch_size=16, seed=0, output_filename="",
+                        cost_model="dofs")
+    cfg.normalize_marginals = True
+    cfg.darcy_solver.relative_tolerance = 1e-8
+    cfg.darcy_solver.max_iterations = SOLVER_MAXIT
+    for k, v in solver_opts.items():
+        setattr(cfg.darcy_solver, k, v)
+    if sampler_cutoff is not None:
+        cfg.sampler_solver.coarse_dense_cutoff = sampler_cutoff
+    return build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
+
+
+def phase_minres_scaled(device, gpu: str):
+    """minres-bj against cg-schur (static MG, local scaling) on every level
+    of the scaled SPE10 grid: one cold solve of 16 samples each (the
+    canaries of phase_solvers_scaled), the same Q per sample and both
+    converged 1.0."""
+    import torch
+
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+
+    probs = [scaled_spe10_problem(opts, None, device)
+             for opts in (dict(name="cg-schur", local_schur_scaling=True),
+                          dict(name="minres-bj"))]
+    for level in (0, 1, 2):
+        w = probs[0].sampler.eval(level, probs[0].sampler.sample(level, fold_in(PRNGKey(13), level),
+                                                                 16))
+        (q1, _, i1), (q2, _, i2) = (p.solver.solve_fwd(level, w) for p in probs)
+        rel = ((q2 - q1).abs() / q1.abs()).max().item()
+        print(f"solvers scaled grid level {level} (f64, rtol 1e-8, 16 samples) cg-schur vs "
+              f"minres-bj: max rel Q diff {rel:.3e} (tol {MINRES_SCALED_Q_RTOL:g}) iterations "
+              f"{i1.iterations} vs {i2.iterations} converged "
+              f"{float(i1.converged.float().mean())} / {float(i2.converged.float().mean())} "
+              f"[{gpu}]", flush=True)
+        if not (torch.isfinite(q2).all() and rel <= MINRES_SCALED_Q_RTOL):
+            fail(f"minres-bj on the scaled grid level {level}: Q differs from cg-schur's by {rel}")
+        if not (bool(i1.converged.all()) and bool(i2.converged.all())):
+            fail(f"minres-bj / cg-schur on the scaled grid level {level}: not converged")
+
+
+def phase_solvers_scaled(device, gpu: str):
+    """Phase 13a: the scaled SPE10 MLMC anchor (16x32x8, float64, rtol 1e-8:
+    deep enough that the estimate does not depend on the solver) under every
+    Darcy solver of SOLVER_CASES: estimate within 0.5 of 361.882, and one cold
+    solve of 16 samples per level converged 1.0 (minres-bj makes these
+    solves in phase_minres_scaled, beside cg-schur's). Returns {label:
+    launches of the run}."""
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    launches = {}
+    for label, opts, cutoff in SOLVER_CASES:
+        t0 = time.perf_counter()
+        prob = scaled_spe10_problem(opts, cutoff, device)
+        setup_s = time.perf_counter() - t0
+        mgr = MLMCManager(prob.solver, prob.sampler, prob.config)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        mgr.init_run([32, 32, 32])
+        run_s = time.perf_counter() - t0
+        launches[label] = dict(kernels.launch_counts)
+        levels = () if opts["name"] == "minres-bj" else (0, 1, 2)
+        canary = [solver_canary(prob, level, 16, fold_in(PRNGKey(13), level))[:2]
+                  for level in levels]
+        mg = prob.solver.levels[0].schur_mg
+        shape = "" if mg is None else (
+            f" static MG levels {len(mg.levels) + 1}, line smoothers on level 0 "
+            f"{0 if not len(mg.levels) or mg.levels[0].line is None else len(mg.levels[0].line)};")
+        print(f"solvers scaled anchor [{label}] (16x32x8, f64, rtol 1e-8, setup {setup_s:.2f} s):"
+              f"{shape} estimate {mgr.estimate:.6f} (pin {SPE10_ANCHOR['estimate']}) iterations "
+              f"{mgr.solver_iterations.tolist()} run {run_s:.2f} s canary on levels {levels} "
+              f"(converged, iterations) {canary} launches {launches[label]} [{gpu}]", flush=True)
+        if not abs(mgr.estimate - SPE10_ANCHOR["estimate"]) < SPE10_ANCHOR["est_tol"]:
+            fail(f"solvers scaled anchor [{label}]: estimate {mgr.estimate}")
+        if any(c < 1.0 for c, _ in canary):
+            fail(f"solvers scaled anchor [{label}]: converged fraction {canary}")
+        need = ["threefry_normal"] + ([] if opts["name"] == "minres-bj" else ["thomas"])
+        for k in need:
+            if launches[label][k] <= 0:
+                fail(f"kernel {k} was not launched by the scaled anchor under {label}")
+        if opts.get("mg_line_smoother") and (mg is None or not len(mg.levels)
+                                             or mg.levels[0].line is None):
+            fail(f"solvers scaled anchor [{label}]: the static MG has no line smoother")
+    return launches
+
+
+def timed_solve(fn):
+    """(result, ms, K1 launches) of one synchronized call of fn() after one
+    warm-up call, by the host clock; the launch counts are set to 0 between
+    the two."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+
+    fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), kernels.launch_counts["thomas"]
+
+
+def level_step(solver, sampler, level: int, key, batch: int, budget: int):
+    """One MLMC step's solves at `level` on a fixed draw: the pair (levels
+    above the coarsest) or the single cold solve; returns a closure giving
+    (Q, [infos])."""
+    xi = sampler.sample(level, key, batch)
+    s_f = sampler.eval(level, xi)
+    if level < len(solver.levels) - 1:
+        s_c = sampler.eval(level + 1, xi, xi_level=level)
+
+        def step():
+            q, qc, info_f, info_c = solver.solve_fwd_pair(level, s_f, s_c, max_iters=budget)
+            return q, [info_c, info_f]
+    else:
+        def step():
+            q, _, info = solver.solve_fwd(level, s_f)
+            return q, [info]
+    return step
+
+
+def phase_solvers_full(prob, device, gpu: str):
+    """Phase 13b on the full SPE10 grid (phase 9's problem, production
+    settings, one batch per level): the stacked against the sequential
+    adjoint, and the gather against the structured coefMG on levels 1 and
+    2, each at the production settings (Q to PRODUCTION_Q_RTOL) and at
+    TIGHT_SETTINGS (Q to TIGHT_Q_RTOL).
+    Returns {path: K1 launches of the timed solves}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.coef_multigrid import build_coef_mg
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg, solver, sampler = prob.config, prob.solver, prob.sampler
+    batches = list(cfg.batch_size_per_level)
+    budget = MLMCManager(solver, sampler, cfg).pair_budget
+    key = fold_in(PRNGKey(cfg.seed), 113)
+    base_cfg = solver.solver_cfg
+    launches = {"stacked": 0, "sequential": 0, "gather": 0}
+    settings = (("production", {}, PRODUCTION_Q_RTOL),
+                ("float32 state, rtol 1e-5", TIGHT_SETTINGS, TIGHT_Q_RTOL))
+    for level, batch in enumerate(batches):
+        step = level_step(solver, sampler, level, fold_in(key, level), batch, budget)
+        for label, override, tol in settings:
+            res = {}
+            for mode, stacked in (("sequential", False), ("stacked", True)):
+                # The solver reads its options at each solve; the cached
+                # mean-field iterates serve both modes.
+                solver.solver_cfg = dataclasses.replace(base_cfg, adjoint_stacked=stacked,
+                                                        **override)
+                (q, infos), ms, n_k1 = timed_solve(step)
+                launches[mode] += n_k1
+                res[mode] = (q.double(), infos, ms, n_k1)
+            solver.solver_cfg = base_cfg
+            (q_a, i_a, ms_a, k_a), (q_b, i_b, ms_b, k_b) = res["sequential"], res["stacked"]
+            rel = ((q_b - q_a).abs() / q_a.abs()).max().item()
+            conv = [float(torch.cat([i.converged.float() for i in infos]).mean())
+                    for infos in (i_a, i_b)]
+            print(f"SPE10 full grid level {level} batch {batch} adjoint sequential vs stacked "
+                  f"[{label}]: max rel Q diff {rel:.3e} (tol {tol:g}) iterations (operator "
+                  f"applications per member) {[i.iterations for i in i_a]} vs "
+                  f"{[i.iterations for i in i_b]} converged {conv} step {ms_a:.1f} vs "
+                  f"{ms_b:.1f} ms K1 launches {k_a} vs {k_b} [{gpu}]", flush=True)
+            if not (torch.isfinite(q_b).all() and rel <= tol):
+                fail(f"stacked adjoint level {level} [{label}]: Q differs from the sequential "
+                     f"one by {rel}")
+            if min(conv) < 1.0:
+                fail(f"stacked adjoint level {level} [{label}]: converged fraction {conv}")
+    if launches["stacked"] <= 0:
+        fail("kernel thomas was not launched by the stacked adjoint steps")
+
+    # Gather against structured coefMG, levels 1 and 2: the package's
+    # build_coef_mg makes the gather tables of a level and they take the
+    # structured ones' place for one cold solve. (Level 0's gathers would
+    # hold batch x 3.4M faces x K values per apply - the reason the
+    # structured form exists.) At the same two settings.
+    ess_attr = np.asarray(cfg.ess_attr[:6], dtype=np.int64)
+    for level in (1, 2):
+        batch = batches[level]
+        L = solver.levels[level]
+        lvl = prob.hierarchy.levels[level]
+        w = sampler.eval(level, sampler.sample(level, fold_in(key, 10 + level), batch))
+        cold = lambda: solver.solve_fwd(level, w, max_iters=budget)
+        struct_mg = L.coef_mg
+        t0 = time.perf_counter()
+        gather_mg = build_coef_mg(
+            lvl.mesh, lvl.ess_faces(ess_attr), dtype=solver.dtype, device=device,
+            cutoff=base_cfg.coarse_dense_cutoff, coarse_sweeps=max(1, base_cfg.mg_coarse_sweeps),
+            omega=base_cfg.coefmg_omega, cheby_order=base_cfg.coefmg_cheby_order,
+            cheby_lo=base_cfg.coefmg_cheby_lo)
+        build_s = time.perf_counter() - t0
+        for label, override, tol in settings:
+            solver.solver_cfg = dataclasses.replace(base_cfg, **override)
+            (q_s, _, info_s), ms_s, _ = timed_solve(cold)
+            L.coef_mg = gather_mg
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            (q_g, _, info_g), ms_g, n_k1 = timed_solve(cold)
+            launches["gather"] += n_k1
+            peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+            del L.coef_mg  # a registered submodule: drop it before the tuple goes back
+            L.coef_mg = struct_mg
+            solver.solver_cfg = base_cfg
+            rel = ((q_g - q_s).abs() / q_s.abs()).max().item()
+            print(f"SPE10 full grid level {level} batch {batch} coefMG structured vs gather "
+                  f"[{label}] ({len(struct_mg.levels)} MG levels, gather tables built in "
+                  f"{build_s:.2f} s): max rel Q diff {rel:.3e} (tol {tol:g}) iterations "
+                  f"{info_s.iterations} vs {info_g.iterations} cold solve {ms_s:.1f} vs "
+                  f"{ms_g:.1f} ms, gather peak memory {peak_gb:.2f} GB [{gpu}]", flush=True)
+            if not (torch.isfinite(q_g).all() and rel <= tol):
+                fail(f"gather coefMG level {level} [{label}]: Q differs from the structured "
+                     f"one by {rel}")
+            if abs(info_s.iterations - info_g.iterations) > 2:
+                fail(f"gather coefMG level {level} [{label}]: iterations {info_s.iterations} vs "
+                     f"{info_g.iterations}")
+            if not (bool(info_s.converged.all()) and bool(info_g.converged.all())):
+                fail(f"gather coefMG level {level} [{label}]: not converged")
+        del w, gather_mg
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_static_mg_full(device, gpu: str):
+    """Phase 13b, the static Schur multigrid ("cg-schur" with the kinv_ref)
+    on the full SPE10 grid, the preconditioner the per-sample coefMG
+    replaced: one batch per level at the production tolerance and budget
+    with the line smoother and the local scaling; iterations, converged
+    fraction and ms are reported, only finite Q is required. Then K1 with
+    R = batch on the level-1 grid's static line tables against its plain
+    version. Returns (launches, K1 result dict)."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
+    from parelagmc_tpu_torch.physics.spe10 import full_grid_solver_defaults, load_spe10_kinv
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg = ProblemConfig(mesh="spe10", refinements=2, dtype="float32", correlation_length=100.0,
+                        mse=-1.0, initial_samples=32, batch_size=32, normalize_marginals=True,
+                        axis_order="auto", output_filename="")
+    full_grid_solver_defaults(cfg)
+    ds = cfg.darcy_solver
+    ds.name = "cg-schur"
+    ds.mg_line_smoother = True
+    ds.local_schur_scaling = True
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=(60, 220, 85)), device=device)
+    setup_s = time.perf_counter() - t0
+    solver, sampler = prob.solver, prob.sampler
+    shapes = [[len(L.schur_mg.levels) + 1,
+               0 if L.schur_mg.levels[0].line is None else len(L.schur_mg.levels[0].line)]
+              for L in solver.levels]
+    print(f"SPE10 full grid static Schur MG (cg-schur, kinv_ref, line smoother, local scaling): "
+          f"host setup {setup_s:.2f} s, per level [MG levels, line smoothers on its finest] "
+          f"{shapes} [{gpu}]", flush=True)
+    budget = MLMCManager(solver, sampler, cfg).pair_budget
+    key = fold_in(PRNGKey(cfg.seed), 213)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    for level, batch in enumerate(cfg.batch_size_per_level):
+        w = sampler.eval(level, sampler.sample(level, fold_in(key, level), batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, _, info = solver.solve_fwd(level, w, max_iters=budget)
+        q = q.double().cpu()
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f"SPE10 full grid static MG level {level} batch {batch}: cold solve {ms:.1f} ms "
+              f"iterations (primal + adjoint, budget {budget} each) {info.iterations} converged "
+              f"fraction {float(info.converged.float().mean()):.3f} max rel residual "
+              f"{float(info.residual.max()):.3e} E[Q] {float(q.mean()):.4f} [{gpu}]", flush=True)
+        if not torch.isfinite(q).all():
+            fail(f"static MG level {level}: non-finite Q")
+        del w
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"SPE10 full grid static MG: launches {launches} peak memory {peak_gb:.2f} GB [{gpu}]",
+          flush=True)
+    if launches["thomas"] <= 0:
+        fail("kernel thomas was not launched by the static MG solves")
+
+    # K1 with R = batch on the static line tables of the level-1 grid.
+    level, batch = 1, cfg.batch_size_per_level[1]
+    lines = solver.levels[level].schur_mg.levels[0].line
+    if lines is None:
+        fail("static MG: no line smoother on the SPE10 level-1 grid")
+    g = torch.Generator(device=device).manual_seed(14)
+    result = None
+    for ln in lines:
+        m, nlines = ln.d.shape
+        b = torch.randn((batch, m, nlines), generator=g, device=device, dtype=ln.d.dtype)
+        xk = thomas(ln.dl, ln.d, ln.du, b)
+        xp = thomas_plain(ln.dl, ln.d, ln.du, b)
+        torch.cuda.synchronize()
+        abs_err = (xk - xp).abs().max().item()
+        rel = abs_err / xp.abs().max().item()
+        if not (torch.isfinite(xk).all() and rel <= F32_TOL_LINES):
+            fail(f"K1 static MG lines (n {m}): rel err {rel} > {F32_TOL_LINES}")
+        ms = cuda_ms(lambda: thomas(ln.dl, ln.d, ln.du, b))
+        plain_ms = cuda_ms(lambda: thomas_plain(ln.dl, ln.d, ln.du, b), reps=3)
+        bound = bytes_bound_ms(k1_rhs_bytes(ln.d.numel(), batch, b.element_size()))
+        print(f"K1 thomas static MG line tables SPE10 level 1 {prob.hierarchy.levels[1].mesh.shape}"
+              f" (n {m}, lines {nlines}) with R = batch = {batch} right-hand sides per table set "
+              f"float32: max_rel_err {rel:.3e} (tol {F32_TOL_LINES:g}) kernel {ms:.4f} plain "
+              f"{plain_ms:.4f} bound {bound:.4f} ms/line solve ({100 * bound / ms:.1f}% of bound) "
+              f"[{gpu}]", flush=True)
+        result = dict(R=batch, n=m, lines=nlines, rel=rel, abs_err=abs_err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bound)
+    return launches, result
+
+
+def phase_minres_box(device, gpu: str):
+    """Phase 13b, minres-bj against cg-schur on the 64^3 box (MINRES_BOX:
+    float64, a batch that fits the saddle system's gathers, a mild field):
+    the same Q per sample, both converged."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+
+    box = MINRES_BOX
+    out, w = {}, None
+    kernels.reset_launch_counts()
+    for name in ("cg-schur", "minres-bj"):
+        cfg = ProblemConfig(refinements=box["refinements"], batch_size=box["batch"],
+                            dtype="float64", variance=box["variance"], output_filename="")
+        cfg.darcy_solver.name = name
+        cfg.darcy_solver.relative_tolerance = box["rtol"]
+        cfg.darcy_solver.max_iterations = box["maxit"]
+        cfg.darcy_solver.restart_every = 0
+        cfg.darcy_solver.local_schur_scaling = True  # read by cg-schur alone
+        prob = build_problem(cfg, device=device)
+        if w is None:
+            w = prob.sampler.eval(0, prob.sampler.sample(0, PRNGKey(64), box["batch"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        q, _, info = prob.solver.solve_fwd(0, w)
+        q = q.cpu()
+        out[name] = (q, info, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated(device) / 1e9)
+        del prob
+        torch.cuda.empty_cache()
+    launches = dict(kernels.launch_counts)
+    (q1, i1, t1, m1), (q2, i2, t2, m2) = out["cg-schur"], out["minres-bj"]
+    rel = ((q2 - q1).abs() / q1.abs()).max().item()
+    print(f"64^3 box (variance {box['variance']:g}, float64, batch {box['batch']}, "
+          f"rtol {box['rtol']:g}, <= {box['maxit']} it) cg-schur vs minres-bj: "
+          f"max rel Q diff {rel:.3e} (tol {MINRES_Q_RTOL:g}) iterations {i1.iterations} vs "
+          f"{i2.iterations} converged {bool(i1.converged.all())} / {bool(i2.converged.all())} "
+          f"solve {t1:.2f} vs {t2:.2f} s peak memory {m1:.2f} vs {m2:.2f} GB [{gpu}]", flush=True)
+    if not (torch.isfinite(q2).all() and rel <= MINRES_Q_RTOL):
+        fail(f"minres-bj on the 64^3 box: Q differs from cg-schur's by {rel}")
+    if not (bool(i1.converged.all()) and bool(i2.converged.all())):
+        fail("minres-bj / cg-schur on the 64^3 box: not converged")
+    return launches
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -1158,6 +1785,14 @@ def main() -> None:
     phase_k1_lines(spe10, device, gpu)
     full, checks = phase_spe10_full(spe10, setup_s, device, gpu)
     ratio_full = phase_ratio_full(spe10, device, gpu)
+    full_solvers = phase_solvers_full(spe10, device, gpu)
+    del spe10
+    static_full, k1_static = phase_static_mg_full(device, gpu)
+    scaled_solvers = phase_solvers_scaled(device, gpu)
+    phase_minres_scaled(device, gpu)
+    ratio_cg_schur = phase_ratio_anchor(device, gpu, solver="cg-schur",
+                                        rtol=RATIO_ANCHOR_CG_SCHUR_RTOL)
+    minres_box = phase_minres_box(device, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -1170,7 +1805,11 @@ def main() -> None:
     by_path = lambda k: {"golden_mlmc": golden[k], "spe10_anchor": anchor[k],
                          "spe10_full_grid": full[k], "ratio_anchor": ratio_anchor[k],
                          "ratio_full_grid": ratio_full[k],
-                         **{f"sampler_{name}_mlmc": n[k] for name, n in samplers.items()}}
+                         **{f"sampler_{name}_mlmc": n[k] for name, n in samplers.items()},
+                         "static_mg_full_grid": static_full[k],
+                         "ratio_anchor_cg_schur": ratio_cg_schur[k],
+                         "minres_and_cg_schur_64_box": minres_box[k],
+                         **{f"scaled_anchor_{name}": n[k] for name, n in scaled_solvers.items()}}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -1179,8 +1818,17 @@ def main() -> None:
         {"name": "thomas", "route": "cuda",
          "source": "parelagmc_tpu_torch/csrc/thomas.cu",
          "replaces": "parelagmc_tpu/ops/tridiag_pallas.py:77",
-         "launches": ratio_full["thomas"], "launches_by_path": by_path("thomas"),
+         "launches": ratio_full["thomas"],
+         # The full-grid steps of phase 13b count K1 alone, per step.
+         "launches_by_path": {**by_path("thomas"), **{
+             f"full_grid_{name}_steps": n for name, n in full_solvers.items()}},
          **{k: k1[k] for k in fields}, "bound_by": "bytes",
+         # Several right-hand sides per table set: R = 2 on the level-0
+         # M(w)^{-1} tables (batch 8), R = batch on the static MG's line
+         # tables of the level-1 grid.
+         "rhs": [{k: k1["rhs2"][k] for k in ("R", "ms", "plain_ms", "bound_ms", "abs_err")},
+                 {k: k1_static[k] for k in ("R", "n", "lines", "ms", "plain_ms", "bound_ms",
+                                            "abs_err")}],
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",

@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.ops import coef_multigrid as tcmg
+from parelagmc_tpu_torch.ops import multigrid as tmg
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import StructCoefMG, StructMGLevel
-from parelagmc_tpu_torch.ops.ell import ELL
+from parelagmc_tpu_torch.ops.ell import ELL, CoefELL, DiagCoef
 from parelagmc_tpu_torch.ops.mass_solve import AxisTables, MassTridiagSolver
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig
 from parelagmc_tpu_torch.physics.darcy import DarcyLevel
@@ -70,15 +72,18 @@ def struct_coef_mg_from_jax(mg) -> StructCoefMG:
 
 
 def darcy_level_from_jax(L, dtype=torch.float64, device=None) -> DarcyLevel:
-    """parelagmc_tpu.physics.darcy.DarcyLevel (tensor mesh, cg-schur data,
-    structured coefMG if any) -> port DarcyLevel. The reference's
-    kinv_logmean / kinv_cell are not carried: they feed only the kinv_ref
-    scalings of the S(1) preconditioner, which the port does not run."""
+    """parelagmc_tpu.physics.darcy.DarcyLevel (tensor mesh) -> port
+    DarcyLevel, with whatever preconditioner state and saddle-system
+    operators the reference level carries (m_diag only beside m_op: the
+    port's Schur-CG family reads the diagonal off its factor tables)."""
     if L.b_struct is None:
         raise ValueError("only tensor-mesh levels (b_struct set) convert")
-    if L.coef_mg is not None and not hasattr(L.coef_mg, "face_offsets"):
-        raise ValueError("only the structured coefMG converts")
     shape, offs, masks = L.b_struct
+    opt = lambda x, dt=dtype: None if x is None else _t(x, dt, device)
+    coef_mg = L.coef_mg
+    if coef_mg is not None:
+        coef_mg = (struct_coef_mg_from_jax(coef_mg) if hasattr(coef_mg, "face_offsets")
+                   else coef_mg_from_jax(coef_mg, dtype, device))
     return DarcyLevel(
         n_u=L.n_u,
         n_s=L.n_s,
@@ -89,13 +94,64 @@ def darcy_level_from_jax(L, dtype=torch.float64, device=None) -> DarcyLevel:
         shape=shape,
         face_offsets=offs,
         b_masks=[_t(m, dtype, device) for m in masks],
-        coef_mg=struct_coef_mg_from_jax(L.coef_mg) if L.coef_mg is not None else None,
+        coef_mg=coef_mg,
+        ess=_t(L.ess, torch.bool, device),
+        m_op=None if L.m_op is None else coef_ell_from_jax(L.m_op, dtype, device),
+        m_diag=None if L.m_op is None else diag_coef_from_jax(L.m_diag, dtype, device),
+        kinv_logmean=L.kinv_logmean,
+        kinv_cell=opt(L.kinv_cell),
+        sbar_dinv=opt(L.sbar_dinv),
+        schur_mg=None if L.schur_mg is None else mg_hierarchy_from_jax(L.schur_mg, dtype, device),
     )
 
 
 def ell_from_jax(ell, dtype=torch.float64, device=None) -> ELL:
     """parelagmc_tpu.ops.ell.ELL -> port ELL (int32 columns become int64)."""
     return ELL(_t(ell.cols, torch.int64, device), _t(ell.vals, dtype, device))
+
+
+def coef_ell_from_jax(op, dtype=torch.float64, device=None) -> CoefELL:
+    """parelagmc_tpu.ops.ell.CoefELL -> port CoefELL (int64 indices)."""
+    return CoefELL(_t(op.cols, torch.int64, device), _t(op.mvals, dtype, device),
+                   _t(op.cells, torch.int64, device))
+
+
+def diag_coef_from_jax(dc, dtype=torch.float64, device=None) -> DiagCoef:
+    """parelagmc_tpu.ops.ell.DiagCoef -> port DiagCoef."""
+    return DiagCoef(_t(dc.cells, torch.int64, device), _t(dc.vals, dtype, device))
+
+
+def mg_hierarchy_from_jax(mg, dtype=torch.float64, device=None) -> tmg.MGHierarchy:
+    """parelagmc_tpu.ops.multigrid.MGHierarchy -> port MGHierarchy. The
+    reference's line tables are (nlines, m) with a line-major gather order;
+    the port holds them solved axis first."""
+    dev = resolve_device(device)
+    levels = []
+    for lvl in mg.levels:
+        line = None
+        if lvl.line is not None:
+            line = [tmg.line_smoother_from_host(np.asarray(ln.dl), np.asarray(ln.d),
+                                                np.asarray(ln.du), np.asarray(ln.perm),
+                                                ln.omega, dtype, dev) for ln in lvl.line]
+        levels.append(tmg.MGLevel(
+            A=ell_from_jax(lvl.A, dtype, dev), inv_diag=_t(lvl.inv_diag, dtype, dev),
+            P=ell_from_jax(lvl.P, dtype, dev), Pt=ell_from_jax(lvl.Pt, dtype, dev), line=line))
+    return tmg.MGHierarchy(
+        levels=levels, coarse_A=ell_from_jax(mg.coarse_A, dtype, dev),
+        coarse_inv=_t(mg.coarse_inv, dtype, dev), omega=mg.omega,
+        coarse_inv_diag=_t(mg.coarse_inv_diag, dtype, dev), coarse_sweeps=mg.coarse_sweeps)
+
+
+def coef_mg_from_jax(mg, dtype=torch.float64, device=None) -> tcmg.CoefMG:
+    """parelagmc_tpu.ops.coef_multigrid.CoefMG -> port CoefMG (int64 index
+    tables)."""
+    dev = resolve_device(device)
+    levels = []
+    for lvl in mg.levels:
+        tables = {name: np.asarray(getattr(lvl, name)) for name in lvl._fields
+                  if getattr(lvl, name) is not None}
+        levels.append(tcmg._level(dtype, dev, **tables))
+    return tcmg.CoefMG(levels, mg.omega, mg.coarse_sweeps, mg.cheby_order, mg.cheby_lo)
 
 
 def sampler_from_jax(js, hierarchy, config, dtype=torch.float64, device=None,

@@ -41,6 +41,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from parelagmc_tpu_torch.fem.assembly import MixedLevel
 from parelagmc_tpu_torch.mesh.structured import StructuredMesh
 
 
@@ -315,6 +316,26 @@ def weighted_rt_prolongator(
         (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
         shape=(fine.num_faces, coarse.num_faces),
     )
+
+
+def blocks_to_ell_vals(
+    lvl: MixedLevel, blocks: Tuple[np.ndarray, np.ndarray, np.ndarray]
+) -> np.ndarray:
+    """Coefficient-ELL value slab for the block mass on `lvl`'s mesh, in the
+    exact slot layout of fem/assembly.build_mixed_level (diag-from-lo-cell,
+    diag-from-hi-cell, off-to-lo-face, off-to-hi-face)."""
+    bll, blr, brr = blocks
+    ax = lvl.mesh.face_axis()
+    nz = lvl.m_vals != 0.0
+    vals = np.zeros_like(lvl.m_vals)
+    cells = lvl.m_cells
+    # Slot 0: face is the HI face of the lo-adjacent cell -> brr.
+    vals[:, 0] = brr[cells[:, 0], ax]
+    # Slot 1: face is the LO face of the hi-adjacent cell -> bll.
+    vals[:, 1] = bll[cells[:, 1], ax]
+    vals[:, 2] = blr[cells[:, 2], ax]
+    vals[:, 3] = blr[cells[:, 3], ax]
+    return vals * nz
 
 
 def effective_kinv(

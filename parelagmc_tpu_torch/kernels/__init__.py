@@ -126,11 +126,12 @@ def library() -> types.SimpleNamespace:
         vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
         fns = {}
         # int thomas_lines_{f32,f64,bf16}(dl, d, du, b, x, n, L, J, O, sO, sB,
-        #     sI, base, stream)
+        #     sI, base, R, sR, sBb, stream)
         for name in ("thomas_lines_f32", "thomas_lines_f64", "thomas_lines_bf16"):
             fn = getattr(thomas, name)
             fn.restype = i32
-            fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i64, i64, i64, i64, i64, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i64, i64, i64, i64, i64, i32, i64,
+                           i64, vp]
             fns[name] = fn
         # int threefry_normal_{f32,f64}(k0, k1, out, n, lo, scale, sqrt2, stream)
         for name, ct in (("threefry_normal_f32", ctypes.c_float),

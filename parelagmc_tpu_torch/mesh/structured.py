@@ -207,6 +207,14 @@ class StructuredMesh:
         return attr
 
     # -- refinement ----------------------------------------------------------
+    def face_axis(self) -> np.ndarray:
+        """(num_faces,) array with the normal axis of every face."""
+        out = np.empty(self.num_faces, dtype=np.int32)
+        off = self.face_offsets
+        for a in range(self.dim):
+            out[off[a]: off[a + 1]] = a
+        return out
+
     def refine(self) -> "StructuredMesh":
         """Uniform refinement: every cell split in 2^dim; grid lines get
         midpoints. Attributes are inherited by children."""

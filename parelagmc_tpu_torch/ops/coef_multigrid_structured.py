@@ -319,11 +319,21 @@ def _cheb_smooth_grid(mg: StructCoefMG, dinv_axes, idiag, b, x):
 
 
 def _line_solve(tables, r: torch.Tensor, a: int) -> torch.Tensor:
-    """T_a^{-1} r on the cell grid through K1 (tables solved axis first)."""
+    """T_a^{-1} r on the cell grid through K1 (tables solved axis first).
+    Where the state carries a singleton right-hand-side axis (the stacked
+    solve: tables (n_a, batch..., 1, others...) against r with R vectors
+    there), the R vectors go to K1 as right-hand sides of one table set."""
     dl, dd, du = tables
     ax = _arr_ax(r, a)
-    x = thomas(dl, dd, du, r.movedim(ax, 0).contiguous())
-    return x.movedim(0, ax)
+    rm = r.movedim(ax, 0)
+    if rm.shape == dd.shape:
+        return thomas(dl, dd, du, rm.contiguous()).movedim(0, ax)
+    k = [i for i, (m, t) in enumerate(zip(rm.shape, dd.shape)) if m != t]
+    if rm.dim() != dd.dim() or len(k) != 1 or dd.shape[k[0]] != 1:
+        raise ValueError(f"line solve: residual {tuple(rm.shape)} against tables {tuple(dd.shape)}")
+    k = k[0]
+    x = thomas(*(t.squeeze(k) for t in tables), rm.movedim(k, 0).contiguous())  # (R, n_a, ...)
+    return x.movedim(0, k).movedim(0, ax)
 
 
 def _line_smooth_grid(mg: StructCoefMG, dinv_axes, lines, b, x, reverse: bool):

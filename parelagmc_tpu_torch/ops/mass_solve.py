@@ -128,11 +128,17 @@ class MassTridiagSolver(nn.Module):
         return self._layouts[B]
 
     def apply_factored(self, factors, rhs: torch.Tensor) -> torch.Tensor:
-        """z = M^{-1} rhs for tables built by factor() (same batch): the K1
-        kernel for CUDA tensors, the plain composed path for CPU tensors."""
-        batch = rhs.shape[:-1]
-        B = int(np.prod(batch)) if batch else 1
-        r = rhs.reshape(B, self.n_u)
+        """z = M^{-1} rhs for tables built by factor(): the K1 kernel for
+        CUDA tensors, the plain composed path for CPU tensors. rhs is
+        (batch..., n_u) with the tables' batch, or (batch..., R, n_u): R
+        right-hand sides per sample (the stacked primal + adjoint solve),
+        which the kernel solves reading each sample's tables once."""
+        B = factors[1].shape[0]
+        R, rem = divmod(rhs.numel(), B * self.n_u)
+        if rem or R < 1:
+            raise ValueError(f"apply_factored: rhs {tuple(rhs.shape)} against tables for "
+                             f"{B} samples of {self.n_u} faces")
+        r = rhs.reshape(B, R, self.n_u)
         if r.device.type == "cpu":
             z = self.apply_plain(factors, r)
         else:
@@ -140,21 +146,31 @@ class MassTridiagSolver(nn.Module):
             r = r.contiguous()
             z = torch.empty_like(r)
             for lay in self.layouts(B):
-                thomas_lines(dl, diag, du, r, z, lay)
-        return z.reshape(batch + (self.n_u,))
+                thomas_lines(dl, diag, du, r, z, lay, rhs=R, rhs_stride=self.n_u,
+                             rhs_batch_stride=R * self.n_u)
+        return z.reshape(rhs.shape)
 
     def apply_plain(self, factors, r: torch.Tensor) -> torch.Tensor:
-        """The plain composed M^{-1} on flat (B, n_u) vectors: per axis,
-        slice, move the solved axis first, thomas_plain, move it back, and
+        """The plain composed M^{-1} on flat (B, n_u) or (B, R, n_u)
+        vectors: per axis, slice, move the solved axis first (and the
+        right-hand sides before it), thomas_plain, move them back, and
         concatenate the axes."""
         B = r.shape[0]
+        many = r.dim() == 3
         outs = []
         for a, ax in enumerate(self.axes):
             lo, hi = self.face_offsets[a], self.face_offsets[a + 1]
             grid = (B,) + self.face_grid(a)
             first = lambda t: t[:, lo:hi].reshape(grid).movedim(1 + ax.dim, 0).contiguous()
-            z = thomas_plain(*(first(t) for t in (*factors, r)))
-            outs.append(z.movedim(0, 1 + ax.dim).reshape(B, -1))
+            if many:
+                R = r.shape[1]
+                rg = r[:, :, lo:hi].reshape((B, R) + grid[1:])
+                rhs = rg.movedim(2 + ax.dim, 0).movedim(2, 0).contiguous()  # (R, n_a, B, ...)
+                z = thomas_plain(*(first(t) for t in factors), rhs)
+                outs.append(z.movedim(0, 2).movedim(0, 2 + ax.dim).reshape(B, R, -1))
+            else:
+                z = thomas_plain(*(first(t) for t in (*factors, r)))
+                outs.append(z.movedim(0, 1 + ax.dim).reshape(B, -1))
         return torch.cat(outs, dim=-1)
 
 

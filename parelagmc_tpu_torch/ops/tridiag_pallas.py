@@ -18,6 +18,12 @@ the lines along one dim of a batch of C-contiguous grids (M(w)^{-1} on the
 flat face vector, no copies); `rows_first_layout` the (n, L) row-major
 tables with the solved axis first.
 
+One table set may serve several right-hand sides (the stacked primal +
+adjoint Schur solve: two vectors per sample; the static Schur multigrid's
+line smoother: one (n, L) table set for the whole batch): the kernel reads
+each row of dl, d, du once and carries one g and x recurrence per
+right-hand side, which lie `rhs_stride` apart (`line_index` with `rhs`).
+
 `thomas` (for (n, ...) tables) and `thomas_lines` (any layout) launch the
 kernel for CUDA tensors, and `thomas` runs the plain version for CPU
 tensors; for a CUDA tensor they launch or raise, never fall back.
@@ -47,13 +53,18 @@ class LineLayout(NamedTuple):
     base: int  # offset of line 0, row 0
 
 
-def line_index(lay: LineLayout, line, row):
+def line_index(lay: LineLayout, line, row, rhs=0, rhs_stride: int = 0, batch_stride=None):
     """Flat index of (line, row) under `lay` - the offset arithmetic of
     csrc/thomas.cu (line_base plus row * sI). Works on ints and on integer
-    tensors or arrays, broadcasting."""
+    tensors or arrays, broadcasting. With several right-hand sides per table
+    set, b and x hold right-hand side `rhs` of the line `rhs * rhs_stride`
+    further on, with `batch_stride` (default: the layout's sB) between their
+    batch members; the tables are addressed with the defaults."""
     j = line % lay.J
     t = line // lay.J
-    return lay.base + (t // lay.O) * lay.sB + (t % lay.O) * lay.sO + row * lay.sI + j
+    sB = lay.sB if batch_stride is None else batch_stride
+    return (lay.base + (t // lay.O) * sB + (t % lay.O) * lay.sO + row * lay.sI + j
+            + rhs * rhs_stride)
 
 
 def grid_axis_layout(batch: int, grid: Sequence[int], dim: int, base: int = 0,
@@ -75,18 +86,25 @@ def rows_first_layout(n: int, L: int) -> LineLayout:
 
 def thomas_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Solve tridiag(dl, d, du) x = b along dim 0 (broadcast over the rest):
-    c_i = du_i / (d_i - dl_i c_{i-1}), g_i = (b_i - dl_i g_{i-1}) / (same),
-    x_i = g_i - c_i x_{i+1}. No pivoting (SPD diagonally dominant lines).
-    bfloat16 lines run the recurrence in float32 and round x to bfloat16,
-    as the kernel does."""
+    """Solve tridiag(dl, d, du) x = b along the tables' dim 0 (broadcast
+    over the rest): c_i = du_i / (d_i - dl_i c_{i-1}),
+    g_i = (b_i - dl_i g_{i-1}) / (same), x_i = g_i - c_i x_{i+1}. No
+    pivoting (SPD diagonally dominant lines). b has the tables' (n, ...)
+    shape, or (R, n, ...): R right-hand sides per table set, with the
+    pivots and c computed once and one g and x recurrence each. bfloat16
+    lines run the recurrence in float32 and round x to bfloat16, as the
+    kernel does."""
     if b.dtype == torch.bfloat16:
         up = [t.float() for t in (dl, d, du, b)]
         return thomas_plain(*up).to(torch.bfloat16)
-    n = b.shape[0]
-    c = torch.empty_like(b)
+    if b.dim() == d.dim() + 1:
+        # The right-hand sides ride a trailing dim the tables broadcast over.
+        x = thomas_plain(dl.unsqueeze(-1), d.unsqueeze(-1), du.unsqueeze(-1), b.movedim(0, -1))
+        return x.movedim(-1, 0).contiguous()
+    n = d.shape[0]
+    c = torch.empty_like(d)
     g = torch.empty_like(b)
-    c_prev = torch.zeros_like(b[0])
+    c_prev = torch.zeros_like(d[0])
     g_prev = torch.zeros_like(b[0])
     for i in range(n):
         denom = d[i] - dl[i] * c_prev
@@ -102,10 +120,13 @@ def thomas_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     return x
 
 
-def _check_same(dl, d, du, b) -> None:
+def _check_same(dl, d, du, b, rhs: bool = False) -> None:
+    """Tables of one shape, dtype and device; b of the tables' shape, or
+    with `rhs` of any shape (its layout says where its elements lie)."""
+    for name, t in (("dl", dl), ("du", du)) + ((() if rhs else (("b", b),))):
+        if t.shape != d.shape:
+            raise ValueError(f"thomas: {name} has shape {tuple(t.shape)}, d {tuple(d.shape)}")
     for name, t in (("dl", dl), ("d", d), ("du", du)):
-        if t.shape != b.shape:
-            raise ValueError(f"thomas: {name} has shape {tuple(t.shape)}, b {tuple(b.shape)}")
         if t.dtype != b.dtype:
             raise TypeError(f"thomas: {name} is {t.dtype}, b is {b.dtype}")
         if t.device != b.device:
@@ -119,11 +140,16 @@ _ENTRY = {torch.float32: "thomas_lines_f32", torch.float64: "thomas_lines_f64",
 
 
 def thomas_lines(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
-                 x: torch.Tensor, lay: LineLayout) -> None:
+                 x: torch.Tensor, lay: LineLayout, rhs: int = 1, rhs_stride: int = 0,
+                 rhs_batch_stride=None) -> None:
     """The K1 kernel on the lines `lay` addresses in the contiguous CUDA
-    tensors dl, d, du, b (read) and x (written, same shape), on the current
-    stream. Elements that no line addresses are left as they are in x."""
-    _check_same(dl, d, du, b)
+    tensors dl, d, du (read; one shape), b (read) and x (written, b's
+    shape), on the current stream. With `rhs` > 1 every table set serves
+    that many right-hand sides: b and x hold right-hand side r of a line
+    `r * rhs_stride` after the first, with `rhs_batch_stride` (default:
+    the layout's sB) between batch members - `line_index` with the same
+    arguments. Elements that no line addresses are left as they are in x."""
+    _check_same(dl, d, du, b, rhs=True)
     if x.shape != b.shape or x.dtype != b.dtype or x.device != b.device:
         raise ValueError("thomas: x must match b in shape, dtype and device")
     if b.device.type != "cuda":
@@ -131,31 +157,41 @@ def thomas_lines(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.T
     for name, t in (("dl", dl), ("d", d), ("du", du), ("b", b), ("x", x)):
         if not t.is_contiguous():
             raise ValueError(f"thomas: {name} must be contiguous")
-    if lay.L <= 0 or lay.n <= 0:
+    if lay.L <= 0 or lay.n <= 0 or rhs <= 0:
         return
+    sBb = lay.sB if rhs_batch_stride is None else int(rhs_batch_stride)
     last = line_index(lay, lay.L - 1, lay.n - 1)
-    if lay.base < 0 or last >= b.numel() or min(lay.J, lay.O) < 1:
-        raise ValueError(f"thomas: layout {lay} does not fit {b.numel()} elements")
+    last_b = line_index(lay, lay.L - 1, lay.n - 1, rhs - 1, rhs_stride, sBb)
+    if (lay.base < 0 or last >= d.numel() or last_b >= b.numel() or min(lay.J, lay.O) < 1
+            or rhs_stride < 0 or (rhs > 1 and rhs_stride == 0)):
+        raise ValueError(f"thomas: layout {lay} with {rhs} right-hand sides (stride "
+                         f"{rhs_stride}, batch stride {sBb}) does not fit {d.numel()} table "
+                         f"and {b.numel()} right-hand-side elements")
     fn = getattr(kernels.library(), _ENTRY[b.dtype])
     kernels.launch("thomas", b.device, fn, dl.data_ptr(), d.data_ptr(), du.data_ptr(),
                    b.data_ptr(), x.data_ptr(), lay.n, lay.L, lay.J, lay.O, lay.sO, lay.sB,
-                   lay.sI, lay.base)
+                   lay.sI, lay.base, int(rhs), int(rhs_stride), sBb)
 
 
 def thomas(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
-    """x with tridiag(dl, d, du) x = b along dim 0, for (n, ...) tensors of
-    one shape, dtype (float32/float64/bfloat16) and device. CPU:
+    """x with tridiag(dl, d, du) x = b along the tables' dim 0, for (n, ...)
+    tables of one shape, dtype (float32/float64/bfloat16) and device, and b
+    of that shape or (R, n, ...): R right-hand sides per table set. CPU:
     thomas_plain. CUDA: the K1 kernel on the (n, L) row-major layout, on the
     current stream (inputs must be contiguous)."""
-    _check_same(dl, d, du, b)
-    if b.dim() < 1 or b.shape[0] == 0:
+    many = b.dim() == d.dim() + 1
+    if many and b.shape[1:] != d.shape:
+        raise ValueError(f"thomas: b has shape {tuple(b.shape)}, d {tuple(d.shape)}")
+    _check_same(dl, d, du, b, rhs=many)
+    if d.dim() < 1 or d.shape[0] == 0:
         raise ValueError("thomas: need at least one row along dim 0")
     if b.device.type == "cpu":
         return thomas_plain(dl, d, du, b)
     if b.device.type != "cuda":
         raise ValueError(f"thomas: unsupported device {b.device}")
     x = torch.empty_like(b)
-    n = int(b.shape[0])
-    thomas_lines(dl, d, du, b, x, rows_first_layout(n, b.numel() // n))
+    n = int(d.shape[0])
+    thomas_lines(dl, d, du, b, x, rows_first_layout(n, d.numel() // n),
+                 rhs=int(b.shape[0]) if many else 1, rhs_stride=d.numel() if many else 0)
     return x

@@ -1,23 +1,33 @@
-"""Mixed Darcy forward model with per-sample permeability, cg-schur family.
+"""Mixed Darcy forward model with per-sample permeability.
 
-Port of parelagmc_tpu/physics/darcy.py for its batched Schur-CG solvers
-(see the reference's docstring for the formulation). Per realization of
-the coefficient w, solve
+Port of parelagmc_tpu/physics/darcy.py (see the reference's docstring for
+the formulation). Per realization of the coefficient w, solve
 
     [[M(w), B^T], [B, 0]] [u; p~] = [f; g]      (p~ = -p convention)
 
-by CG on the pressure Schur complement S(w) = B M(w)^{-1} B^T, with
+either by CG on the pressure Schur complement S(w) = B M(w)^{-1} B^T, with
 M(w)^{-1} applied exactly by batched tridiagonal line solves
-(ops/mass_solve.py, kernel K1). Preconditioners, by config name:
+(ops/mass_solve.py, kernel K1), or by MINRES on the saddle system.
+Solvers and preconditioners, by config.darcy_solver.name:
 
-* "cg-schur" (without a kinv_ref): the exact reference-coefficient inverse
+* "cg-schur": without a kinv_ref the exact reference-coefficient inverse
   S(1)^{-1} (tensor spectral solver), scaled by the per-sample geometric
   mean of w or, with `local_schur_scaling`, symmetrically by sqrt(w) per
+  cell; with a kinv_ref the static geometric multigrid on
+  S_bar = B diag(M(1; kinv))^{-1} B^T (ops/multigrid.py, optionally with
+  line smoothing on K1: `mg_line_smoother`), scaled the same two ways;
+* "cg-schur-diag": diag(S_bar)^{-1} under a kinv_ref;
+* "cg-schur-exact": S(1)^{-1} under a kinv_ref, scaled by the geometric
+  mean of w * kinv or, with `local_schur_scaling`, by sqrt(w * kinv) per
   cell;
-* "cg-schur-coefmg": the per-sample Galerkin Schur multigrid
-  (ops/coef_multigrid_structured.py), rebuilt from this sample's masked
-  mass diagonal, optionally with a bfloat16 state (`coefmg_prec_dtype`)
-  and line smoothing on K1.
+* "cg-schur-coefmg": the per-sample Galerkin Schur multigrid, rebuilt from
+  this sample's masked mass diagonal: the slicing form on tensor meshes
+  (ops/coef_multigrid_structured.py) or, with coefmg_impl="gather", the
+  generic gather form (ops/coef_multigrid.py); optionally with a bfloat16
+  state (`coefmg_prec_dtype`), composed cycles and line smoothing on K1;
+* "minres-bj": block-diagonal preconditioned MINRES on the saddle system
+  (diag M(w)^{-1} and the scaled S(1)^{-1}), the independent oracle of the
+  Schur-CG family. It has no warm start and no adjoint path.
 
 A static inverse permeability `kinv_ref` on the finest mesh enters every
 level's M(w): by default through the energy-consistent Galerkin blocks of
@@ -28,34 +38,51 @@ RT embedding), or rediscretized by volume averaging
 QoI functionals (eff_perm, p_int, local_avg_p) are assembled on the finest
 level and restricted through P^T exactly like the reference; `adjoint_qoi`
 adds the goal-oriented correction lam^T r from a second (adjoint) Schur
-solve, and `meanfield_x0` starts every cold solve from a cached w = 1
-solution.
+solve - sequential, or with `adjoint_stacked` as one CG over a
+right-hand-side axis at -2, every M(w)^{-1} apply solving both vectors on
+one read of the sample's tables - and `meanfield_x0` starts every cold
+solve from a cached w = 1 solution.
 
-Still raising NotImplementedError, each naming its ROADMAP item: the
-solvers minres-bj, cg-schur-diag and cg-schur-exact, "cg-schur" with a
-kinv_ref (its static Schur MG), the gather coefMG (coefmg_impl="gather"), adjoint_stacked and
-spatial_shards.
+Still raising NotImplementedError: spatial_shards (ROADMAP.md Queue 1,
+item 14).
+
+CPU parity tests: tests/test_torch_darcy.py, tests/test_torch_spe10.py
+(every solver name against the JAX package, `device="cpu"`); on the card,
+phase 13 of chip_smoke.py drives every solver.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from parelagmc_tpu_torch.config import ProblemConfig
+from parelagmc_tpu_torch.fem.assembly import build_mixed_level
 from parelagmc_tpu_torch.fem.galerkin_mass import (
+    blocks_to_ell_vals,
     effective_kinv,
+    fine_axis_blocks,
     galerkin_block_chain,
     weighted_rt_prolongator,
 )
-from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy
+from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy, axis_parent_map, derefine_axis
 from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.mesh.structured import StructuredMesh
+from parelagmc_tpu_torch.ops.coef_multigrid import (
+    CoefMG,
+    _s_apply,
+    build_coef_mg,
+    coef_mg_dinvs,
+    coef_mg_idiags,
+    coef_v_cycle,
+)
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import (
-    StructCoefMG,
     build_struct_coef_mg,
     cast_state,
     parse_line_axes,
@@ -63,12 +90,20 @@ from parelagmc_tpu_torch.ops.coef_multigrid_structured import (
     struct_s_apply,
     struct_v_cycle,
 )
+from parelagmc_tpu_torch.ops.ell import (
+    CoefELL,
+    DiagCoef,
+    coef_diag_structure,
+    coef_ell_apply,
+    pack_coef_ell,
+)
 from parelagmc_tpu_torch.ops.mass_solve import MassTridiagSolver, build_mass_tridiag_solver
-from parelagmc_tpu_torch.ops.solvers import SolveInfo, pcg
+from parelagmc_tpu_torch.ops.multigrid import MGHierarchy, build_mg_hierarchy, v_cycle
+from parelagmc_tpu_torch.ops.solvers import SolveInfo, minres, pcg
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig, build_tensor_solver, tensor_solve
 
 _ROADMAP = "not ported yet (ROADMAP.md Queue 1, item {item})"
-_SOLVERS = ("cg-schur", "cg-schur-coefmg")
+_SOLVERS = ("cg-schur", "cg-schur-diag", "cg-schur-exact", "cg-schur-coefmg", "minres-bj")
 _PREC_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "float64": torch.float64}
 # The meanfield setup solve may continue through up to this many bounded
@@ -79,11 +114,15 @@ _MEANFIELD_SEGMENTS = 16
 
 
 class DarcyLevel(nn.Module):
-    """Device operators of one level for the cg-schur solver."""
+    """Device operators of one level."""
 
     def __init__(self, n_u: int, n_s: int, rhs: torch.Tensor, obs_func: torch.Tensor, schur: TensorEig,
                  mass_solver: MassTridiagSolver, shape, face_offsets, b_masks,
-                 coef_mg: Optional[StructCoefMG] = None):
+                 coef_mg=None, ess: Optional[torch.Tensor] = None,
+                 m_op: Optional[CoefELL] = None, m_diag: Optional[DiagCoef] = None,
+                 kinv_logmean: float = 0.0, kinv_cell: Optional[torch.Tensor] = None,
+                 sbar_dinv: Optional[torch.Tensor] = None,
+                 schur_mg: Optional[MGHierarchy] = None):
         super().__init__()
         self.n_u = int(n_u)
         self.n_s = int(n_s)
@@ -97,11 +136,68 @@ class DarcyLevel(nn.Module):
         self.face_offsets = tuple(int(x) for x in face_offsets)
         for a, m in enumerate(b_masks):
             self.register_buffer(f"b_mask{a}", m)
-        self.coef_mg = coef_mg  # per-sample Galerkin Schur MG (cg-schur-coefmg)
+        # Per-sample Galerkin Schur MG (cg-schur-coefmg): the StructCoefMG
+        # of tensor meshes or the gather-form CoefMG.
+        self.coef_mg = coef_mg
+        self.register_buffer("ess", ess)  # (n_u,) bool
+        # The saddle-system (minres-bj) operators; None for the Schur-CG
+        # family, which inverts M(w) by line solves, never applies the
+        # assembled mass and reads its diagonal off the factor tables
+        # (MassTridiagSolver.masked_diag equals m_diag(w)).
+        self.m_op = m_op  # masked velocity mass ELL (ess rows/cols zeroed)
+        self.m_diag = m_diag  # its masked diagonal structure
+        self.kinv_logmean = float(kinv_logmean)  # log geometric mean of kinv (0 if none)
+        self.register_buffer("kinv_cell", kinv_cell)  # (n_s,) per-cell geomean of kinv, or None
+        self.register_buffer("sbar_dinv", sbar_dinv)  # (n_s,) 1 / diag(S_bar) (cg-schur-diag)
+        self.schur_mg = schur_mg  # static kinv-aware Schur MG ("cg-schur" with a kinv_ref)
 
     @property
     def b_masks(self):
         return tuple(getattr(self, f"b_mask{a}") for a in range(len(self.shape)))
+
+
+def _assemble_sbar(mesh, kinv, ess_attr):
+    """Static variable-coefficient pressure Schur complement
+    S_bar = B diag(M(1; kinv))^{-1} B^T as scipy CSR (the sample field w is
+    a bounded lognormal multiplier on top of kinv, so S_bar captures the
+    dominant coefficient contrast)."""
+    lvl = build_mixed_level(mesh)
+    d = mesh.dim
+    ess = lvl.ess_faces(np.asarray(ess_attr[: 2 * d], dtype=np.int64))
+    face_ax = mesh.face_axis()
+    mv = lvl.m_vals * kinv[lvl.m_cells, face_ax[:, None]]
+    diag = mv[:, 0] + mv[:, 1]  # diag slots are first two by construction
+    dinv = np.where(ess | (diag <= 0), 0.0, 1.0 / np.maximum(diag, 1e-300))
+    signs = np.where(ess[lvl.cell_faces], 0.0, lvl.cell_signs)
+    rows = np.repeat(np.arange(lvl.n_s), lvl.cell_faces.shape[1])
+    B = sp.csr_matrix((signs.ravel(), (rows, lvl.cell_faces.ravel())), shape=(lvl.n_s, lvl.n_u))
+    return (B @ sp.diags(dinv) @ B.T).tocsr()
+
+
+def _build_schur_mg(mesh, kinv, ess_attr, dtype, cutoff: int, coarse_sweeps: int = 0,
+                    line_smoother: bool = False, device=None) -> MGHierarchy:
+    """Geometric multigrid hierarchy on S_bar: derefine below the MLMC level
+    as far as needed, rediscretizing the coefficient by volume-weighted
+    averaging, until the coarsest grid is dense-invertible."""
+    meshes = [mesh]
+    kinvs = [np.asarray(kinv, dtype=np.float64)]
+    ps = []
+    while meshes[-1].num_cells > cutoff and max(meshes[-1].shape) > 2:
+        prev = meshes[-1]
+        coarse = StructuredMesh([derefine_axis(a) for a in prev.axes])
+        maps = [axis_parent_map(prev.axes[a], coarse.axes[a]) for a in range(prev.dim)]
+        idx = prev.cell_multi_index()
+        par = coarse.cell_index(*[m[i] for m, i in zip(maps, idx)])
+        acc = np.zeros((coarse.num_cells, kinvs[-1].shape[1]))
+        np.add.at(acc, par, prev.cell_volumes()[:, None] * kinvs[-1])
+        kinvs.append(acc / coarse.cell_volumes()[:, None])
+        meshes.append(coarse)
+        ps.append(sp.csr_matrix((np.ones(prev.num_cells), (np.arange(prev.num_cells), par)),
+                                shape=(prev.num_cells, coarse.num_cells)))
+    mats = [_assemble_sbar(m, k, ess_attr) for m, k in zip(meshes, kinvs)]
+    return build_mg_hierarchy(mats, ps, dtype, coarse_sweeps=coarse_sweeps,
+                              line_shapes=[m.shape for m in meshes] if line_smoother else None,
+                              device=device)
 
 
 def _outward_sign(lvl) -> np.ndarray:
@@ -129,18 +225,10 @@ def _b_masks(mesh, ess: np.ndarray) -> List[np.ndarray]:
     return masks
 
 
-def _check_config(config: ProblemConfig, has_kinv: bool) -> None:
+def _check_config(config: ProblemConfig) -> None:
     cfg = config.darcy_solver
     if cfg.name not in _SOLVERS:
-        raise NotImplementedError(f"darcy solver {cfg.name!r} " + _ROADMAP.format(item=13))
-    if cfg.name == "cg-schur" and has_kinv:
-        raise NotImplementedError(
-            "cg-schur with a kinv_ref (the static Schur MG of ops/multigrid.py) "
-            + _ROADMAP.format(item=13))
-    if cfg.name == "cg-schur-coefmg" and getattr(cfg, "coefmg_impl", "auto") == "gather":
-        raise NotImplementedError("coefmg_impl='gather' " + _ROADMAP.format(item=13))
-    if getattr(cfg, "adjoint_qoi", False) and getattr(cfg, "adjoint_stacked", False):
-        raise NotImplementedError("adjoint_stacked " + _ROADMAP.format(item=10))
+        raise ValueError(f"darcy solver {cfg.name!r}: expected one of {_SOLVERS}")
     if int(getattr(cfg, "spatial_shards", 0) or 0) > 1:
         raise NotImplementedError("spatial_shards " + _ROADMAP.format(item=14))
     pdt = getattr(cfg, "coefmg_prec_dtype", "")
@@ -185,7 +273,7 @@ class DarcySolver:
     ):
         """kinv_ref: optional static inverse permeability on the FINEST mesh,
         (n_s, dim) per axis or (n_s,); the per-sample w multiplies on top."""
-        _check_config(config, kinv_ref is not None)
+        _check_config(config)
         self.hierarchy = hierarchy
         self.config = config
         self.dtype = dtype
@@ -245,26 +333,63 @@ class DarcySolver:
         as_t = lambda x, dt=dtype: torch.as_tensor(np.ascontiguousarray(x), dtype=dt,
                                                    device=dev)
         cfg = self.solver_cfg
+        # The assembled mass ELL is only applied by the saddle-system
+        # (minres-bj) path; the Schur-CG family never needs it on the device.
+        need_m_op = not cfg.name.startswith("cg-schur")
         levels = []
+        self._nnz: List[int] = []
         for l, lvl in enumerate(hierarchy.levels):
             ess = lvl.ess_faces(ess_attr)
             rhs_l = rhs_np[l].copy()
             rhs_l[: lvl.n_u][ess] = 0.0  # zero essential data (reference default)
             kinv = kinv_levels[l]
+            # Masked mass values in the coefficient-ELL slot layout.
+            if blocks_chain is not None:
+                m_vals = blocks_to_ell_vals(lvl, blocks_chain[l])
+            else:
+                m_vals = lvl.m_vals.copy()
+                if kinv is not None:
+                    m_vals = m_vals * kinv[lvl.m_cells, lvl.mesh.face_axis()[:, None]]
+            m_vals[ess, :] = 0.0
+            m_vals = np.where(ess[lvl.m_cols], 0.0, m_vals)
+            cell_signs = np.where(ess[lvl.cell_faces], 0.0, lvl.cell_signs)
+            self._nnz.append(int(np.sum(m_vals != 0)) + 2 * int(np.sum(cell_signs != 0)))
             coef_mg = None
             if cfg.name == "cg-schur-coefmg":
-                coef_mg = build_struct_coef_mg(
-                    lvl.mesh,
+                mg_kw = dict(
                     cutoff=cfg.coarse_dense_cutoff,
                     coarse_sweeps=max(1, cfg.mg_coarse_sweeps),
                     omega=getattr(cfg, "coefmg_omega", 0.8),
                     cheby_order=getattr(cfg, "coefmg_cheby_order", 0),
                     cheby_lo=getattr(cfg, "coefmg_cheby_lo", 0.25),
-                    line_axes=parse_line_axes(getattr(cfg, "coefmg_line_axes", ""),
-                                              lvl.mesh, kinv),
-                    line_omega=getattr(cfg, "coefmg_line_omega", 1.0),
-                    coarsen=getattr(cfg, "coefmg_coarsen", "galerkin"),
                 )
+                if getattr(cfg, "coefmg_impl", "auto") == "gather":
+                    # The generic gather tables (the slicing form's oracle).
+                    coef_mg = build_coef_mg(lvl.mesh, ess, dtype=dtype, device=dev, **mg_kw)
+                else:
+                    coef_mg = build_struct_coef_mg(
+                        lvl.mesh,
+                        line_axes=parse_line_axes(getattr(cfg, "coefmg_line_axes", ""),
+                                                  lvl.mesh, kinv),
+                        line_omega=getattr(cfg, "coefmg_line_omega", 1.0),
+                        coarsen=getattr(cfg, "coefmg_coarsen", "galerkin"),
+                        **mg_kw,
+                    )
+            schur_mg = sbar_dinv = kinv_cell = None
+            kinv_logmean = 0.0
+            if kinv is not None:
+                log_kinv = np.log(np.maximum(kinv, 1e-300))
+                kinv_logmean = float(np.mean(log_kinv))
+                kinv_cell = as_t(np.exp(np.mean(log_kinv, axis=1)))
+                if cfg.name == "cg-schur":
+                    schur_mg = _build_schur_mg(
+                        lvl.mesh, kinv, ess_attr, dtype,
+                        config.sampler_solver.coarse_dense_cutoff,
+                        coarse_sweeps=cfg.mg_coarse_sweeps,
+                        line_smoother=cfg.mg_line_smoother, device=dev)
+                elif cfg.name == "cg-schur-diag":
+                    sbar = _assemble_sbar(lvl.mesh, kinv, ess_attr).diagonal()
+                    sbar_dinv = as_t(1.0 / np.maximum(sbar, 1e-300))
             levels.append(
                 DarcyLevel(
                     n_u=lvl.n_u,
@@ -280,18 +405,47 @@ class DarcySolver:
                     face_offsets=lvl.mesh.face_offsets,
                     b_masks=[as_t(m) for m in _b_masks(lvl.mesh, ess)],
                     coef_mg=coef_mg,
+                    ess=as_t(ess, torch.bool),
+                    m_op=(pack_coef_ell(lvl.m_cols, m_vals, lvl.m_cells, dtype, device=dev)
+                          if need_m_op else None),
+                    m_diag=(coef_diag_structure(lvl.m_cols, m_vals, lvl.m_cells, dtype,
+                                                device=dev) if need_m_op else None),
+                    kinv_logmean=kinv_logmean,
+                    kinv_cell=kinv_cell,
+                    sbar_dinv=sbar_dinv,
+                    schur_mg=schur_mg,
                 )
             )
         self.levels = nn.ModuleList(levels)
         self.kinv_levels = kinv_levels  # host copies, per level (None without kinv_ref)
+        self._blocks_chain = blocks_chain
+        self._ess_attr = ess_attr
         # Parent cell maps for the warm-started pair solves (coarse -> fine
         # piecewise-constant pressure prolongation).
         self._parent = [as_t(p, torch.int64) for p in hierarchy.parent]
+
+    def level_blocks(self, level: int):
+        """Per-(cell, axis) mass blocks (bll, blr, brr) of the level: the
+        complete kinv-bearing coefficient structure of M(w)."""
+        if self._blocks_chain is not None:
+            return self._blocks_chain[level]
+        return fine_axis_blocks(self.hierarchy.levels[level].mesh, self.kinv_levels[level])
+
+    def sbar_diag_np(self, level: int) -> np.ndarray:
+        """Host copy of diag(S_bar) at the level (Jacobi-preconditioner data)."""
+        lvl = self.hierarchy.levels[level]
+        kinv = self.kinv_levels[level]
+        if kinv is None:
+            kinv = np.ones((lvl.n_s, lvl.dim))
+        return np.maximum(_assemble_sbar(lvl.mesh, kinv, self._ess_attr).diagonal(), 1e-300)
 
     # -- public API ------------------------------------------------------------
     def num_dofs(self, level: int) -> int:
         L = self.levels[level]
         return L.n_u + L.n_s
+
+    def nnz(self, level: int) -> int:
+        return self._nnz[level]
 
     @staticmethod
     def _apply_B(L: DarcyLevel, u: torch.Tensor) -> torch.Tensor:
@@ -326,8 +480,10 @@ class DarcySolver:
 
     def adjoint_pair_enabled(self, level: int) -> bool:
         """Does the MLMC pair at this level run the adjoint-corrected QoI,
-        with the coarse adjoint warm-starting the fine one?"""
-        return bool(getattr(self.solver_cfg, "adjoint_qoi", False))
+        with the coarse adjoint warm-starting the fine one? False under
+        minres-bj (the saddle-system MINRES has no Schur adjoint path)."""
+        return (bool(getattr(self.solver_cfg, "adjoint_qoi", False))
+                and self.solver_cfg.name != "minres-bj")
 
     def solve_fwd(self, level: int, w: torch.Tensor, return_pressure: bool = False,
                   return_adjoint: bool = False, max_iters: Optional[int] = None):
@@ -336,6 +492,10 @@ class DarcySolver:
         adjoint (return_adjoint, needs config.adjoint_qoi). With
         config.meanfield_x0 the solve starts from the cached w = 1 solution.
         `max_iters` overrides config.max_iterations for this solve."""
+        if self.solver_cfg.name == "minres-bj":
+            if getattr(self.solver_cfg, "adjoint_qoi", False):
+                raise NotImplementedError("adjoint_qoi applies to the cg-schur solver family")
+            return self._solve_minres(self.levels[level], w, return_pressure, max_iters)
         x0 = lam0 = None
         if getattr(self.solver_cfg, "meanfield_x0", False):
             p_ref, lam_ref = self._meanfield_start(level)
@@ -365,7 +525,10 @@ class DarcySolver:
                        return_adjoint: bool = False, max_iters: Optional[int] = None):
         """Fine solve warm-started from the level+1 physical pressure (and,
         with lam_c, the level+1 adjoint): every fine cell takes its
-        parent's value (P0 prolongation)."""
+        parent's value (P0 prolongation). minres-bj has no warm start: it
+        solves cold."""
+        if self.solver_cfg.name == "minres-bj":
+            return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
         p0 = torch.index_select(p_coarse, -1, self._parent[level])
         lam0 = torch.index_select(lam_c, -1, self._parent[level]) if lam_c is not None else None
         return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0, lam0=lam0,
@@ -378,7 +541,9 @@ class DarcySolver:
         pressure iterate p0 (and adjoint iterate lam0). Kept for parity with
         the reference's API, whose examples continue solves with it; no
         path of this package calls it (MLMCManager runs each pair solve
-        composed instead)."""
+        composed instead). minres-bj solves cold."""
+        if self.solver_cfg.name == "minres-bj":
+            return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
         return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0, lam0=lam0,
                                     return_adjoint=return_adjoint, max_iters=max_iters)
 
@@ -399,7 +564,11 @@ class DarcySolver:
         return q, qc, info_f, info_c
 
     def _preconditioner(self, L: DarcyLevel, w: torch.Tensor, mass_fac):
-        """r -> z ~ S(w)^{-1} r for this solve (see the module docstring)."""
+        """r -> z ~ S(w)^{-1} r for this solve, in the reference's order of
+        precedence (see the module docstring). w is (batch..., n_s), or
+        (batch..., 1, n_s) for the stacked solve: every per-sample table
+        then carries the singleton right-hand-side axis and broadcasts over
+        it, so both systems read it once."""
         cfg = self.solver_cfg
         if L.coef_mg is not None:
             # Per-sample Galerkin MG: its whole coefficient dependence is
@@ -408,17 +577,27 @@ class DarcySolver:
             pos = diag_w > 0
             dinv0 = torch.where(pos, 1.0 / torch.where(pos, diag_w, torch.ones_like(diag_w)),
                                 torch.zeros_like(diag_w))
-            state = struct_mg_setup(L.coef_mg, dinv0)
             pdt = _PREC_DTYPES.get(getattr(cfg, "coefmg_prec_dtype", "") or "")
             nsw = max(1, int(getattr(cfg, "coefmg_sweeps", 2)))
             mg = L.coef_mg
-            if pdt is None:
-                cycle = lambda r: struct_v_cycle(mg, state, r, sweeps=nsw)
+            if isinstance(mg, CoefMG):
+                dinvs = coef_mg_dinvs(mg, dinv0)
+                idiags = coef_mg_idiags(mg, dinvs)
+                if pdt is not None:
+                    # The state in pdt; the index tables stay as they are.
+                    dinvs = [t.to(pdt) for t in dinvs]
+                    idiags = [t.to(pdt) for t in idiags]
+                v = lambda r: coef_v_cycle(mg, dinvs, r, nsw, idiags=idiags)
+                s_fine = lambda z: _s_apply(mg.levels[0], dinvs[0], z)
             else:
-                # Reduced-precision preconditioner state: the V-cycle runs
-                # in pdt, the CG in the solve dtype.
-                state = cast_state(state, pdt)
-                cycle = lambda r: struct_v_cycle(mg, state, r.to(pdt), sweeps=nsw).to(r.dtype)
+                state = struct_mg_setup(mg, dinv0)
+                if pdt is not None:
+                    state = cast_state(state, pdt)
+                v = lambda r: struct_v_cycle(mg, state, r, sweeps=nsw)
+                s_fine = lambda z: struct_s_apply(mg, state, z)
+            # Reduced-precision preconditioner state: the V-cycle runs in
+            # pdt, the CG in the solve dtype.
+            cycle = v if pdt is None else (lambda r: v(r.to(pdt)).to(r.dtype))
             ncyc = max(1, int(getattr(cfg, "coefmg_cycles", 1)))
             if ncyc == 1:
                 return cycle
@@ -428,16 +607,32 @@ class DarcySolver:
                 # in the MG's own face-form operator (CG-safe).
                 z = cycle(r)
                 for _ in range(ncyc - 1):
-                    z = z + cycle(r - struct_s_apply(mg, state, z))
+                    z = z + cycle(r - s_fine(z))
                 return z
 
             return composed
+        geomean = lambda shift: torch.exp(torch.mean(torch.log(w), dim=-1, keepdim=True) + shift)
+        if L.sbar_dinv is not None:
+            # Diagonal of the static variable-coefficient Schur complement.
+            w_bar = geomean(0.0)
+            return lambda r: w_bar * (r * L.sbar_dinv)
+        if L.schur_mg is not None:
+            # kinv-aware geometric MG on S_bar.
+            if cfg.local_schur_scaling:
+                # S(w kinv)^{-1} ~ D(w)^{1/2} S(kinv)^{-1} D(w)^{1/2}.
+                sw = torch.sqrt(w)
+                return lambda r: sw * v_cycle(L.schur_mg, sw * r)
+            w_bar = geomean(0.0)
+            return lambda r: w_bar * v_cycle(L.schur_mg, r)
         if cfg.local_schur_scaling:
-            # S(w)^{-1} ~ diag(w)^{1/2} S(1)^{-1} diag(w)^{1/2}.
-            sw = torch.sqrt(w)
+            # S(w)^{-1} ~ diag(w k)^{1/2} S(1)^{-1} diag(w k)^{1/2}, k the
+            # per-cell geometric mean of the kinv_ref (1 without one).
+            k_loc = L.kinv_cell if L.kinv_cell is not None else math.exp(L.kinv_logmean)
+            sw = torch.sqrt(w * k_loc)
             return lambda r: sw * tensor_solve(L.schur, sw * r)
-        # S(w)^{-1} ~ w_bar S(1)^{-1}, w_bar the per-sample geometric mean.
-        w_bar = torch.exp(torch.mean(torch.log(w), dim=-1, keepdim=True))
+        # S(w)^{-1} ~ w_bar S(1)^{-1}, w_bar the per-sample geometric mean
+        # (times the kinv_ref's).
+        w_bar = geomean(L.kinv_logmean)
         return lambda r: w_bar * tensor_solve(L.schur, r)
 
     def _solve_cg_schur(self, L: DarcyLevel, w: torch.Tensor, return_pressure: bool,
@@ -445,6 +640,7 @@ class DarcySolver:
                         return_adjoint: bool = False, max_iters: Optional[int] = None):
         cfg = self.solver_cfg
         adjoint = bool(getattr(cfg, "adjoint_qoi", False))
+        stacked = adjoint and bool(getattr(cfg, "adjoint_stacked", False))
         if return_adjoint and not adjoint:
             raise ValueError("return_adjoint requires config.adjoint_qoi")
         batch = w.shape[:-1]
@@ -454,7 +650,8 @@ class DarcySolver:
         mass_fac = L.mass_solver.factor(w)
         Minv = lambda r: L.mass_solver.apply_factored(mass_fac, r)
         rhs_s = self._apply_B(L, Minv(f)) - g
-        prec = self._preconditioner(L, w, mass_fac)
+        prec = self._preconditioner(L, w.unsqueeze(-2) if stacked else w, mass_fac)
+        # apply_S and prec take (batch..., n_s) and, stacked, (batch..., 2, n_s).
         apply_S = lambda p: self._apply_B(L, Minv(self._apply_Bt(L, p)))
         krylov = dict(
             prec=prec,
@@ -463,31 +660,95 @@ class DarcySolver:
             atol=cfg.absolute_tolerance,
             restart_every=cfg.restart_every,
         )
-        # want_r_true on the adjoint path: the correction consumes the
-        # primal true residual, which pcg's exit check computes anyway.
-        out = pcg(apply_S, rhs_s, x0=(-x0 if x0 is not None else None),  # p~ = -p
-                  want_r_true=adjoint, **krylov)
-        p, info = out[0], out[1]
+        if adjoint:
+            # q_s = dQ/dp = c_p - B M(w)^{-1} c_u, the QoI reduced to
+            # pressure space.
+            cu = L.obs_func[: L.n_u].expand(batch + (L.n_u,))
+            q_s = L.obs_func[L.n_u:] - self._apply_B(L, Minv(cu))
+        lam = None
+        if stacked:
+            # S [p~, lam] = [rhs_s, q_s] as ONE PCG over a right-hand-side
+            # axis at -2: the per-sample state (mass tables, preconditioner
+            # hierarchy) is read once per iteration for both systems, rows
+            # freeze per (sample, right-hand side), and the loop runs
+            # max(it_primal, it_adjoint) trips.
+            bb = torch.stack([rhs_s, q_s], dim=-2)
+            X0 = None
+            if x0 is not None or lam0 is not None:
+                X0 = torch.stack([-x0 if x0 is not None else torch.zeros_like(rhs_s),
+                                  lam0 if lam0 is not None else torch.zeros_like(q_s)], dim=-2)
+            X, info2, R_true = pcg(apply_S, bb, x0=X0, want_r_true=True, **krylov)
+            p, lam = X[..., 0, :], X[..., 1, :]
+            r_true = R_true[..., 0, :]
+            # 2 x iterations: operator applications per sample, comparable
+            # with the sequential it_primal + it_adjoint.
+            info = SolveInfo(2 * info2.iterations, info2.residual.amax(dim=-1),
+                             info2.converged.all(dim=-1))
+        else:
+            # want_r_true on the adjoint path: the correction consumes the
+            # primal true residual, which pcg's exit check computes anyway.
+            out = pcg(apply_S, rhs_s, x0=(-x0 if x0 is not None else None),  # p~ = -p
+                      want_r_true=adjoint, **krylov)
+            p, info = out[0], out[1]
+            r_true = out[2] if adjoint else None
         u = Minv(f - self._apply_Bt(L, p))
         Q = torch.sum(p * L.obs_func[L.n_u:], dim=-1) + torch.sum(
             u * L.obs_func[: L.n_u], dim=-1
         )
-        lam = None
-        if adjoint:
-            # Goal-oriented correction: with q_s = dQ/dp = c_p - B M(w)^{-1} c_u
-            # the QoI reduced to pressure space, solve S lam = q_s and add
-            # lam^T r (r the primal true residual); the remaining QoI error
-            # is the product of the two solves' energy errors.
-            cu = L.obs_func[: L.n_u].expand(batch + (L.n_u,))
-            q_s = L.obs_func[L.n_u:] - self._apply_B(L, Minv(cu))
+        if adjoint and not stacked:
+            # Goal-oriented correction: solve S lam = q_s and add lam^T r
+            # (r the primal true residual); the remaining QoI error is the
+            # product of the two solves' energy errors.
             lam, info_a = pcg(apply_S, q_s, x0=lam0, **krylov)
-            Q = Q + torch.sum(lam * out[2], dim=-1)
             info = SolveInfo(info.iterations + info_a.iterations,
                              torch.maximum(info.residual, info_a.residual),
                              info.converged & info_a.converged)
+        if adjoint:
+            Q = Q + torch.sum(lam * r_true, dim=-1)
         cost = float(L.n_u + L.n_s)
         if return_adjoint:
             return Q, cost, info, -p, lam
         if return_pressure:
             return Q, cost, info, -p
+        return Q, cost, info
+
+    # -- the saddle system (minres-bj) ----------------------------------------
+    def _apply_A(self, L: DarcyLevel, w: torch.Tensor):
+        """x -> [[M(w), B^T], [B, 0]] x with identity rows at essential
+        dofs; B and B^T by the slicing stencils."""
+
+        def apply_A(x: torch.Tensor) -> torch.Tensor:
+            u, p = x[..., : L.n_u], x[..., L.n_u:]
+            yu = coef_ell_apply(L.m_op, w, u) + self._apply_Bt(L, p)
+            yu = torch.where(L.ess, u, yu)
+            return torch.cat([yu, self._apply_B(L, u)], dim=-1)
+
+        return apply_A
+
+    def _prec(self, L: DarcyLevel, w: torch.Tensor):
+        """The block-diagonal SPD preconditioner diag(diag(M(w))^{-1},
+        w_bar S(1)^{-1}), w_bar the geometric mean of w (times the
+        kinv_ref's)."""
+        dM = L.m_diag(w)
+        inv_dM = 1.0 / torch.where(L.ess, torch.ones_like(dM), dM)
+        w_bar = torch.exp(torch.mean(torch.log(w), dim=-1, keepdim=True) + L.kinv_logmean)
+
+        def prec(r: torch.Tensor) -> torch.Tensor:
+            ru, rp = r[..., : L.n_u], r[..., L.n_u:]
+            return torch.cat([ru * inv_dM, w_bar * tensor_solve(L.schur, rp)], dim=-1)
+
+        return prec
+
+    def _solve_minres(self, L: DarcyLevel, w: torch.Tensor, return_pressure: bool,
+                      max_iters: Optional[int] = None):
+        cfg = self.solver_cfg
+        b = L.rhs.expand(w.shape[:-1] + L.rhs.shape)
+        x, info = minres(
+            self._apply_A(L, w), b, prec=self._prec(L, w),
+            max_iters=cfg.max_iterations if max_iters is None else int(max_iters),
+            rtol=cfg.relative_tolerance, atol=cfg.absolute_tolerance)
+        Q = torch.sum(x * L.obs_func, dim=-1)
+        cost = float(L.n_u + L.n_s)
+        if return_pressure:
+            return Q, cost, info, -x[..., L.n_u:]  # physical pressure p = -p~
         return Q, cost, info

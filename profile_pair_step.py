@@ -3,9 +3,10 @@
 CUDA card.
 
 Run from the root of a checkout:
-    python3 profile_pair_step.py [--out FILE] [--configs bench,64^3,spe10,ratio]
+    python3 profile_pair_step.py [--out FILE] [--configs bench,64^3,spe10,stacked,ratio]
+    python3 profile_pair_step.py --k1 [ROOT]     (kernel K1 alone, see below)
 
-Four configurations, steps chip_smoke.py times:
+Five configurations, steps chip_smoke.py times:
   bench  golden levels 0/1 with bench.py's settings: batch 512, float32,
          rtol 1e-4, 50 iterations, local Schur scaling;
   64^3   refinements=4 (64^3 against 32^3), batch 64, float64, local
@@ -15,6 +16,14 @@ Four configurations, steps chip_smoke.py times:
   spe10  the full 60x220x85 SPE10 grid, levels 0/1, with the production
          settings (cg-schur-coefmg with a bf16 cheb3 V-cycle, adjoint QoI,
          mean-field x0, float32, batch 8; synthetic permeability);
+  stacked  the spe10 step with adjoint_stacked: each member's primal and
+         adjoint systems solved as one CG over a right-hand-side axis, so
+         that every iteration reads the sample's mass tables and
+         preconditioner state once for both. minv_apply and prec_apply
+         take two right-hand sides per sample (K1 with R = 2); the
+         iteration counts are operator applications (2 x the loop's trips),
+         as the sequential solves' primal + adjoint sums are, so the
+         per-iteration rows of spe10 and stacked compare like with like;
   ratio  the same problem's level-0 step of BayesRatioManager at batch 8:
          two independent noise streams (Z and R), each evaluated on levels
          0 and 1, and four cold solves (mean-field x0, no coarse warm
@@ -40,6 +49,19 @@ profiler drops events), kernels per call, and busy = device / wall
 For the whole step it also splits device time by the operator that
 launched each kernel. One line per layer on stdout; the whole report as
 JSON to --out. Exits non-zero without a CUDA card.
+
+--k1 [ROOT] times kernel K1 alone, from the package under ROOT (an absolute
+path; default this checkout) and prints one line of CUDA-event ms per call:
+`thomas` on (n, L) line tables (110 x 161 280 and 42 x 422 400, the coefMG
+smoother's shapes on the SPE10 level-1 grid at batch 128) in float32,
+bfloat16 and float64; `thomas` with R right-hand sides per table set on
+static (n, L) tables (K1_SHARED_TABLES: the static multigrid's line
+smoothers on the SPE10 grids at the production batches); and M(w)^{-1}
+(`apply_factored`) on boxes of the sizes of the SPE10 level-0 and level-1
+grids and of the 64^3 box, with one and with two vectors per sample. To
+compare two trees on one card, unpack the other with `git archive` into a
+git-ignored directory and run them in turns in one call: parent, change,
+change, parent. Each process builds the kernels of its own tree.
 """
 
 from __future__ import annotations
@@ -57,6 +79,81 @@ PROFILER_ATTEMPTS = 3  # sessions tried before a layer is reported without devic
 # and the segment path for contiguous rows; K2/K3 share one.
 KERNEL_TAGS = (("line_solve_kernel", "K1 thomas"), ("segment_solve_kernel", "K1 thomas"),
                ("threefry_kernel", "K2/K3 threefry"))
+# --k1: (n, L) of the single-vector line tables; (n, L, R, dtypes) of the
+# tables shared by R right-hand sides; (cells, batch, dtypes) of M(w)^{-1}.
+K1_LINE_TABLES = ((110, 161280), (42, 422400))
+K1_SHARED_TABLES = ((110, 1260, 128, ("float32", "bfloat16", "float64")),
+                    (42, 3300, 128, ("float32",)), (220, 5100, 8, ("float32",)),
+                    (55, 315, 512, ("float32",)), (110, 1260, 3, ("float32",)))
+K1_BOXES = (((220, 60, 85), 8, ("float32",)), ((110, 30, 42), 128, ("float32",)),
+            ((64, 64, 64), 64, ("float32", "float64")))
+
+
+def time_k1(root: str) -> None:
+    """The --k1 mode: one line of K1's times from the package under root."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import parelagmc_tpu_torch
+    from parelagmc_tpu_torch.fem import build_mixed_level
+    from parelagmc_tpu_torch.mesh import make_box_mesh
+    from parelagmc_tpu_torch.ops.mass_solve import build_mass_tridiag_solver
+    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
+
+    if not parelagmc_tpu_torch.__file__.startswith(root + os.sep):
+        sys.exit(f"profile_pair_step: imported {parelagmc_tpu_torch.__file__}, not {root}")
+    if not torch.cuda.is_available():
+        sys.exit("profile_pair_step: torch.cuda.is_available() is False: needs a CUDA card")
+    dev = torch.device("cuda")
+
+    def ms(fn, reps: int = 50) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def tables(n, L, dt, rhs=()):
+        dl = torch.rand(n, L, generator=g, device=dev) * 0.9 + 0.1
+        du = torch.rand(n, L, generator=g, device=dev) * 0.9 + 0.1
+        b = torch.randn(*rhs, n, L, generator=g, device=dev)
+        return [x.to(dt).contiguous() for x in (dl, dl + du + 1.0, du, b)]
+
+    for n, L in K1_LINE_TABLES:
+        for dt in (torch.float32, torch.bfloat16, torch.float64):
+            t = tables(n, L, dt)
+            out.append((f"lines n{n} {str(dt)[6:]}", ms(lambda: thomas(*t))))
+    for n, L, R, dtypes in K1_SHARED_TABLES:
+        for name in dtypes:
+            t = tables(n, L, getattr(torch, name), (R,))
+            out.append((f"shared n{n} L{L} R{R} {name}", ms(lambda: thomas(*t))))
+    for shape, batch, dtypes in K1_BOXES:
+        lvl = build_mixed_level(make_box_mesh(shape))
+        ess = lvl.ess_faces(np.array([0, 1, 1, 1, 1, 0]))
+        for name in dtypes:
+            dt = getattr(torch, name)
+            solver = build_mass_tridiag_solver(lvl, ess, dtype=dt, device=dev)
+            fac = solver.factor(torch.rand(batch, lvl.n_s, generator=g, device=dev, dtype=dt) + 0.5)
+            for R in (1, 2):
+                r = torch.randn((batch,) + (R,) * (R > 1) + (lvl.n_u,), generator=g, device=dev,
+                                dtype=dt)
+                out.append((f"minv {shape} b{batch} R{R} {name}",
+                            ms(lambda: solver.apply_factored(fac, r))))
+            del solver, fac, r
+            torch.cuda.empty_cache()
+    gpu = torch.cuda.get_device_name(0)
+    print(f"{os.path.basename(root)} [{gpu}] " + " ".join(f"{k}={v:.4f}" for k, v in out),
+          flush=True)
 
 
 def measure(fn, reps: int):
@@ -153,10 +250,15 @@ def ratio_layers(prob, batch: int, key, s_f, s_c):
 
 
 def profile_config(label: str, prob, batch: int, reps: int, gpu: str,
-                   ratio: bool = False) -> dict:
+                   ratio: bool = False, stacked: bool = False) -> dict:
+    import dataclasses
+
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 
     sampler, solver = prob.sampler, prob.solver
+    # The solver reads its options at each solve; the cached mean-field
+    # iterates serve both adjoint modes.
+    solver.solver_cfg = dataclasses.replace(solver.solver_cfg, adjoint_stacked=stacked)
     key = fold_in(PRNGKey(0), 7)
     xi = sampler.sample(0, key, batch)
     s_f = sampler.eval(0, xi)
@@ -169,7 +271,8 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str,
     _, _, info_f = solver.solve_fwd_warm(0, s_f, p_c, lam_c=lam_c)
     L0 = solver.levels[0]
     fac = L0.mass_solver.factor(s_f)
-    u = s_f.new_ones(batch, L0.n_u)
+    rhs = (2,) if stacked else ()  # right-hand sides per sample at axis -2
+    u = s_f.new_ones((batch,) + rhs + (L0.n_u,))
 
     def pair_step():
         x = sampler.sample(0, key, batch)
@@ -184,8 +287,9 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str,
         "minv_apply": lambda: L0.mass_solver.apply_factored(fac, u),
     }
     if L0.coef_mg is not None:
-        prec = solver._preconditioner(L0, s_f, fac)  # this sample's V-cycle
-        r = s_f.new_ones(batch, L0.n_s)
+        # This sample's V-cycle (its state broadcast over the stacked axis).
+        prec = solver._preconditioner(L0, s_f.unsqueeze(-2) if stacked else s_f, fac)
+        r = s_f.new_ones((batch,) + rhs + (L0.n_s,))
         layers["prec_apply"] = lambda: prec(r)
     layers["pair_step"] = pair_step
     its = {"coarse": int(info_c.iterations), "fine": int(info_f.iterations)}
@@ -228,11 +332,17 @@ def profile_config(label: str, prob, batch: int, reps: int, gpu: str,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="write the report as JSON to this file")
-    ap.add_argument("--configs", default="bench,64^3,spe10,ratio",
+    ap.add_argument("--configs", default="bench,64^3,spe10,stacked,ratio",
                     help="comma-separated configurations to profile")
+    ap.add_argument("--k1", nargs="?", const=HERE, default="", metavar="ROOT",
+                    help="time kernel K1 alone from the package under ROOT and exit")
     args = ap.parse_args()
+    if args.k1:
+        if not os.path.isabs(args.k1):
+            sys.exit("profile_pair_step: --k1 takes an absolute path")
+        return time_k1(args.k1.rstrip(os.sep))
     wanted = args.configs.split(",")
-    unknown = sorted(set(wanted) - {"bench", "64^3", "spe10", "ratio"})
+    unknown = sorted(set(wanted) - {"bench", "64^3", "spe10", "stacked", "ratio"})
     if unknown:
         sys.exit(f"profile_pair_step: unknown configurations {unknown}")
     import torch
@@ -256,10 +366,12 @@ def main() -> None:
         configs.append(profile_config(
             "64^3", pair_problem(4, 64, 1e-5, 100, "float64", device, restart_every=0),
             64, 2, gpu))
-    if "spe10" in wanted or "ratio" in wanted:
+    if {"spe10", "stacked", "ratio"} & set(wanted):
         spe10 = spe10_full_problem(device)
         if "spe10" in wanted:
             configs.append(profile_config("spe10", spe10, 8, 3, gpu))
+        if "stacked" in wanted:
+            configs.append(profile_config("stacked", spe10, 8, 3, gpu, stacked=True))
         if "ratio" in wanted:
             configs.append(profile_config("ratio", spe10, 8, 3, gpu, ratio=True))
     report = {"torch": torch.__version__, "cuda": torch.version.cuda, "configs": configs}

@@ -265,12 +265,12 @@ def test_ratio_manager_refuses_sample_sharding(tmp_path):
 OBS_COORDS = (300.0, 550.0, 85.0, 600.0, 1100.0, 85.0, 900.0, 1650.0, 85.0)
 
 
-def spe10_ratio_problem(rtol=None):
+def spe10_ratio_problem(rtol=None, solver="cg-schur-coefmg"):
     """examples/spe10_ratio_mlmc.py --grid 16,32,8 --refinements 1 --samples 8
-    --batch 8 --dtype float64, with one difference: that run takes the
-    default solver, "cg-schur", whose preconditioner under a kinv_ref (the
-    static Schur multigrid) the port does not have yet, so this one runs
-    cg-schur-coefmg at the same tolerance (1e-6, 500 iterations)."""
+    --batch 8 --dtype float64. That run takes the default solver,
+    "cg-schur" (under a kinv_ref: the static Schur multigrid), at tolerance
+    1e-6 and 500 iterations, where its solves stop short of convergence, so
+    the pins depend on the preconditioner: `solver` picks it."""
     grid = (16, 32, 8)
     lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
     eps = max(30.0, 0.75 * max(L / n for L, n in zip(lengths, grid)))
@@ -280,7 +280,7 @@ def spe10_ratio_problem(rtol=None):
         normalize_marginals=True, axis_order="auto", dtype="float64", bayes_num_obs=3,
         bayes_obs_coords=OBS_COORDS, bayes_eps=eps, bayes_generate_ref_data=True,
         bayes_ref_data_file="", output_filename=""))
-    cfg.darcy_solver.name = "cg-schur-coefmg"
+    cfg.darcy_solver.name = solver
     if rtol is not None:
         cfg.darcy_solver.relative_tolerance = rtol
         cfg.darcy_solver.max_iterations = 2000
@@ -304,6 +304,19 @@ def test_spe10_scaled_ratio_anchors(splitting, pin):
     # Likelihoods bounded away from 0: a broken observation pipeline
     # collapses Z and blows the ratio up.
     assert mgr.E[:, trm.Z].min() > 0.01
+
+
+@pytest.mark.parametrize("splitting,pin", [(False, 354.436), (True, 350.767)])
+def test_spe10_scaled_ratio_anchors_on_cg_schur(splitting, pin):
+    """The pins were taken on "cg-schur": with the static Schur multigrid
+    the port reproduces them at the reference's own tolerance."""
+    TimeManager.reset()
+    prob, bip = spe10_ratio_problem(solver="cg-schur")
+    assert prob.solver.levels[0].schur_mg is not None
+    mgr = BayesRatioManager(bip, prob.config, splitting=splitting)
+    mgr.init_run([8, 8])
+    np.testing.assert_allclose(mgr.estimate, pin, rtol=1e-3)
+    assert np.all(mgr.level_nsamples == 8) and mgr.E[:, trm.Z].min() > 0.01
 
 
 def test_spe10_scaled_ratio_anchor_deep_solves():

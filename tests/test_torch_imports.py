@@ -61,7 +61,8 @@ def test_port_imports_leave_jax_out():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False"]
     assert len(MODULES) > 25 and "parelagmc_tpu_torch.fem.galerkin_mass" in MODULES
-    for name in ("ops.ell", "samplers.covariance", "samplers.kl", "uq.bayes", "uq.ratio_managers"):
+    for name in ("ops.ell", "samplers.covariance", "samplers.kl", "uq.bayes", "uq.ratio_managers",
+                 "ops.multigrid", "ops.coef_multigrid", "fem.agglomeration"):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
 
@@ -163,9 +164,17 @@ def test_entry_points_default_to_the_card():
 
     import scipy.sparse as sp
 
-    from parelagmc_tpu_torch.convert import ell_from_jax, tensor_eig_from_jax
+    from parelagmc_tpu_torch.convert import (
+        coef_ell_from_jax,
+        diag_coef_from_jax,
+        ell_from_jax,
+        tensor_eig_from_jax,
+    )
     from parelagmc_tpu_torch.ops import prng
-    from parelagmc_tpu_torch.ops.ell import pack_csr_to_ell
+    from parelagmc_tpu_torch.ops.coef_multigrid import build_coef_mg, build_coef_mg_graph
+    from parelagmc_tpu_torch.ops.ell import coef_diag_structure, pack_coef_ell, pack_csr_to_ell
+    from parelagmc_tpu_torch.ops.multigrid import build_mg_hierarchy
+    from parelagmc_tpu_torch.physics.darcy import _build_schur_mg
     from parelagmc_tpu_torch.ops.mass_solve import build_mass_tridiag_solver
     from parelagmc_tpu_torch.ops.tensorsolve import build_tensor_solver
     from parelagmc_tpu_torch.physics import DarcySolver
@@ -194,6 +203,15 @@ def test_entry_points_default_to_the_card():
         lambda: tensor_eig_from_jax(eig),
         lambda: build_mass_tridiag_solver(lvl, np.zeros(lvl.n_u, bool)),
         lambda: build_tensor_solver(mesh, 1.0),
+        lambda: pack_coef_ell(lvl.m_cols, lvl.m_vals, lvl.m_cells),
+        lambda: coef_diag_structure(lvl.m_cols, lvl.m_vals, lvl.m_cells),
+        lambda: coef_ell_from_jax(SimpleNamespace(cols=lvl.m_cols, mvals=lvl.m_vals,
+                                                  cells=lvl.m_cells)),
+        lambda: diag_coef_from_jax(SimpleNamespace(cells=lvl.m_cells, vals=lvl.m_vals)),
+        lambda: build_mg_hierarchy([sp.identity(2, format="csr")], []),
+        lambda: _build_schur_mg(mesh, np.ones((8, 3)), np.zeros(6, int), torch.float64, 100),
+        lambda: build_coef_mg(mesh, np.zeros(lvl.n_u, bool)),
+        lambda: build_coef_mg_graph(lvl.face_cells, lvl.face_signs, mesh.cell_centers()),
         lambda: prng.sample_normals(prng.PRNGKey(0), (2,)),
         lambda: prng.sample_uniforms(prng.PRNGKey(0), (2,)),
         lambda: prng.random_bits(prng.PRNGKey(0), 32, (2,)),
@@ -206,16 +224,12 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize(
     "field,value,item",
     [("mesh", "cube.mesh", 15), ("dtype", "bfloat16", None),
-     ("darcy_solver.spatial_shards", 2, 14), ("darcy_solver.name", "minres-bj", 13),
-     ("darcy_solver.coefmg_impl", "gather", 13)],
+     ("darcy_solver.spatial_shards", 2, 14)],
 )
 def test_build_problem_refuses_unported_configs(field, value, item):
     """What is not ported raises, naming its ROADMAP item (mesh files, the
-    unstructured stack; sharding; the other solvers), instead of running
-    something else."""
+    unstructured stack; sharding), instead of running something else."""
     cfg = tconfig.ProblemConfig(refinements=0)
-    if field == "darcy_solver.coefmg_impl":
-        cfg.darcy_solver.name = "cg-schur-coefmg"
     target = cfg
     *path, leaf = field.split(".")
     for name in path:
@@ -376,6 +390,60 @@ def _defs_without_docstrings(module):
         elif isinstance(node, ast.Assign):
             out[node.targets[0].id] = ast.dump(node)
     return out
+
+
+@pytest.mark.parametrize(
+    "name", ["minres-bj", "cg-schur-diag", "cg-schur-exact", "cg-schur", "cg-schur-coefmg"])
+def test_build_problem_builds_every_darcy_solver(name):
+    """Every Darcy solver name builds through build_problem with a kinv_ref
+    (the gather coefMG and the stacked adjoint included) and solves a
+    sample to convergence."""
+    cfg = tconfig.ProblemConfig(ncells=(2, 3, 2), refinements=1, dtype="float64")
+    cfg.darcy_solver.name = name
+    cfg.darcy_solver.relative_tolerance = 1e-8
+    cfg.darcy_solver.max_iterations = 2000
+    if name == "cg-schur-coefmg":
+        cfg.darcy_solver.coefmg_impl = "gather"
+        cfg.darcy_solver.coarse_dense_cutoff = 10
+    if name != "minres-bj":
+        cfg.darcy_solver.adjoint_qoi = cfg.darcy_solver.adjoint_stacked = True
+    kinv = np.exp(np.random.default_rng(0).normal(size=(4 * 6 * 4, 3)))
+    prob = build_problem(cfg, kinv_ref=kinv, device=CPU)
+    w = prob.sampler.eval(0, prob.sampler.sample(0, (0, 1), 2))
+    q, _, info = prob.solver.solve_fwd(0, w)
+    assert torch.isfinite(q).all() and bool(info.converged.all())
+    L = prob.solver.levels[0]
+    assert (L.m_op is not None) == (name == "minres-bj")
+    assert (L.schur_mg is not None) == (name == "cg-schur")
+    assert (L.sbar_dinv is not None) == (name == "cg-schur-diag")
+
+
+def _host_defs(module, names):
+    defs = _defs_without_docstrings(module)
+    return {n: defs[n] for n in names}
+
+
+def test_copied_host_code_of_the_new_modules_matches_the_jax_package():
+    """The numpy/scipy host code the new modules carry is the original's,
+    function for function: the partitioner, the Galerkin ELL values, the
+    multigrid's damping and host Thomas, the gather tables' inversion."""
+    from parelagmc_tpu.fem import agglomeration as jagg
+    from parelagmc_tpu.ops import coef_multigrid as jcmg
+    from parelagmc_tpu.ops import multigrid as jmg
+    from parelagmc_tpu_torch.fem import agglomeration as tagg
+    from parelagmc_tpu_torch.ops import coef_multigrid as tcmg
+    from parelagmc_tpu_torch.ops import multigrid as tmg
+
+    pairs = [(jagg, tagg, ("_morton_order", "partition_cells")),
+             (jgalerkin, tgalerkin, ("blocks_to_ell_vals",)),
+             (jmg, tmg, ("_spectral_omega", "_host_thomas")),
+             (jcmg, tcmg, ("_invert_face_cells",))]
+    for jm, tm, names in pairs:
+        mine, ref = _host_defs(tm, names), _host_defs(jm, names)
+        for n in names:
+            assert mine[n] == ref[n], f"{tm.__name__}.{n}"
+    jm, tm = _both_meshes("spe10")
+    _assert_same(jm.face_axis(), tm.face_axis(), "face_axis")
 
 
 def test_copied_host_modules_match_the_jax_package():

@@ -196,3 +196,106 @@ def test_thomas_lines_leaves_unaddressed_elements_and_refuses_long_lines(cuda_de
     dl, d, du, b = _lines(2000, 3, torch.float64, cuda_device)
     with pytest.raises(RuntimeError, match="cudaError_t"):
         thomas(dl, d, du, b)
+
+
+def _rel(x, ref):
+    return ((x.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
+_RHS_TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 0.0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 2, 3, 8])
+@pytest.mark.parametrize("n,L", [(42, 3300), (5, 77), (221, 130)])
+def test_thomas_rhs_groups_on_strided_rows_match_plain(cuda_device, dtype, R, n, L):
+    """R right-hand sides per (n, L) table set (rows at a stride, the Thomas
+    path; groups of 1, 2 and 4 with a ragged last group): against the plain
+    version, and against R separate launches exactly; bf16 bit for bit."""
+    dl, d, du, _ = _lines(n, L, dtype, cuda_device, seed=n + R)
+    b = torch.randn(R, n, L, device=cuda_device, dtype=torch.float64).to(dtype)
+    n0 = kernels.launch_counts["thomas"]
+    x = thomas(dl, d, du, b)
+    assert kernels.launch_counts["thomas"] == n0 + 1
+    ref = thomas_plain(dl, d, du, b)
+    torch.cuda.synchronize()
+    assert x.shape == b.shape and torch.isfinite(x.float()).all()
+    assert _rel(x, ref) <= _RHS_TOL[dtype]
+    for r in range(R):
+        assert torch.equal(x[r], thomas(dl, d, du, b[r].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_thomas_many_rhs_on_small_shared_tables_match_plain(cuda_device, dtype):
+    """More blocks than the card holds at once on tables that stay in L2
+    (the static multigrid's line smoother at R = batch): the Thomas path
+    takes groups of one with the right-hand sides' own addressing."""
+    n, L, R = 110, 1260, 32
+    dl, d, du, _ = _lines(n, L, dtype, cuda_device, seed=R)
+    b = torch.randn(R, n, L, device=cuda_device, dtype=torch.float64).to(dtype)
+    x = thomas(dl, d, du, b)
+    ref = thomas_plain(dl, d, du, b)
+    torch.cuda.synchronize()
+    assert _rel(x, ref) <= _RHS_TOL[dtype]
+    for r in (0, 17, R - 1):
+        assert torch.equal(x[r], thomas(dl, d, du, b[r].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 2, 8])
+@pytest.mark.parametrize("n", [3, 61, 221])
+def test_thomas_rhs_groups_on_contiguous_rows_match_plain(cuda_device, dtype, R, n):
+    """The same on contiguous lines (sI = 1: the segment path for float32
+    and float64, groups of two; the Thomas path for bfloat16), b and x laid
+    out (L, R, n): the right-hand sides of a line side by side, their own
+    batch stride R * n."""
+    L = 500
+    dl, d, du, _ = (t.t().contiguous() for t in _lines(n, L, dtype, cuda_device, seed=n + R))
+    b = torch.randn(L, R, n, device=cuda_device, dtype=torch.float64).to(dtype)
+    x = torch.empty_like(b)
+    lay = LineLayout(n=n, L=L, J=1, O=1, sO=0, sB=n, sI=1, base=0)
+    thomas_lines(dl, d, du, b, x, lay, rhs=R, rhs_stride=n, rhs_batch_stride=R * n)
+    ref = thomas_plain(dl.t(), d.t(), du.t(), b.permute(1, 2, 0)).permute(2, 0, 1)
+    torch.cuda.synchronize()
+    assert _rel(x, ref) <= _RHS_TOL[dtype]
+    one = torch.empty(L, n, device=cuda_device, dtype=dtype)
+    for r in range(R):
+        thomas_lines(dl, d, du, b[:, r].contiguous(), one, lay)
+        assert torch.equal(x[:, r], one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape,B,R", [((16, 16, 16), 4, 2), ((22, 6, 9), 3, 2), ((7, 5), 5, 3)])
+def test_minv_kernel_with_stacked_right_hand_sides(cuda_device, dtype, tol, shape, B, R):
+    """apply_factored on (B, R, n_u): one launch per axis solves R vectors
+    per sample on that sample's tables, equal to R separate applies."""
+    lvl, ms = _mass_solver(shape, [0, 1, 1, 1, 1, 0][: 2 * len(shape)], dtype, cuda_device)
+    rng = np.random.default_rng(B + R)
+    w = torch.from_numpy(np.exp(rng.normal(size=(B, lvl.n_s)))).to(cuda_device, dtype)
+    r = torch.from_numpy(rng.normal(size=(B, R, lvl.n_u))).to(cuda_device, dtype)
+    fac = ms.factor(w)
+    n0 = kernels.launch_counts["thomas"]
+    z = ms.apply_factored(fac, r)
+    assert kernels.launch_counts["thomas"] == n0 + len(shape)
+    ref = ms.apply_plain(fac, r)
+    torch.cuda.synchronize()
+    assert z.shape == r.shape and _rel(z, ref) <= tol
+    for q in range(R):
+        assert torch.equal(z[:, q], ms.apply_factored(fac, r[:, q].contiguous()))
+
+
+def test_thomas_rhs_wrapper_on_the_cpu_and_its_checks():
+    dl, d, du, _ = _lines(6, 4, torch.float64, "cpu")
+    b = torch.randn(3, 6, 4, dtype=torch.float64)
+    x = thomas(dl, d, du, b)
+    for r in range(3):
+        assert torch.equal(x[r], thomas_plain(dl, d, du, b[r]))
+    with pytest.raises(ValueError):
+        thomas(dl, d, du, torch.randn(3, 6, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        thomas_lines(dl, d, du, b, torch.empty_like(b),
+                     LineLayout(n=6, L=4, J=4, O=1, sO=0, sB=0, sI=4, base=0), rhs=3, rhs_stride=24)
