@@ -101,9 +101,9 @@ Phases, each printing one line (or block) before the last line:
        cg-schur-coefmg with the gather tables and minres-bj, each within
        0.5 of 361.882 with one cold solve of 16 samples per level converged
        1.0. minres-bj is the longest case (~52 000 MINRES iterations a
-       level-0 solve, 5 to 8 minutes on an H100 with the host's speed for
-       the run and the cold solves); its cold solves are those of the next
-       check: minres-bj against cg-schur on every level of that grid (Q per
+       level-0 solve, 3 to 6 minutes on an H100 with the host's speed for
+       the run); its cold solves are those of the next check: minres-bj
+       against cg-schur on levels MINRES_SCALED_LEVELS of that grid (Q per
        sample to 1e-4, both converged 1.0); then phase 11's ratio and
        splitting anchors on "cg-schur" within 1e-3 of 354.436 / 350.767.
    13b. Full width, one batch per level of the full SPE10 grid at the
@@ -124,6 +124,40 @@ Phases, each printing one line (or block) before the last line:
        both iteration counts) on a mild field (log-std 0.2): on the golden
        field (variance 1) 40 000 MINRES iterations (85 s on an H100) do not
        reach the 2-norm target (PERF.md).
+14. sharded golden MLMC - the golden config (float32, Darcy rtol 1e-5)
+             under an explicit SampleMesh(4) in this one process, global
+             batch 512: each level's per-sample q and qc equal the
+             concatenation of four unsharded level steps at batch 128 keyed
+             fold_in(key, i) (bit for bit, or within SHARD_RTOL relative to
+             max |q|: the line says which); then an adaptive run() with its
+             estimate within 0.25 of 2.56, launches of K1 and K2 printed;
+             then M(w)^{-1} (K1) and K2 against their plain versions on every
+             level at one shard's batch (128), float32.
+             torch.cuda.device_count() is printed; the torch.distributed
+             execution (one shard per rank, all_gather) is covered by the
+             CPU test with two gloo processes only, and the line says so.
+15. unstructured MLMC, agglomerated - the 6-tet unit cube refined 4 times
+             (24 576 tets, 50 688 faces), box sides labelled, agglomerated 4
+             levels deep with coarsening factor 8: cells and faces per level,
+             host setup seconds; UNSTRUCTURED settings (batch 128, float32,
+             minres-coefmg at rtol 1e-5, eff_perm, variance 0.25,
+             correlation length 0.3, 800 iterations: the defaults of
+             examples/unstructured_performance.py). Per level the step of
+             an MLMC batch (eval_pair + solve_fwd_pair; the coarsest level
+             one solve): samples/s, mean iterations, converged fraction
+             (at least UNSTRUCTURED_MIN_CONVERGED); then MLMCManager.init_run of two batches per level
+             (consistency < 0.1, finite estimate, K2 launched); one sample's
+             level-0 Q against a float64 scipy spsolve of the same saddle
+             system built on the host from the same w (UNSTRUCTURED_ORACLE_RTOL);
+             K2 against its plain version at (128, 24 576) float32.
+16. unstructured pair step, nested, full width - the cube refined 3 times
+             as the coarsest of a 3-level nested hierarchy (196 608 / 24 576 /
+             3072 tets, ~6e5 Darcy dofs at level 0): the level-0 pair step at
+             batch 32, float32, minres-coefmg: samples/s, iterations,
+             converged fraction (1.0 required), device-busy share (the
+             profiler's kernel time over the synchronized wall of an
+             unprofiled step, device_busy), peak memory; K2 against its
+             plain version at (32, 196 608).
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -158,6 +192,7 @@ result. It also fails if the JAX package or jax was imported.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import math
@@ -237,7 +272,8 @@ RATIO_ANCHOR = dict(ratio=354.436, splitting=350.767, rtol=2e-3)
 # level-0 solve there (its S(1) preconditioner sees nothing of the
 # kinv_ref's contrast): 3.2 to 5.6 minutes for the anchor's run on an H100,
 # with the host's speed, the longest case of the script, and half as much
-# again for its level-0 cold solve (phase_minres_scaled).
+# again for a level-0 cold solve, which phase_minres_scaled no longer makes
+# (MINRES_SCALED_LEVELS).
 SOLVER_CASES = (
     ("cg-schur static MG", dict(name="cg-schur"), None),
     ("cg-schur static MG local scaling", dict(name="cg-schur", local_schur_scaling=True), None),
@@ -266,6 +302,11 @@ MINRES_Q_RTOL = 1e-6  # minres-bj against cg-schur on the 64^3 box, Q per sample
 # QoI carries 4 (level 2) to 4000 (level 0) x the relative residual MINRES
 # stops at (3.9e-8, 6.0e-7 and 4.1e-5 measured on levels 2, 1, 0).
 MINRES_SCALED_Q_RTOL = 1e-4
+# The levels of that comparison. Level 0 (a cold minres-bj solve of 53 201
+# iterations, 95-170 s on an H100, host-bound) was cut to keep the script
+# under ~900 s with the unstructured phases; the scaled anchor's MLMC run
+# under minres-bj still solves level 0 and its estimate is checked.
+MINRES_SCALED_LEVELS = (1, 2)
 # minres-bj against cg-schur on the 64^3 box (float64, batch 4, rtol 1e-9). On
 # the golden field (variance 1) its block-diagonal preconditioner leaves
 # MINRES short of rtol 1e-7 after 40 000 iterations (85 s on an H100, Q
@@ -274,6 +315,29 @@ MINRES_SCALED_Q_RTOL = 1e-4
 MINRES_BOX = dict(refinements=4, batch=4, rtol=1e-9, variance=0.04, maxit=5_000)
 SPE10_DOFS = [4_525_000, 563_580, 71_595]
 SPE10_CELLS = [1_122_000, 138_600, 17_325]
+# Phase 14: shards in one process, global batch, and the agreement of the
+# sharded step with four unsharded steps if not bit for bit (relative to max |q|).
+SHARDS, SHARD_BATCH, SHARD_RTOL = 4, 512, 1e-6
+# Phases 15-16, examples/unstructured_performance.py's defaults.
+UNSTRUCTURED = dict(refine=4, levels=4, coarsening_factor=8, batch=128, rtol=1e-5, maxit=800,
+                    variance=0.25, corlen=0.3, solver="minres-coefmg")
+# Least converged fraction of a level's steps. MINRES (ops/solvers.minres,
+# as the reference's) stops a row whose preconditioned residual estimate met
+# the target but whose 2-norm residual still misses it after three restart
+# cycles, far below the budget: on these agglomerated levels 1-6 % of the
+# samples end so, in float32 and float64 alike, the same samples in both
+# packages (PERF.md, PR 6); the JAX package's run of this configuration
+# recorded 0.99609375 at level 0 too (UNSTRUCTURED_EVIDENCE.json, variants).
+# Its production solver there, hybrid-cg, is ROADMAP item 15c.
+UNSTRUCTURED_MIN_CONVERGED = 0.9
+UNSTRUCTURED_FINE = (24_576, 50_688)  # cells, faces of the cube refined 4 times (6 * 8^4 tets)
+UNSTRUCTURED_SAMPLES = 256  # init_run samples per level: two batches
+UNSTRUCTURED_ORACLE_RTOL = 1e-4  # f32 device Q at rtol 1e-5 against the f64 direct solve
+NESTED = dict(refine=3, levels=3, batch=32, cells=[196_608, 24_576, 3072])
+# Six tets around the main diagonal of the unit cube (corners numbered x
+# fastest, then y, then z): the shape and counts of the reference's
+# cube_tet.mesh, which is not in the repository.
+TET_SPLIT = ((0, 1, 2, 6), (0, 2, 3, 6), (0, 3, 7, 6), (0, 7, 4, 6), (0, 4, 5, 6), (0, 5, 1, 6))
 
 
 def fail(msg: str) -> None:
@@ -1377,10 +1441,10 @@ def scaled_spe10_problem(solver_opts: dict, sampler_cutoff, device):
 
 
 def phase_minres_scaled(device, gpu: str):
-    """minres-bj against cg-schur (static MG, local scaling) on every level
-    of the scaled SPE10 grid: one cold solve of 16 samples each (the
-    canaries of phase_solvers_scaled), the same Q per sample and both
-    converged 1.0."""
+    """minres-bj against cg-schur (static MG, local scaling) on the levels
+    MINRES_SCALED_LEVELS of the scaled SPE10 grid: one cold solve of 16
+    samples each (the canaries of phase_solvers_scaled), the same Q per
+    sample and both converged 1.0."""
     import torch
 
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
@@ -1388,7 +1452,7 @@ def phase_minres_scaled(device, gpu: str):
     probs = [scaled_spe10_problem(opts, None, device)
              for opts in (dict(name="cg-schur", local_schur_scaling=True),
                           dict(name="minres-bj"))]
-    for level in (0, 1, 2):
+    for level in MINRES_SCALED_LEVELS:
         w = probs[0].sampler.eval(level, probs[0].sampler.sample(level, fold_in(PRNGKey(13), level),
                                                                  16))
         (q1, _, i1), (q2, _, i2) = (p.solver.solve_fwd(level, w) for p in probs)
@@ -1732,6 +1796,341 @@ def phase_minres_box(device, gpu: str):
     return launches
 
 
+def rel_to_max(a, b) -> float:
+    """max |a - b| / max |b| in float64 (0 when both are all zero)."""
+    a, b = a.double(), b.double()
+    scale = b.abs().max().item()
+    diff = (a - b).abs().max().item()
+    return diff / scale if scale > 0 else diff
+
+
+def phase_sharded_golden(device, gpu: str):
+    """Phase 14: the golden MLMC under SampleMesh(SHARDS) in one process.
+    Returns (the launches of the adaptive run, path_kernel_checks at one
+    shard's batch)."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.parallel import SampleMesh
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg = ProblemConfig(refinements=2, batch_size=SHARD_BATCH)
+    cfg.darcy_solver.relative_tolerance = 1e-5
+    cfg.output_filename = ""
+    prob = build_problem(cfg, device=device)
+    sharded = MLMCManager(prob.solver, prob.sampler, cfg, sharding=SampleMesh(SHARDS))
+    local = MLMCManager(prob.solver, prob.sampler, cfg, batch_size=SHARD_BATCH // SHARDS)
+    if sharded.level_batch != [SHARD_BATCH] * 3:
+        fail(f"sharded golden: level batches {sharded.level_batch}")
+    for level in range(3):
+        key = fold_in(PRNGKey(21), level)
+        got = sharded._step(level)(key)
+        parts = [local._step(level)(fold_in(key, i)) for i in range(SHARDS)]
+        want = [torch.cat(p) for p in zip(*parts)]
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(rel_to_max(a, b) for a, b in zip(got[:2], want[:2]))
+        agree = "bit for bit" if equal else f"max diff {err:.3e} of max |q| (tol {SHARD_RTOL:g})"
+        print(f"sharded golden level {level}: SampleMesh({SHARDS}) step at batch {SHARD_BATCH} "
+              f"against {SHARDS} unsharded steps at batch {SHARD_BATCH // SHARDS} keyed "
+              f"fold_in(key, i): q, qc and iterations agree {agree}; mean iterations "
+              f"{float(got[2].mean()):.1f} [{gpu}]", flush=True)
+        if got[0].shape != (SHARD_BATCH,) or not torch.isfinite(got[0]).all():
+            fail(f"sharded golden level {level}: q of shape {tuple(got[0].shape)} or not finite")
+        if not equal and not (err <= SHARD_RTOL and torch.equal(got[2], want[2])):
+            fail(f"sharded golden level {level}: the shards differ from the unsharded steps "
+                 f"({err})")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    est = sharded.run()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    cons = [float(c) for c in sharded.consistency[:-1]]
+    print(f"sharded golden MLMC run ({SHARDS} shards in one process): estimate {est:.6f} "
+          f"consistency {cons} samples {sharded.level_nsamples.tolist()} run {dt:.2f} s "
+          f"launches K1 {launches['thomas']} K2 {launches['threefry_normal']}; "
+          f"torch.cuda.device_count() {torch.cuda.device_count()}: the torch.distributed "
+          f"execution (a shard per rank, all_gather) ran only in the CPU test "
+          f"(tests/test_torch_sharding.py, two gloo processes), not here [{gpu}]", flush=True)
+    if not math.isfinite(est) or abs(est - 2.56) >= 0.25:
+        fail(f"sharded golden estimate {est} not within 0.25 of 2.56")
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the sharded golden MLMC run")
+    shard = SHARD_BATCH // SHARDS
+    checks = path_kernel_checks(prob, [shard] * 3, PRNGKey(22), F32_TOL_K1, F32_TOL_K2,
+                                f"sharded golden, one shard (batch {shard})", gpu)
+    return launches, checks
+
+
+def tet_cube(refine: int):
+    """The GeneralMesh of the unit cube cut into six tets (TET_SPLIT), box
+    sides labelled (label_box_boundaries_gm), refined `refine` times."""
+    import numpy as np
+
+    from parelagmc_tpu_torch.fem.simplicial_hierarchy import refine_simplicial
+    from parelagmc_tpu_torch.mesh.mfem_io import GeneralMesh
+    from parelagmc_tpu_torch.unstructured import label_box_boundaries_gm
+
+    verts = np.array([(0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0), (0, 0, 1), (1, 0, 1), (1, 1, 1),
+                      (0, 1, 1)], dtype=np.float64)
+    tets = np.array(TET_SPLIT, dtype=np.int64)
+    faces = np.concatenate([np.delete(tets, i, axis=1) for i in range(4)])
+    uniq, counts = np.unique(np.sort(faces, axis=1), axis=0, return_counts=True)
+    boundary = uniq[counts == 1]
+    gm = GeneralMesh(dim=3, vertices=verts, elements=list(tets),
+                     attributes=np.ones(len(tets), dtype=np.int32),
+                     geom_types=np.full(len(tets), 4, dtype=np.int32), boundary=list(boundary),
+                     boundary_attributes=np.ones(len(boundary), dtype=np.int32))
+    if not label_box_boundaries_gm(gm):
+        fail("tet cube: a boundary face off the box")
+    for _ in range(refine):
+        gm, _ = refine_simplicial(gm)
+    return gm
+
+
+def unstructured_config(levels: int, batch: int):
+    from parelagmc_tpu_torch.problems import ProblemConfig
+
+    u = UNSTRUCTURED
+    cfg = ProblemConfig(refinements=levels - 1, correlation_length=u["corlen"],
+                        variance=u["variance"], batch_size=batch, dtype="float32",
+                        output_filename="", cost_model="dofs")
+    cfg.darcy_solver.name = u["solver"]
+    cfg.darcy_solver.relative_tolerance = u["rtol"]
+    cfg.darcy_solver.max_iterations = u["maxit"]
+    return cfg
+
+
+def unstructured_step(sampler, solver, level: int, batch: int):
+    """key -> (Q - Qc, converged per sample, iterations of the fine and
+    the coarse solve) of one MLMC batch at `level`: the coupled pair through
+    eval_pair and solve_fwd_pair, one solve on the coarsest level."""
+    import torch
+
+    def step(key):
+        xi = sampler.sample(level, key, batch)
+        if level < solver.hierarchy.nlevels - 1:
+            s_f, s_c = sampler.eval_pair(level, xi)
+            q, qc, i_f, i_c = solver.solve_fwd_pair(level, s_f, s_c)
+            return q - qc, i_f.converged & i_c.converged, (i_f.iterations, i_c.iterations)
+        q, _, info = solver.solve_fwd(level, sampler.eval(level, xi))
+        return q, info.converged, (info.iterations,)
+
+    def synced(key):
+        out = step(key)
+        torch.cuda.synchronize()
+        return out
+
+    return synced
+
+
+def time_steps(step, key, reps: int):
+    """(samples/s over `reps` steps after one warm-up step, mean
+    iterations of each solve of a step, converged fraction, the last
+    step's Y)."""
+    from parelagmc_tpu_torch.ops.prng import fold_in
+
+    step(fold_in(key, 999))
+    t0 = time.perf_counter()
+    outs = [step(fold_in(key, i)) for i in range(reps)]
+    dt = time.perf_counter() - t0
+    n = sum(o[0].numel() for o in outs)
+    conv = sum(float(o[1].float().sum()) for o in outs) / n
+    iters = "/".join(f"{sum(o[2][i] for o in outs) / reps:.1f}" for i in range(len(outs[0][2])))
+    return n / dt, iters, conv, outs[-1][0]
+
+
+def timed_call(fn, *args):
+    """(fn(*args), seconds it took)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def scipy_oracle_q(level, solver, w) -> float:
+    """Q of the level's saddle system [[M(w), B^T], [B, 0]] (essential
+    faces eliminated as the device operator does) by a float64 direct solve
+    on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    L = solver._lv[0]
+    ess = L["ess"].cpu().numpy()
+    keep = sp.diags((~ess).astype(np.float64))
+    B = (level.b_csr() @ keep).tocsr()
+    M = keep @ level.mass_csr(w) @ keep + sp.diags(ess.astype(np.float64))
+    A = sp.bmat([[M, B.T], [B, None]], format="csc")
+    x = spla.spsolve(A, L["rhs"].double().cpu().numpy())
+    return float(x @ L["obs"].double().cpu().numpy())
+
+
+def phase_unstructured_agglomerated(device, gpu: str):
+    """Phase 15. Returns (launches of the MLMC run, K2's result at the
+    level-0 draw)."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.fem.agglomeration import build_agglomerated_hierarchy
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.uq import MLMCManager
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver, UnstructuredSPDESampler
+
+    u = UNSTRUCTURED
+    t0 = time.perf_counter()
+    gm = tet_cube(u["refine"])
+    hier = build_agglomerated_hierarchy(gm, u["levels"], coarsening_factor=u["coarsening_factor"])
+    hier_s = time.perf_counter() - t0
+    cells = [int(l.n_s) for l in hier.levels]
+    faces = [int(l.n_u) for l in hier.levels]
+    cfg = unstructured_config(u["levels"], u["batch"])
+    t0 = time.perf_counter()
+    solver = UnstructuredDarcySolver(hier, cfg, torch.float32, device=device)
+    sampler = UnstructuredSPDESampler(hier, cfg, torch.float32, device=device)
+    setup_s = time.perf_counter() - t0
+    dofs = [solver.num_dofs(l) for l in range(u["levels"])]
+    print(f"unstructured agglomerated: cube of 6 tets refined {u['refine']} times, "
+          f"{u['levels']} levels, coarsening factor {u['coarsening_factor']}: cells {cells} "
+          f"faces {faces} Darcy dofs {dofs}; host setup: mesh + hierarchy {hier_s:.2f} s, "
+          f"solver + sampler {setup_s:.2f} s [{gpu}]", flush=True)
+    if (cells[0], faces[0]) != UNSTRUCTURED_FINE or len(cells) != u["levels"]:
+        fail(f"unstructured agglomerated: cells {cells} faces {faces}")
+
+    # The oracle's direct solve (about a minute of one host core) runs in a
+    # thread beside the device work below; scipy releases the interpreter
+    # lock while it factors.
+    key = PRNGKey(31)
+    w = sampler.eval(0, sampler.sample(0, fold_in(key, 77), 1))
+    q_dev, _, oracle_info = solver.solve_fwd(0, w)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    oracle = pool.submit(timed_call, scipy_oracle_q, hier.levels[0], solver,
+                         w[0].double().cpu().numpy())
+    pool.shutdown(wait=False)
+    for level in range(u["levels"]):
+        step = unstructured_step(sampler, solver, level, u["batch"])
+        sps, iters, conv, y = time_steps(step, fold_in(key, level), reps=2)
+        kind = "pair (eval_pair + solve_fwd_pair)" if level < u["levels"] - 1 else "single solve"
+        print(f"unstructured agglomerated level {level} {kind}, batch {u['batch']}, f32, "
+              f"{u['solver']} rtol {u['rtol']:g}: {sps:.1f} samples/s, mean iterations "
+              f"(fine/coarse) {iters}, converged fraction {conv:.4f} (least "
+              f"{UNSTRUCTURED_MIN_CONVERGED}) [{gpu}]", flush=True)
+        if conv < UNSTRUCTURED_MIN_CONVERGED or not torch.isfinite(y).all():
+            fail(f"unstructured agglomerated level {level}: converged {conv}, or Y not finite")
+
+    mgr = MLMCManager(solver, sampler, cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mgr.init_run([UNSTRUCTURED_SAMPLES] * u["levels"])
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    print(mgr.show_me(), flush=True)
+    cons = [float(c) for c in mgr.consistency[:-1]]
+    est = float(mgr.estimate)
+    print(f"unstructured agglomerated MLMC init_run({[UNSTRUCTURED_SAMPLES] * u['levels']}): "
+          f"estimate {est:.6f} consistency {cons} E[Q] {mgr.eQ.tolist()} mean iterations "
+          f"{mgr.solver_iterations.tolist()} run {run_s:.2f} s launches {launches} [{gpu}]",
+          flush=True)
+    if not math.isfinite(est) or not all(c < 0.1 for c in cons):
+        fail(f"unstructured agglomerated MLMC: estimate {est}, consistency {cons}")
+    if launches["threefry_normal"] <= 0:
+        fail("kernel threefry_normal was not launched by the unstructured MLMC run")
+
+    q_host, host_s = oracle.result()
+    rel = abs(float(q_dev[0]) - q_host) / abs(q_host)
+    print(f"unstructured agglomerated oracle, level 0, one sample: device f32 Q {float(q_dev[0]):.7g} "
+          f"({oracle_info.iterations} iterations) against scipy spsolve f64 {q_host:.7g}: rel err "
+          f"{rel:.2e} (tol {UNSTRUCTURED_ORACLE_RTOL:g}; spsolve {host_s:.1f} s in a thread beside "
+          f"the steps above) [{gpu}]", flush=True)
+    if not rel <= UNSTRUCTURED_ORACLE_RTOL:
+        fail(f"unstructured oracle: device Q off the direct solve's by {rel}")
+
+    shape = (u["batch"], cells[0])
+    _, k2 = k2_check(fold_in(key, 5), shape, torch.float32, device, F32_TOL_K2,
+                     f"unstructured {shape}")
+    print(k2_line(f"unstructured agglomerated level 0: K2 noise {shape} float32", k2, F32_TOL_K2,
+                  gpu), flush=True)
+    return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape))
+
+
+def device_busy(fn, wall_ms: float):
+    """(busy share, device ms, kernels) of one call of fn: the kernels'
+    device time recorded by torch.profiler (CUDA activity alone, so that a
+    call of ~10^5 kernels stays cheap to trace; a lower bound if the
+    profiler drops events) over `wall_ms`, the synchronized host wall of an
+    unprofiled call. (None, None, None) if no device event was recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device = sum(e.self_device_time_total for e in kern) / 1e3
+    if device <= 0.0:
+        return None, None, None
+    return device / wall_ms, device, sum(e.count for e in kern)
+
+
+def phase_unstructured_nested(device, gpu: str):
+    """Phase 16. Returns (launches of one pair step, K2's result at its
+    draw)."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver, UnstructuredSPDESampler
+
+    n = NESTED
+    t0 = time.perf_counter()
+    hier = build_simplicial_hierarchy(tet_cube(n["refine"]), n["levels"])
+    hier_s = time.perf_counter() - t0
+    cells = [int(l.n_s) for l in hier.levels]
+    if cells != n["cells"]:
+        fail(f"unstructured nested: cells {cells}")
+    cfg = unstructured_config(n["levels"], n["batch"])
+    t0 = time.perf_counter()
+    solver = UnstructuredDarcySolver(hier, cfg, torch.float32, device=device)
+    sampler = UnstructuredSPDESampler(hier, cfg, torch.float32, device=device)
+    setup_s = time.perf_counter() - t0
+    step = unstructured_step(sampler, solver, 0, n["batch"])
+    key = PRNGKey(41)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    step(key)  # also the warm-up of the timed step
+    launches = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
+    y, converged, iters = step(fold_in(key, 1))
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    conv = float(converged.float().mean())
+    share, device_ms, nkern = device_busy(lambda: step(fold_in(key, 1)), wall_ms)
+    busy = "not measured (the profiler recorded no device event)" if share is None else (
+        f"{100 * share:.1f}% ({device_ms:.1f} device ms in {wall_ms:.1f} wall ms, {nkern} "
+        f"kernels)")
+    print(f"unstructured nested level-0 pair step: cells {cells}, Darcy dofs "
+          f"{[solver.num_dofs(l) for l in range(n['levels'])]}, batch {n['batch']}, f32, "
+          f"{UNSTRUCTURED['solver']} rtol {UNSTRUCTURED['rtol']:g}; host setup: mesh + hierarchy "
+          f"{hier_s:.2f} s, solver + sampler {setup_s:.2f} s; {1e3 * n['batch'] / wall_ms:.2f} "
+          f"samples/s, iterations (fine/coarse) {iters[0]}/{iters[1]}, converged fraction "
+          f"{conv:.4f}, device busy {busy}, peak memory {peak:.2f} GB, launches of one step "
+          f"{launches} [{gpu}]", flush=True)
+    if conv < 1.0 or not torch.isfinite(y).all():
+        fail(f"unstructured nested pair step: converged {conv}, or Y not finite")
+    if launches["threefry_normal"] <= 0:
+        fail("kernel threefry_normal was not launched by the nested unstructured pair step")
+    shape = (n["batch"], cells[0])
+    _, k2 = k2_check(fold_in(key, 5), shape, torch.float32, device, F32_TOL_K2,
+                     f"unstructured {shape}")
+    print(k2_line(f"unstructured nested level 0: K2 noise {shape} float32", k2, F32_TOL_K2, gpu),
+          flush=True)
+    return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape))
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -1774,6 +2173,7 @@ def main() -> None:
     phase_k2(device, gpu)
     k3, k3_launches = phase_k3(device, gpu)
     golden = phase_mlmc(device, gpu)
+    sharded, sharded_checks = phase_sharded_golden(device, gpu)
     phase_bench(device, gpu)
     phase_64(device, gpu)
     anchor, _ = phase_spe10_anchor(device, gpu)
@@ -1793,16 +2193,22 @@ def main() -> None:
     ratio_cg_schur = phase_ratio_anchor(device, gpu, solver="cg-schur",
                                         rtol=RATIO_ANCHOR_CG_SCHUR_RTOL)
     minres_box = phase_minres_box(device, gpu)
+    agglomerated, k2_agglomerated = phase_unstructured_agglomerated(device, gpu)
+    nested, k2_nested = phase_unstructured_nested(device, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
-    # launches: this slice's main path, the ratio run on the full SPE10
-    # grid (each path ran with the counts set to 0 just before it; all are
-    # listed). The numbers of thomas and threefry_normal are at that grid's
+    # launches: the ratio run on the full SPE10 grid; launches_by_path
+    # lists every path, this slice's (sharded_golden_mlmc,
+    # unstructured_agglomerated_mlmc, unstructured_nested_pair_step)
+    # included, each run with the counts set to 0 just before it. The numbers of thomas and threefry_normal are at that grid's
     # shapes, taken in the full-grid MLMC phase:
     # max_abs_err over its three levels; ms, plain_ms, bound_ms and
     # library_ms at level 0 (thomas: one M(w)^{-1} apply, three launches).
-    by_path = lambda k: {"golden_mlmc": golden[k], "spe10_anchor": anchor[k],
+    by_path = lambda k: {"golden_mlmc": golden[k], "sharded_golden_mlmc": sharded[k],
+                         "unstructured_agglomerated_mlmc": agglomerated[k],
+                         "unstructured_nested_pair_step": nested[k],
+                         "spe10_anchor": anchor[k],
                          "spe10_full_grid": full[k], "ratio_anchor": ratio_anchor[k],
                          "ratio_full_grid": ratio_full[k],
                          **{f"sampler_{name}_mlmc": n[k] for name, n in samplers.items()},
@@ -1823,6 +2229,8 @@ def main() -> None:
          "launches_by_path": {**by_path("thomas"), **{
              f"full_grid_{name}_steps": n for name, n in full_solvers.items()}},
          **{k: k1[k] for k in fields}, "bound_by": "bytes",
+         # M(w)^{-1} on the golden level-0 tables at one shard's batch.
+         "sharded_golden_shard": {k: sharded_checks["thomas"][k] for k in fields},
          # Several right-hand sides per table set: R = 2 on the level-0
          # M(w)^{-1} tables (batch 8), R = batch on the static MG's line
          # tables of the level-1 grid.
@@ -1839,7 +2247,13 @@ def main() -> None:
          **{k: k2[k] for k in fields}, "device_ms": k2["device_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
          "library_call": "torch.randn (Philox: another generator, not jax.random's values)",
-         "measured_on": on_path},
+         "measured_on": on_path,
+         "sharded_golden_shard": {k: sharded_checks["threefry_normal"][k]
+                                  for k in fields + ("device_ms", "library_ms")},
+         # The same keys at the draws of the unstructured phases (level 0).
+         "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                          for r in (k2_agglomerated, k2_nested)]},
         # No path of either package draws uniforms: K3's path is its entry
         # point sample_uniforms, driven in phase 7 with the counts at 0.
         {"name": "threefry_uniform", "route": "cuda",

@@ -2,8 +2,8 @@
 
 The JAX package `parelagmc_tpu/` is the reference; this package mirrors its
 module layout (config.py, mesh/, fem/, ops/, samplers/, physics/, uq/,
-utils/, problems.py) so that every counterpart is found under the same
-path. It imports torch and nothing of jax or of the JAX package: the
+parallel/, utils/, problems.py, unstructured.py) so that every counterpart
+is found under the same path. It imports torch and nothing of jax or of the JAX package: the
 host-side setup (config, mesh, FEM assembly, hierarchies, Galerkin blocks)
 is the port's own numpy copy of what it calls from the reference, and the
 few host build functions that live in jax-importing modules there are
@@ -22,9 +22,11 @@ version beside it:
   reproduce jax.random's CPU stream bit for bit.
 
 Slices covered so far: the golden MLMC path (box mesh, SPDE sampler,
-cg-schur Darcy solver, MLMC manager) and the SPE10-scale structured path
-(cg-schur-coefmg, kinv_ref, adjoint QoI), plus K3 (uniform noise). See
-ROADMAP.md for what is left.
+cg-schur Darcy solver, MLMC manager), the SPE10-scale structured path
+(cg-schur-coefmg, kinv_ref, adjoint QoI), K3 (uniform noise), the other
+structured samplers and Darcy solvers, the Bayesian ratio managers, sample
+sharding (parallel/sharding.py) and MLMC on simplicial meshes, nested or
+agglomerated (unstructured.py). See ROADMAP.md for what is left.
 """
 
 __version__ = "0.1.0"

@@ -4,15 +4,26 @@ Duck-typed: they read the JAX objects' fields and call np.asarray on their
 arrays, so this module imports no jax. The tests use them to hold the
 port's own build functions against the reference's arrays, and to run both
 packages on identical operators. `device` None means cuda:0, as at every
-entry point of the port.
+entry point of the port. The unstructured host records (GeneralMesh,
+SimplicialLevel, AgglomeratedLevel, SimplicialHierarchy) convert field by
+field into the port's dataclasses of the same names; `host_record_copy`
+does the same into any dataclass, so a test can hand the JAX package a
+hierarchy the port built.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.fem.agglomeration import AgglomeratedLevel
+from parelagmc_tpu_torch.fem.simplicial import SimplicialLevel
+from parelagmc_tpu_torch.fem.simplicial_hierarchy import SimplicialHierarchy
+from parelagmc_tpu_torch.mesh.mfem_io import GeneralMesh
 from parelagmc_tpu_torch.ops import coef_multigrid as tcmg
 from parelagmc_tpu_torch.ops import multigrid as tmg
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import StructCoefMG, StructMGLevel
@@ -204,3 +215,43 @@ def bayes_obs_from_jax(jbip, dtype=torch.float64, device=None):
     port tensors."""
     g_obs = [_t(g, dtype, device) for g in jbip.g_obs]
     return g_obs, (None if jbip.G_obs is None else _t(jbip.G_obs, dtype, device))
+
+
+def host_record_copy(obj, cls, **override):
+    """`cls` (a dataclass) with the fields of `obj` of the same names:
+    arrays copied with np.array, lists of arrays element by element,
+    sparse matrices as CSR copies; `override` replaces fields."""
+    def copy(v):
+        if sp.issparse(v):
+            return sp.csr_matrix(v, copy=True)
+        if isinstance(v, list):
+            return [copy(x) for x in v]
+        if isinstance(v, (np.ndarray, np.generic)):
+            return np.array(v)
+        return v
+
+    kw = {f.name: copy(getattr(obj, f.name)) for f in dataclasses.fields(cls)
+          if f.name not in override}
+    return cls(**kw, **override)
+
+
+def general_mesh_from_jax(gm) -> GeneralMesh:
+    """parelagmc_tpu.mesh.mfem_io.GeneralMesh -> port GeneralMesh."""
+    return host_record_copy(gm, GeneralMesh)
+
+
+def simplicial_level_from_jax(level):
+    """A simplicial level (SimplicialLevel, with its mesh) or an
+    agglomerated one (AgglomeratedLevel, no mesh) of the JAX package ->
+    the port's class of the same name."""
+    if hasattr(level, "mesh"):
+        return host_record_copy(level, SimplicialLevel, mesh=general_mesh_from_jax(level.mesh))
+    return host_record_copy(level, AgglomeratedLevel)
+
+
+def simplicial_hierarchy_from_jax(h) -> SimplicialHierarchy:
+    """parelagmc_tpu.fem.simplicial_hierarchy.SimplicialHierarchy (nested
+    or agglomerated) -> port SimplicialHierarchy: levels, parent maps and
+    RT prolongators."""
+    return host_record_copy(h, SimplicialHierarchy,
+                            levels=[simplicial_level_from_jax(l) for l in h.levels])

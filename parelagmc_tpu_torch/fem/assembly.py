@@ -31,7 +31,8 @@ tests against dense quadrature.)
 
 The port's own copy of parelagmc_tpu/fem/assembly.py (host-side numpy and scipy, as
 there): the port imports nothing of the JAX package. It keeps only
-what the port calls (no ELL packing, no SPDE operator).
+what the port calls: `pack_ell` (the simplicial and agglomerated levels'
+mass ELL) and the mixed level, without the SPDE operator.
 """
 
 from __future__ import annotations
@@ -43,6 +44,50 @@ import numpy as np
 import scipy.sparse as sp
 
 from parelagmc_tpu_torch.mesh.structured import StructuredMesh
+
+
+def pack_ell(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    cells: Optional[np.ndarray] = None,
+    width: Optional[int] = None,
+) -> Tuple[np.ndarray, ...]:
+    """Pack COO triplets (+ optional per-entry cell index) into padded ELL.
+
+    Duplicate (row, col) entries are kept as separate slots (the device
+    gather-sum adds them), so no merging pass is needed. Padding slots have
+    col = 0, val = 0 (and cell = 0).
+
+    Returns (ell_cols, ell_vals[, ell_cells]) with shape (n_rows, width).
+    """
+    rows = np.asarray(rows, dtype=np.int64).ravel()
+    cols = np.asarray(cols, dtype=np.int64).ravel()
+    vals = np.asarray(vals, dtype=np.float64).ravel()
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if cells is not None:
+        cells = np.asarray(cells, dtype=np.int64).ravel()[order]
+    counts = np.bincount(rows, minlength=n_rows)
+    w = int(counts.max()) if counts.size else 0
+    if width is not None:
+        if w > width:
+            raise ValueError(f"ELL width {width} < max row nnz {w}")
+        w = width
+    # Slot index of each entry within its row.
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(rows.size) - starts[rows]
+    ell_cols = np.zeros((n_rows, w), dtype=np.int32)
+    ell_vals = np.zeros((n_rows, w), dtype=np.float64)
+    ell_cols[rows, slot] = cols
+    ell_vals[rows, slot] = vals
+    out = [ell_cols, ell_vals]
+    if cells is not None:
+        ell_cells = np.zeros((n_rows, w), dtype=np.int32)
+        ell_cells[rows, slot] = cells
+        out.append(ell_cells)
+    return tuple(out)
 
 
 @dataclass

@@ -44,7 +44,7 @@ one read of the sample's tables - and `meanfield_x0` starts every cold
 solve from a cached w = 1 solution.
 
 Still raising NotImplementedError: spatial_shards (ROADMAP.md Queue 1,
-item 14).
+item 14b).
 
 CPU parity tests: tests/test_torch_darcy.py, tests/test_torch_spe10.py
 (every solver name against the JAX package, `device="cpu"`); on the card,
@@ -230,7 +230,7 @@ def _check_config(config: ProblemConfig) -> None:
     if cfg.name not in _SOLVERS:
         raise ValueError(f"darcy solver {cfg.name!r}: expected one of {_SOLVERS}")
     if int(getattr(cfg, "spatial_shards", 0) or 0) > 1:
-        raise NotImplementedError("spatial_shards " + _ROADMAP.format(item=14))
+        raise NotImplementedError("spatial_shards " + _ROADMAP.format(item="14b"))
     pdt = getattr(cfg, "coefmg_prec_dtype", "")
     if pdt and pdt not in _PREC_DTYPES:
         raise ValueError(f"coefmg_prec_dtype {pdt!r}: expected one of {sorted(_PREC_DTYPES)}")

@@ -85,7 +85,7 @@ def fine_mesh_spec(cfg: ProblemConfig):
     if cfg.mesh == "egg":
         return tuple(EGG_NCELLS), list(EGG_SPACING)
     if cfg.mesh.endswith(".mesh"):
-        raise _not_ported(f"mesh file {cfg.mesh!r}", 15)
+        raise _not_ported(f"mesh file {cfg.mesh!r}", "15d")
     raise ValueError(f"unknown mesh '{cfg.mesh}'")
 
 

@@ -23,9 +23,16 @@ that total budget, n * max_iterations.
 `save_state`/`load_state`/`resume` round-trip the estimator state (moment
 sums, sample counts, key counter, MSE target, cost timers and ledger)
 through one .npz file, so an interrupted adaptive run continues with the
-same key stream. `MCManager` is the one-level special case.
+same key stream; a checkpoint of the JAX package's managers loads too (it
+carries no iteration sums, which then start at zero). `MCManager` is the
+one-level special case.
 
-Not ported yet: sample sharding (ROADMAP.md Queue 1, item 14).
+Sample sharding (`sharding=`, or config.sample_shards through
+parallel.sample_mesh_from_config): every batch is rounded up to a multiple
+of the shard count and each level step runs per shard (SampleMesh.shard_step:
+shard i keyed fold_in(key, i), local batch batch // n). Each step returns
+its Krylov iterations per sample (each shard's count broadcast over its
+local batch), so the iteration sums mean what the reference's do.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+from parelagmc_tpu_torch.parallel.sharding import SampleMesh, sample_mesh_from_config
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager, block_until_ready
 
 # Moment-sum columns (reference: MLMC_Manager.hpp:65 enum).
@@ -56,30 +64,68 @@ def _batch_trace() -> bool:
     }
 
 
+def _device_of(solver) -> torch.device:
+    return torch.device(getattr(solver, "device", "cpu"))
+
+
+def check_sharding(sharding: Optional[SampleMesh], config, device) -> Optional[SampleMesh]:
+    """The manager's SampleMesh: `sharding`, else config.sample_shards's.
+    Sample sharding does not nest around darcy_solver.spatial_shards."""
+    if sharding is None:
+        sharding = sample_mesh_from_config(config, device)
+    if sharding is not None and int(
+            getattr(config.darcy_solver, "spatial_shards", 0) or 0) > 1:
+        raise ValueError(
+            "manager-level sample sharding (SampleMesh) cannot nest around "
+            "darcy_solver.spatial_shards; pass sharding=None")
+    return sharding
+
+
+def level_batches(config, nlevels: int, batch_size: Optional[int],
+                  sharding: Optional[SampleMesh]):
+    """(batch, per-level batches, finest first): batch_size or
+    config.batch_size, or config.batch_size_per_level; each rounded up to a
+    multiple of the shard count."""
+    batch = int(batch_size if batch_size is not None else config.batch_size)
+    level_batch = [batch] * nlevels
+    bpl = getattr(config, "batch_size_per_level", None)
+    if bpl:
+        if len(bpl) != nlevels:
+            raise ValueError(
+                f"batch_size_per_level has {len(bpl)} entries for {nlevels} levels")
+        level_batch = [int(b) for b in bpl]
+    if sharding is not None:
+        batch = sharding.round_batch(batch)
+        level_batch = [sharding.round_batch(b) for b in level_batch]
+    return batch, level_batch
+
+
+def eval_pair(sampler, level: int, xi: torch.Tensor):
+    """Coupled (fine, coarse) fields with shared noise: the sampler's
+    eval_pair where it has one, else two evaluations."""
+    if hasattr(sampler, "eval_pair"):
+        return sampler.eval_pair(level, xi)
+    return sampler.eval(level, xi), sampler.eval(level + 1, xi, xi_level=level)
+
+
+def per_sample(iterations: int, q: torch.Tensor) -> torch.Tensor:
+    """A solve's batch-global iteration count broadcast over its samples."""
+    return torch.full(q.shape, float(iterations), dtype=torch.float64, device=q.device)
+
+
 class MLMCManager:
     """Adaptive multilevel Monte Carlo estimator over batched level steps."""
 
     def __init__(self, solver, sampler, config: ProblemConfig,
-                 nlevels: Optional[int] = None, batch_size: Optional[int] = None):
-        if int(getattr(config, "sample_shards", 0) or 0) != 0:
-            raise NotImplementedError(
-                "sample_shards: sample sharding is not ported yet "
-                "(ROADMAP.md Queue 1, item 14)"
-            )
+                 nlevels: Optional[int] = None, batch_size: Optional[int] = None,
+                 sharding: Optional[SampleMesh] = None):
         self.solver = solver
         self.sampler = sampler
         self.config = config
+        self.sharding = check_sharding(sharding, config, _device_of(solver))
         self.nlevels = int(nlevels if nlevels is not None else config.nlevels)
-        self.batch = int(batch_size if batch_size is not None else config.batch_size)
-        self.level_batch = [self.batch] * self.nlevels
-        bpl = getattr(config, "batch_size_per_level", None)
-        if bpl:
-            if len(bpl) != self.nlevels:
-                raise ValueError(
-                    f"batch_size_per_level has {len(bpl)} entries for "
-                    f"{self.nlevels} levels"
-                )
-            self.level_batch = [int(b) for b in bpl]
+        self.batch, self.level_batch = level_batches(
+            config, self.nlevels, batch_size, self.sharding)
         self.eps2 = float(config.mse)
         self.auto_eps2 = self.eps2 < 0
         if self.auto_eps2:
@@ -131,32 +177,37 @@ class MLMCManager:
 
     # -- level steps -------------------------------------------------------------
     def _step(self, level: int) -> Callable:
-        """Batched estimator step for `level`: key -> (q, qc, iterations)."""
+        """Batched estimator step for `level`: key -> (q, qc, iterations per
+        sample)."""
         if level in self._steps:
             return self._steps[level]
         sampler, solver = self.sampler, self.solver
         batch = self.level_batch[level]
+        if self.sharding is not None:
+            batch = batch // self.sharding.n_devices
         if level == self.nlevels - 1:
 
             def step(key):
                 xi = sampler.sample(level, key, batch)
                 s = sampler.eval(level, xi)
                 q, _, info = solver.solve_fwd(level, s)
-                return q, torch.zeros_like(q), info.iterations
+                return q, torch.zeros_like(q), per_sample(info.iterations, q)
 
         else:
             budget = self.pair_budget
 
             # Coarse-then-fine with the warm-started fine solve (the
-            # reference's Eval(l+1) -> Eval(l, ..., use_init) pattern).
+            # reference's Eval(l+1) -> Eval(l, ..., use_init) pattern); a
+            # sampler's eval_pair warm-starts its own fine solve too.
             def step(key):
                 xi = sampler.sample(level, key, batch)
-                s_f = sampler.eval(level, xi)
-                s_c = sampler.eval(level + 1, xi, xi_level=level)
+                s_f, s_c = eval_pair(sampler, level, xi)
                 q, qc, info_f, info_c = solver.solve_fwd_pair(level, s_f, s_c,
                                                               max_iters=budget)
-                return q, qc, info_f.iterations + info_c.iterations
+                return q, qc, per_sample(info_f.iterations + info_c.iterations, q)
 
+        if self.sharding is not None:
+            step = self.sharding.shard_step(step)
         self._steps[level] = step
         return step
 
@@ -174,8 +225,7 @@ class MLMCManager:
         """Build and load the CUDA kernels before any cost timer runs."""
         if self._device_ready:
             return
-        device = getattr(self.solver, "device", torch.device("cpu"))
-        if torch.device(device).type == "cuda":
+        if _device_of(self.solver).type == "cuda":
             from parelagmc_tpu_torch import kernels
 
             kernels.library()
@@ -216,13 +266,14 @@ class MLMCManager:
                 if _batch_trace():
                     print(
                         f"# batch-trace L{level} "
-                        f"dt={TimeManager.last(timer_name):.3f}s iters={iters} "
+                        f"dt={TimeManager.last(timer_name):.3f}s "
+                        f"iters={float(iters.max()):.0f} "
                         f"t={time.strftime('%H:%M:%S')}",
                         file=sys.stderr,
                     )
                 q = q.detach().to("cpu", torch.float64).numpy()
                 qc = qc.detach().to("cpu", torch.float64).numpy()
-                self._iter_sums[level] += float(iters) * q.size
+                self._iter_sums[level] += float(iters.sum())
                 self._cost_ledger.add_batch(level, TimeManager.last(timer_name), q.size)
                 y = q - qc
                 cost_dofs = self.M[level] + (
@@ -397,7 +448,9 @@ class MLMCManager:
         self.level_nsamples_missing = data["level_nsamples_missing"]
         self._counter = int(data["counter"])
         self.eps2 = float(data["eps2"])
-        self._iter_sums = data["iter_sums"]
+        # A checkpoint of the JAX package carries no iteration sums.
+        self._iter_sums = (data["iter_sums"] if "iter_sums" in data.files
+                           else np.zeros(self.nlevels))
         for l, t in enumerate(data["cost_elapsed"]):
             TimeManager.get_watch(f"MC Sample -- Level {l}").elapsed = float(t)
         self._cost_ledger.load(data)
@@ -461,8 +514,10 @@ class MCManager(MLMCManager):
     the target MSE (reference: src/MC_Manager.cpp): the one-level special
     case of the MLMC machinery (Y == Q, zero bias estimate)."""
 
-    def __init__(self, solver, sampler, config: ProblemConfig, batch_size=None):
-        super().__init__(solver, sampler, config, nlevels=1, batch_size=batch_size)
+    def __init__(self, solver, sampler, config: ProblemConfig, batch_size=None,
+                 sharding: Optional[SampleMesh] = None):
+        super().__init__(solver, sampler, config, nlevels=1, batch_size=batch_size,
+                         sharding=sharding)
 
     def show_me(self) -> str:
         return super().show_me().replace("MLMC Manager", "SLMC Manager")

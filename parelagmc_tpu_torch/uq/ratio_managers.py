@@ -27,7 +27,11 @@ max_iterations * solve_segments, the rule of MLMCManager.pair_budget; the
 reference gives the ratio solves max_iterations alone, so the two differ
 only on a sample that has not converged by then.
 
-Not ported yet: sample sharding (ROADMAP.md Queue 1, item 14).
+Sample sharding (`sharding=` or config.sample_shards) follows MLMCManager:
+batches rounded up to a multiple of the shard count, and the step run per
+shard, the shard's fold_in(key, i) taken before the step's own split into
+the Z and R keys, as the reference's sharded streams do. The coupled prior
+fields come from the sampler's eval_pair where it has one.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in, split
+from parelagmc_tpu_torch.parallel.sharding import SampleMesh
 from parelagmc_tpu_torch.uq.bayes import BayesianInverseProblem
+from parelagmc_tpu_torch.uq.managers import check_sharding, eval_pair, level_batches
 from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager, block_until_ready
 
@@ -60,26 +66,14 @@ class BayesRatioManager:
 
     def __init__(self, problem: BayesianInverseProblem, config: ProblemConfig,
                  nlevels: Optional[int] = None, splitting: bool = False,
-                 batch_size: Optional[int] = None):
-        if int(getattr(config, "sample_shards", 0) or 0) != 0:
-            raise NotImplementedError(
-                "sample_shards: sample sharding is not ported yet "
-                "(ROADMAP.md Queue 1, item 14)"
-            )
+                 batch_size: Optional[int] = None, sharding: Optional[SampleMesh] = None):
         self.problem = problem
         self.config = config
         self.splitting = bool(splitting)
+        self.sharding = check_sharding(sharding, config, torch.device(problem.device))
         self.nlevels = int(nlevels if nlevels is not None else problem.nlevels)
-        self.batch = int(batch_size if batch_size is not None else config.batch_size)
-        self.level_batch = [self.batch] * self.nlevels
-        bpl = getattr(config, "batch_size_per_level", None)
-        if bpl:
-            if len(bpl) != self.nlevels:
-                raise ValueError(
-                    f"batch_size_per_level has {len(bpl)} entries for "
-                    f"{self.nlevels} levels"
-                )
-            self.level_batch = [int(b) for b in bpl]
+        self.batch, self.level_batch = level_batches(
+            config, self.nlevels, batch_size, self.sharding)
         self.eps2 = float(config.mse)
         self.auto_eps2 = self.eps2 < 0
         if self.auto_eps2:
@@ -136,6 +130,8 @@ class BayesRatioManager:
         prob = self.problem
         prior = prob.prior
         batch = self.level_batch[level]
+        if self.sharding is not None:
+            batch = batch // self.sharding.n_devices
         budget = self.solve_budget
         if level == self.nlevels - 1:
 
@@ -150,21 +146,20 @@ class BayesRatioManager:
 
         else:
 
-            def eval_coupled(xi):
-                return prior.eval(level, xi), prior.eval(level + 1, xi, xi_level=level)
-
             def step(key):
                 kz, kr = split(key)
                 zxi = prior.sample(level, kz, batch)
                 xi = prior.sample(level, kr, batch)
-                kz_f, kz_c = eval_coupled(zxi)
-                kr_f, kr_c = eval_coupled(xi)
+                kz_f, kz_c = eval_pair(prior, level, zxi)
+                kr_f, kr_c = eval_pair(prior, level, xi)
                 z, _ = prob.likelihood(level, kz_f, max_iters=budget)
                 zc, _ = prob.likelihood(level + 1, kz_c, max_iters=budget)
                 r, _ = prob.compute_R(level, kr_f, max_iters=budget)
                 rc, _ = prob.compute_R(level + 1, kr_c, max_iters=budget)
                 return r, rc, z, zc
 
+        if self.sharding is not None:
+            step = self.sharding.shard_step(step)
         self._steps[level] = step
         return step
 
@@ -446,6 +441,7 @@ class BayesRatioManager:
 class SLBayesRatioManager(BayesRatioManager):
     """Single-level ratio estimator (reference SL_BayesRatio_Manager.hpp)."""
 
-    def __init__(self, problem, config, splitting=False, batch_size=None):
+    def __init__(self, problem, config, splitting=False, batch_size=None,
+                 sharding: Optional[SampleMesh] = None):
         super().__init__(problem, config, nlevels=1, splitting=splitting,
-                         batch_size=batch_size)
+                         batch_size=batch_size, sharding=sharding)

@@ -251,10 +251,13 @@ def test_ratio_manager_generates_missing_data_and_guards_zero_likelihoods(tmp_pa
 
 
 def test_ratio_manager_refuses_sample_sharding(tmp_path):
+    """Two sample shards on the CPU's one visible device raise ValueError,
+    the reference's config rule (tests/test_torch_sharding.py runs the
+    sharded ratio managers)."""
     cfg = make_config(tmp_path, nlevels=1)
     _, bip = port_problem(cfg)
     sharded = port_config(dataclasses.replace(cfg, sample_shards=2))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="sample_shards=2 but only 1 device"):
         BayesRatioManager(bip, sharded)
     with pytest.raises(ValueError, match="batch_size_per_level"):
         BayesRatioManager(bip, port_config(dataclasses.replace(cfg, batch_size_per_level=[4, 4])))

@@ -2,17 +2,22 @@
 managers): a resumed run continues the key counter and equals the
 uninterrupted one to 1e-12; seed and estimator-kind mismatches raise. And
 MCManager, the one-level special case, against the JAX package's MCManager
-on one stream. CPU, float64, the configurations of tests/test_checkpoint.py
-and tests/test_bayes.py:151-196."""
+on one stream. Checkpoints cross the packages both ways: the JAX
+package's load in the port and resume to its own resumed estimate, and
+the port's in the JAX package. CPU, float64, the configurations of
+tests/test_checkpoint.py and tests/test_bayes.py:151-196."""
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CPU, port_config
+from _torch_parity import CPU, port_config, to_np
 from parelagmc_tpu.config import ProblemConfig
 from parelagmc_tpu.problems import build_problem as jax_build_problem
+from parelagmc_tpu.uq import BayesianInverseProblem as JaxBIP
+from parelagmc_tpu.uq import BayesRatioManager as JaxRatioManager
 from parelagmc_tpu.uq import MCManager as JaxMCManager
+from parelagmc_tpu.uq import MLMCManager as JaxMLMCManager
 from parelagmc_tpu.utils.timing import TimeManager as JaxTimeManager
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.uq import (
@@ -177,3 +182,79 @@ def test_mc_manager_matches_jax(tmp_path):
     np.testing.assert_allclose(mgr.eQ, mgr.eY, rtol=0)  # Y == Q on one level
     assert "SLMC Manager" in mgr.show_me() and "MLMC Manager" not in mgr.show_me()
     assert torch.device(prob.device) == CPU
+
+
+# -- checkpoints across the two packages -----------------------------------------
+
+
+def _jax_and_port_mlmc(tmp_path, tag):
+    cfg = ProblemConfig(ncells=(2, 2, 2), lengths=(2.0, 2.0, 2.0), refinements=1,
+                        dtype="float64", mse=4e-4, batch_size=16, initial_samples=16, seed=7,
+                        cost_model="dofs", variance=0.25,
+                        output_filename=str(tmp_path / f"{tag}.dat"))
+    cfg.darcy_solver.relative_tolerance = 1e-10
+    jprob = jax_build_problem(cfg)
+    tcfg = port_config(cfg)
+    prob = build_problem(tcfg, device=CPU)
+    return (lambda: JaxMLMCManager(jprob.solver, jprob.sampler, cfg),
+            lambda: MLMCManager(prob.solver, prob.sampler, tcfg))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_loads_across_packages(tmp_path, writer):
+    """A checkpoint the JAX package's MLMCManager.save_state wrote (it holds
+    no iteration sums) loads in the port and resumes to the JAX package's
+    own resumed estimate; and a port checkpoint resumes in the JAX package."""
+    JaxTimeManager.reset()
+    TimeManager.reset()
+    jax_mgr, port_mgr = _jax_and_port_mlmc(tmp_path, writer)
+    first = jax_mgr() if writer == "jax" else port_mgr()
+    first.init_run(first.init_nsamples)
+    ckpt = str(tmp_path / "cross.npz")
+    first.save_state(ckpt)
+    first.close()
+    if writer == "jax":
+        assert "iter_sums" not in np.load(ckpt).files
+    JaxTimeManager.reset()
+    TimeManager.reset()
+    jm, tm = jax_mgr(), port_mgr()
+    ref, est = jm.resume(ckpt), tm.resume(ckpt)
+    assert tm._counter == jm._counter > 2  # the adaptive loop ran past the first round
+    np.testing.assert_array_equal(tm.level_nsamples, jm.level_nsamples)
+    np.testing.assert_allclose(est, ref, rtol=1e-9)
+    np.testing.assert_allclose(tm.sums, jm.sums, rtol=1e-8, atol=1e-12)
+    jm.close()
+    tm.close()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_ratio_checkpoint_loads_across_packages(tmp_path, writer):
+    """The same across the packages for the ratio and splitting managers:
+    every key the port's BayesRatioManager.load_state reads is one the JAX
+    package's save_state writes, observation data included."""
+    JaxTimeManager.reset()
+    TimeManager.reset()
+    cfg = ProblemConfig(ncells=(2, 2, 2), lengths=(2.0, 2.0, 2.0), refinements=1,
+                        dtype="float64", batch_size=16, initial_samples=16, mse=2e-3,
+                        variance=0.25, cost_model="dofs", output_filename="",
+                        bayes_ref_data_file=str(tmp_path / "ref_obs.dat"))
+    cfg.darcy_solver.relative_tolerance = 1e-10
+    jprob = jax_build_problem(cfg)
+    jbip = JaxBIP(jprob.solver, jprob.sampler, jprob.config, jprob.dtype)
+    tcfg = port_config(cfg)
+    prob = build_problem(tcfg, device=CPU)
+    tbip = BayesianInverseProblem(prob.solver, prob.sampler, tcfg, prob.dtype)
+    for splitting in (False, True):
+        first = (JaxRatioManager(jbip, cfg, splitting=splitting) if writer == "jax"
+                 else BayesRatioManager(tbip, tcfg, splitting=splitting))
+        first.init_run([first.init_nsamples] * first.nlevels)
+        ckpt = str(tmp_path / f"ratio_{splitting}.npz")
+        first.save_state(ckpt)
+        jbip.G_obs = tbip.G_obs = None  # the checkpoint carries the data
+        jm = JaxRatioManager(jbip, cfg, splitting=splitting)
+        tm = BayesRatioManager(tbip, tcfg, splitting=splitting)
+        ref, est = jm.resume(ckpt), tm.resume(ckpt)
+        assert tm._counter == jm._counter > 1
+        np.testing.assert_array_equal(tm.level_nsamples, jm.level_nsamples)
+        np.testing.assert_allclose(est, ref, rtol=1e-9)
+        np.testing.assert_allclose(to_np(tbip.G_obs), np.asarray(jbip.G_obs), rtol=0, atol=0)

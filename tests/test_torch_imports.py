@@ -62,7 +62,8 @@ def test_port_imports_leave_jax_out():
     assert out.stdout.split() == ["False", "False"]
     assert len(MODULES) > 25 and "parelagmc_tpu_torch.fem.galerkin_mass" in MODULES
     for name in ("ops.ell", "samplers.covariance", "samplers.kl", "uq.bayes", "uq.ratio_managers",
-                 "ops.multigrid", "ops.coef_multigrid", "fem.agglomeration"):
+                 "ops.multigrid", "ops.coef_multigrid", "fem.agglomeration", "parallel.sharding",
+                 "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured"):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
 
@@ -155,6 +156,17 @@ def test_device_and_dtype_helpers():
                 resolve_device(dev)
 
 
+def read_mfem_mesh_inline_tri(read_mfem_mesh):
+    """A 2 x 2 triangulated square through the port's MFEM reader."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tri.mesh")
+        with open(path, "w") as fh:
+            fh.write("MFEM INLINE mesh v1.0\ntype = tri\nnx = 2\nny = 2\n")
+        return read_mfem_mesh(path)
+
+
 def test_entry_points_default_to_the_card():
     """Without a card every entry point with a `device` argument raises when
     it is not given one, instead of running on the CPU."""
@@ -185,14 +197,21 @@ def test_entry_points_default_to_the_card():
     )
     from parelagmc_tpu_torch.samplers.covariance import MaternCovariance
     from parelagmc_tpu_torch.samplers.kl import KLSampler
+    from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
+    from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver, UnstructuredSPDESampler
 
     mesh = tfactories.make_box_mesh((2, 2, 2))
     lvl = tassembly.build_mixed_level(mesh)
     hier = thierarchy.build_geometric_hierarchy(mesh, 1)
     cfg = tconfig.ProblemConfig(refinements=0)
     eig = SimpleNamespace(V=[np.eye(2)], lam=np.ones(2), w_sqrt=np.ones(2), shape=(2,))
+    tri = read_mfem_mesh_inline_tri(read_mfem_mesh)
+    shier = build_simplicial_hierarchy(tri, 2)
     calls = [
         lambda: build_problem(cfg),
+        lambda: UnstructuredSPDESampler(shier, cfg),
+        lambda: UnstructuredDarcySolver(shier, cfg),
         lambda: DarcySolver(hier, cfg),
         lambda: SPDESampler(hier, cfg),
         lambda: EmbeddedSPDESampler(hier, hier, cfg),
@@ -224,19 +243,28 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize(
     "field,value,item",
     [("mesh", "cube.mesh", 15), ("dtype", "bfloat16", None),
-     ("darcy_solver.spatial_shards", 2, 14)],
+     ("darcy_solver.spatial_shards", 2, 14), ("darcy_solver.name", "hybrid-cg", "15c")],
 )
 def test_build_problem_refuses_unported_configs(field, value, item):
-    """What is not ported raises, naming its ROADMAP item (mesh files, the
-    unstructured stack; sharding), instead of running something else."""
+    """What is not ported raises, naming its ROADMAP item (mesh files; the
+    hybridized solver of the unstructured stack, on a simplicial
+    hierarchy; spatial sharding), instead of running something else."""
+    from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
+    from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
+
     cfg = tconfig.ProblemConfig(refinements=0)
     target = cfg
     *path, leaf = field.split(".")
     for name in path:
         target = getattr(target, name)
     setattr(target, leaf, value)
+    build = lambda: build_problem(cfg, device=CPU)
+    if value == "hybrid-cg":
+        hier = build_simplicial_hierarchy(read_mfem_mesh_inline_tri(read_mfem_mesh), 2)
+        build = lambda: UnstructuredDarcySolver(hier, cfg, device=CPU)
     with pytest.raises(NotImplementedError, match=f"item {item}" if item else "not supported"):
-        build_problem(cfg, device=CPU)
+        build()
 
 
 @pytest.mark.parametrize(
@@ -247,7 +275,8 @@ def test_build_problem_refuses_unported_configs(field, value, item):
 )
 def test_build_problem_builds_every_structured_config(kw):
     """Every embedding, sampler and tensor-grid mesh of the structured
-    build_problem builds; the sample-sharded managers raise for item 14."""
+    build_problem builds; two sample shards on the CPU's one visible device
+    raise ValueError, as the reference's config rule does."""
     from parelagmc_tpu_torch.uq import MLMCManager
 
     cfg = tconfig.ProblemConfig(refinements=1, dtype="float64", **kw)
@@ -261,7 +290,7 @@ def test_build_problem_builds_every_structured_config(kw):
         assert prob.embed_hierarchy.levels[0].mesh.shape == (64, 64, 11)
         assert prob.embed_hierarchy.levels[1].mesh.shape == (32, 32, 5)
     cfg.sample_shards = 2
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="sample_shards=2"):
         MLMCManager(prob.solver, prob.sampler, cfg)
 
 
@@ -375,7 +404,10 @@ def test_scalar_helper_copies_match_the_jax_package():
 def _defs_without_docstrings(module):
     """{name: ast dump} of a module's top-level functions, classes and
     constants, docstrings dropped."""
-    tree = ast.parse(inspect.getsource(module))
+    return _defs_of_tree(ast.parse(inspect.getsource(module)))
+
+
+def _defs_of_tree(tree):
     out = {}
     for node in tree.body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
@@ -461,3 +493,46 @@ def test_copied_host_modules_match_the_jax_package():
     mine, ref = _defs_without_docstrings(tspecial), _defs_without_docstrings(jspecial)
     for name in ("bessi1", "bessk1", "matern_spde_scaling"):
         assert mine[name] == ref[name]
+
+
+def _defs_normalized(module):
+    """_defs_without_docstrings with imports inside functions dropped and
+    the port's package name read as the JAX package's (the copies import
+    their neighbours from their own package)."""
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and body:
+            node.body = [b for b in body if not isinstance(b, (ast.Import, ast.ImportFrom))] or [
+                ast.Pass()]
+    return _defs_of_tree(ast.parse(ast.unparse(tree).replace("parelagmc_tpu_torch",
+                                                             "parelagmc_tpu")))
+
+
+def test_copied_unstructured_host_modules_match_the_jax_package():
+    """mesh/mfem_io.py, fem/simplicial.py, fem/simplicial_hierarchy.py and
+    fem/agglomeration.py are copies: every function, class and constant has
+    the original's code. So do fem/assembly.pack_ell and the box labelling
+    of unstructured.py."""
+    from parelagmc_tpu import unstructured as jun
+    from parelagmc_tpu.fem import agglomeration as jagg
+    from parelagmc_tpu.fem import simplicial as jsimp
+    from parelagmc_tpu.fem import simplicial_hierarchy as jsh
+    from parelagmc_tpu.mesh import mfem_io as jmfem
+    from parelagmc_tpu_torch import unstructured as tun
+    from parelagmc_tpu_torch.fem import agglomeration as tagg
+    from parelagmc_tpu_torch.fem import simplicial as tsimp
+    from parelagmc_tpu_torch.fem import simplicial_hierarchy as tsh
+    from parelagmc_tpu_torch.mesh import mfem_io as tmfem
+
+    for jm, tm in ((jmfem, tmfem), (jsimp, tsimp), (jsh, tsh), (jagg, tagg)):
+        mine, ref = _defs_normalized(tm), _defs_normalized(jm)
+        assert set(mine) == set(ref) and len(mine) >= 3, tm.__name__
+        for name in ref:
+            assert mine[name] == ref[name], f"{tm.__name__}.{name}"
+    pairs = [(jassembly, tassembly, ("pack_ell",)),
+             (jun, tun, ("label_box_boundaries_gm", "label_box_boundaries", "_as_hierarchy"))]
+    for jm, tm, names in pairs:
+        mine, ref = _defs_normalized(tm), _defs_normalized(jm)
+        for n in names:
+            assert mine[n] == ref[n], f"{tm.__name__}.{n}"

@@ -105,6 +105,23 @@ def test_threefry_kernel_matches_plain(cuda_device, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 24576), (128, 3081), (128, 387), (128, 48),
+                                   (32, 196608)])
+def test_threefry_kernel_at_the_unstructured_shapes(cuda_device, shape):
+    """K2 at the noise shapes of the unstructured path (batch x cells of
+    every level of the agglomerated 24 576-tet cube of chip_smoke.py, the
+    nested 196 608-tet level), float32."""
+    key = prng.fold_in(prng.PRNGKey(5), shape[1])
+    n0 = kernels.launch_counts["threefry_normal"]
+    got = prng.sample_normals(key, shape, torch.float32, cuda_device)
+    assert kernels.launch_counts["threefry_normal"] == n0 + 1
+    ref = prng.normals_plain(key, shape, torch.float32, cuda_device)
+    torch.cuda.synchronize()
+    err = ((got - ref).abs() / (1.0 + ref.abs())).max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,L", [(17, 131072), (86, 4099)])
 def test_thomas_bf16_kernel_matches_plain(cuda_device, n, L):
     """The bf16 instantiation rounds each step as the plain version's

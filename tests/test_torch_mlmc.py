@@ -113,10 +113,13 @@ def test_steady_cost_ledger_and_timer():
 
 
 def test_manager_rejects_sample_sharding():
+    """--sample-shards 2 with one visible device (the CPU) raises
+    ValueError, the reference's config rule; tests/test_torch_sharding.py
+    runs the sharded managers."""
     cfg = port_config(parse_config(["--refinements", "0", "--sample-shards", "2"]))
     cfg.output_filename = ""
     prob = build_problem(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sample_shards=2 but only 1 device"):
         MLMCManager(prob.solver, prob.sampler, cfg)
 
 
