@@ -98,11 +98,12 @@ Phases, each printing one line (or block) before the last line:
        run): the MLMC estimate under "cg-schur" with a kinv_ref (the static
        Schur multigrid: geometric-mean and local scaling, and with the line
        smoother on K1's static tables), cg-schur-diag, cg-schur-exact,
-       cg-schur-coefmg with the gather tables and minres-bj, each within
-       0.5 of 361.882 with one cold solve of 16 samples per level converged
-       1.0. minres-bj is the longest case (~52 000 MINRES iterations a
-       level-0 solve, 3 to 6 minutes on an H100 with the host's speed for
-       the run); its cold solves are those of the next check: minres-bj
+       cg-schur-coefmg with the gather tables, each within 0.5 of 361.882
+       with one cold solve of 16 samples per level converged 1.0; and
+       minres-bj on levels 1 and 2 alone (its level-0 solves, ~52 000 MINRES
+       iterations each, were 3 to 6 minutes of the script), their E[Y] held
+       to the first case's on the same keys (MINRES_SCALED_SAMPLES); its
+       cold solves are those of the next check: minres-bj
        against cg-schur on levels MINRES_SCALED_LEVELS of that grid (Q per
        sample to 1e-4, both converged 1.0); then phase 11's ratio and
        splitting anchors on "cg-schur" within 1e-3 of 354.436 / 350.767.
@@ -158,6 +159,39 @@ Phases, each printing one line (or block) before the last line:
              profiler's kernel time over the synchronized wall of an
              unprofiled step, device_busy), peak memory; K2 against its
              plain version at (32, 196 608).
+17. hybrid-cg, agglomerated (A) - phase 15's hierarchy and sampler under
+             darcy_solver.name "hybrid-cg" (physics/hybrid.py: PCG on the
+             face multipliers with Jacobi, constant-mode deflation and the
+             graph coefMG as auxiliary-space cycle): which levels hybridize
+             geometrically, algebraically or keep MINRES
+             (HYBRID_AGGLOMERATED_KINDS, the JAX package's choice); per level
+             samples/s, fine/coarse iterations, converged fraction (1.0
+             required), device-busy share, peak memory, and Q/Qc per sample
+             against minres-coefmg on the same fields and against a deep
+             float64 hybrid-cg solve (HYBRID_Q_RTOL: max and median);
+             phase 15's level-0 oracle sample against its spsolve
+             (UNSTRUCTURED_ORACLE_RTOL; the direct solve is not repeated);
+             MLMCManager.init_run of two batches per level (consistency <
+             0.1, K2 launched).
+18. hybrid-cg, nested (B) - phase 16's level-0 pair step under hybrid-cg:
+             samples/s, iterations, converged fraction (1.0 required), busy
+             share, kernels and device ms per PCG iteration of the Darcy pair
+             alone and its four costliest kernels, peak memory, printed
+             beside phase 16's MINRES numbers.
+19. mesh files (C) - build_problem on MFEM v1.0 files written into a
+             temporary directory (MESH_FILES): the coarsest tet cube refined
+             to 24 576 tets with the plain SPDE sampler; that hierarchy's
+             finest mesh as a file with unstructured_coarsening; a matching
+             "_embed.mesh" (196 608 embedded tets at level 0) and a
+             non-matching "_enlarge.mesh" (82 944) for projection_order 0
+             and 1; all under hybrid-cg. Per configuration: the g++ build of
+             the native geometry library (first use), host setup
+             (build_problem, mortar assembly included), one MLMC batch of
+             32 per level
+             (finite estimate, every level hybridized, K2 launched); K2
+             against its plain version at each embedded draw shape; the
+             order-0 projection sampler on the matching embedding against
+             the matching sampler (EMBED_AGREE_TOL).
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -198,6 +232,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -307,6 +342,11 @@ MINRES_SCALED_Q_RTOL = 1e-4
 # under ~900 s with the unstructured phases; the scaled anchor's MLMC run
 # under minres-bj still solves level 0 and its estimate is checked.
 MINRES_SCALED_LEVELS = (1, 2)
+# The scaled anchor's MLMC run under minres-bj takes levels 1 and 2 only (the
+# same keys as the other cases' runs; E[Y] held to theirs): its level-0
+# solves (~52 000 iterations each, 3-6 minutes of the script) were cut to
+# make room for the hybrid and mesh-file phases.
+MINRES_SCALED_SAMPLES = [0, 32, 32]
 # minres-bj against cg-schur on the 64^3 box (float64, batch 4, rtol 1e-9). On
 # the golden field (variance 1) its block-diagonal preconditioner leaves
 # MINRES short of rtol 1e-7 after 40 000 iterations (85 s on an H100, Q
@@ -334,6 +374,32 @@ UNSTRUCTURED_FINE = (24_576, 50_688)  # cells, faces of the cube refined 4 times
 UNSTRUCTURED_SAMPLES = 256  # init_run samples per level: two batches
 UNSTRUCTURED_ORACLE_RTOL = 1e-4  # f32 device Q at rtol 1e-5 against the f64 direct solve
 NESTED = dict(refine=3, levels=3, batch=32, cells=[196_608, 24_576, 3072])
+# Phase 17: the per-level hybridization the JAX package makes on phase 15's
+# hierarchy, and the limits of Q/Qc per sample of hybrid-cg against
+# minres-coefmg on the same fields and against a deep float64 hybrid-cg solve
+# (max and median over the batch of |diff| / max |Q|). At rtol 1e-5 the CG on
+# the multiplier system leaves Q errors with a long tail: a median of ~1e-5
+# and a maximum up to ~1e-3 at this size, in float64 as in float32 and in the
+# JAX package's solve as in the port's (the tolerance's, not the precision's;
+# the phase prints the float64 solve at rtol 1e-5 beside it).
+HYBRID_AGGLOMERATED_KINDS = ["geometric", "algebraic", "algebraic", "algebraic"]
+HYBRID_Q_RTOL = dict(max=1e-2, median=1e-4)
+HYBRID_TRUTH = dict(rtol=1e-10, maxit=5000)
+# Phase 19: the coarsest file (2^3 hexes of the unit cube in six tets each,
+# refined 3 times: 24 576 tets at level 0), its matching embedding (4^3 hexes
+# of [-0.5, 1.5]^3, the same spacing, material 1 inside the unit cube) and a
+# non-matching enlargement (3^3 hexes of [-0.25, 1.25]^3): (hexes per axis,
+# origin, side). One MLMC batch a level, hybrid-cg.
+MESH_FILES = dict(levels=4, batch=32, coarse=(2, 0.0, 1.0), embed=(4, -0.5, 2.0),
+                  enlarge=(3, -0.25, 1.5))
+# The host assemblers of the projection sampler's mortar couplings (names in
+# parelagmc_tpu_torch/unstructured.py), timed inside build_problem.
+MORTAR_ASSEMBLERS = ("mortar_p0_couple", "mortar_p1_p0_couple")
+MESH_FILE_CASES = (("plain", {}),
+                   ("agglomerated", dict(unstructured_coarsening=True, coarsening_factor=8)),
+                   ("matching", dict(embedding="matching")),
+                   ("projection-0", dict(embedding="projection")),
+                   ("projection-1", dict(embedding="projection", projection_order=1)))
 # Six tets around the main diagonal of the unit cube (corners numbered x
 # fastest, then y, then z): the shape and counts of the reference's
 # cube_tet.mesh, which is not in the repository.
@@ -1480,17 +1546,36 @@ def phase_solvers_scaled(device, gpu: str):
     from parelagmc_tpu_torch.uq import MLMCManager
 
     launches = {}
+    first = None
     for label, opts, cutoff in SOLVER_CASES:
         t0 = time.perf_counter()
         prob = scaled_spe10_problem(opts, cutoff, device)
         setup_s = time.perf_counter() - t0
         mgr = MLMCManager(prob.solver, prob.sampler, prob.config)
+        minres = opts["name"] == "minres-bj"
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        mgr.init_run([32, 32, 32])
+        mgr.init_run(MINRES_SCALED_SAMPLES if minres else [32, 32, 32])
         run_s = time.perf_counter() - t0
         launches[label] = dict(kernels.launch_counts)
-        levels = () if opts["name"] == "minres-bj" else (0, 1, 2)
+        if first is None:
+            first = mgr
+        if minres:
+            # Levels 1-2 only (the same keys as every case's run): their
+            # E[Y] against the first case's, to MINRES_SCALED_Q_RTOL of E[Q].
+            diff = [abs(mgr.eY[l] - first.eY[l]) / abs(first.eQ[l]) for l in (1, 2)]
+            print(f"solvers scaled anchor [{label}] (16x32x8, f64, rtol 1e-8, setup "
+                  f"{setup_s:.2f} s): init_run({MINRES_SCALED_SAMPLES}) E[Y_1], E[Y_2] "
+                  f"{mgr.eY[1]:.6f}, {mgr.eY[2]:.6f} against [{SOLVER_CASES[0][0]}] "
+                  f"{first.eY[1]:.6f}, {first.eY[2]:.6f}: rel to E[Q] {diff} (tol "
+                  f"{MINRES_SCALED_Q_RTOL:g}) iterations {mgr.solver_iterations.tolist()} run "
+                  f"{run_s:.2f} s launches {launches[label]} [{gpu}]", flush=True)
+            if not all(d <= MINRES_SCALED_Q_RTOL for d in diff):
+                fail(f"solvers scaled anchor [{label}]: E[Y] of levels 1-2 off by {diff}")
+            if launches[label]["threefry_normal"] <= 0:
+                fail(f"kernel threefry_normal was not launched by the scaled anchor under {label}")
+            continue
+        levels = (0, 1, 2)
         canary = [solver_canary(prob, level, 16, fold_in(PRNGKey(13), level))[:2]
                   for level in levels]
         mg = prob.solver.levels[0].schur_mg
@@ -1969,7 +2054,8 @@ def scipy_oracle_q(level, solver, w) -> float:
 
 def phase_unstructured_agglomerated(device, gpu: str):
     """Phase 15. Returns (launches of the MLMC run, K2's result at the
-    level-0 draw)."""
+    level-0 draw, the context phase 17 reuses: hierarchy, sampler, solver,
+    the oracle's field and Q, the per-level step numbers)."""
     import torch
 
     from parelagmc_tpu_torch import kernels
@@ -2008,9 +2094,11 @@ def phase_unstructured_agglomerated(device, gpu: str):
     oracle = pool.submit(timed_call, scipy_oracle_q, hier.levels[0], solver,
                          w[0].double().cpu().numpy())
     pool.shutdown(wait=False)
+    steps = []
     for level in range(u["levels"]):
         step = unstructured_step(sampler, solver, level, u["batch"])
         sps, iters, conv, y = time_steps(step, fold_in(key, level), reps=2)
+        steps.append((sps, iters, conv))
         kind = "pair (eval_pair + solve_fwd_pair)" if level < u["levels"] - 1 else "single solve"
         print(f"unstructured agglomerated level {level} {kind}, batch {u['batch']}, f32, "
               f"{u['solver']} rtol {u['rtol']:g}: {sps:.1f} samples/s, mean iterations "
@@ -2051,7 +2139,30 @@ def phase_unstructured_agglomerated(device, gpu: str):
                      f"unstructured {shape}")
     print(k2_line(f"unstructured agglomerated level 0: K2 noise {shape} float32", k2, F32_TOL_K2,
                   gpu), flush=True)
-    return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape))
+    ctx = dict(hier=hier, sampler=sampler, solver=solver, oracle_w=w, oracle_q=q_host,
+               steps=steps)
+    return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape)), ctx
+
+
+def kernel_split(fn, top: int = 4) -> str:
+    """The `top` CUDA kernels of one call of fn by device time (profiler,
+    CUDA activity alone): name (cut to 60 characters), share of the
+    kernels' total, calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in kern)
+    if total <= 0:
+        return "not measured (the profiler recorded no device event)"
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return "; ".join(f"{e.key[:60]} {100 * e.self_device_time_total / total:.1f}% ({e.count})"
+                     for e in kern[:top])
 
 
 def device_busy(fn, wall_ms: float):
@@ -2077,7 +2188,8 @@ def device_busy(fn, wall_ms: float):
 
 def phase_unstructured_nested(device, gpu: str):
     """Phase 16. Returns (launches of one pair step, K2's result at its
-    draw)."""
+    draw, the context phase 18 reuses: hierarchy, sampler and this step's
+    numbers)."""
     import torch
 
     from parelagmc_tpu_torch import kernels
@@ -2128,7 +2240,370 @@ def phase_unstructured_nested(device, gpu: str):
                      f"unstructured {shape}")
     print(k2_line(f"unstructured nested level 0: K2 noise {shape} float32", k2, F32_TOL_K2, gpu),
           flush=True)
-    return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape))
+    ctx = dict(hier=hier, sampler=sampler, sps=1e3 * n["batch"] / wall_ms, iters=iters,
+               busy=busy, peak=peak)
+    return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape)), ctx
+
+
+def hybrid_kinds(solver) -> list:
+    """Per level of an UnstructuredDarcySolver: "geometric" (simplicial
+    element geometry), "algebraic" (agglomerated level) or "minres" (both
+    hybrid table constructions declined)."""
+    return ["minres" if h is None else
+            ("geometric" if hasattr(solver.hierarchy.levels[l], "mesh") else "algebraic")
+            for l, h in enumerate(solver._hybrid)]
+
+
+def pair_fields(sampler, level: int, key, batch: int):
+    """The fields of one MLMC batch at `level`: (fine, coarse) of
+    eval_pair, or (field, None) on the coarsest level."""
+    xi = sampler.sample(level, key, batch)
+    if level < sampler.hierarchy.nlevels - 1:
+        return sampler.eval_pair(level, xi)
+    return sampler.eval(level, xi), None
+
+
+def solve_batch(solver, level: int, fields):
+    """(q, qc or None, converged per sample, iterations fine/coarse) of one
+    batch's solves: the pair, or one solve on the coarsest level."""
+    s_f, s_c = fields
+    if s_c is None:
+        q, _, info = solver.solve_fwd(level, s_f)
+        return q, None, info.converged, (info.iterations,)
+    q, qc, i_f, i_c = solver.solve_fwd_pair(level, s_f, s_c)
+    return q, qc, i_f.converged & i_c.converged, (i_f.iterations, i_c.iterations)
+
+
+def phase_hybrid_agglomerated(ctx, device, gpu: str):
+    """Phase 17 (A): phase 15's hierarchy and sampler under hybrid-cg.
+    Returns launches of its MLMC run."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.uq import MLMCManager
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
+
+    u = UNSTRUCTURED
+    hier, sampler, minres_solver = ctx["hier"], ctx["sampler"], ctx["solver"]
+    cfg = unstructured_config(u["levels"], u["batch"])
+    cfg.darcy_solver.name = "hybrid-cg"
+    t0 = time.perf_counter()
+    solver = UnstructuredDarcySolver(hier, cfg, torch.float32, device=device)
+    setup_s = time.perf_counter() - t0
+    kinds = hybrid_kinds(solver)
+    print(f"hybrid-cg agglomerated: levels hybridized {kinds}, solver setup (coefMG + hybrid "
+          f"tables) {setup_s:.2f} s [{gpu}]", flush=True)
+    if kinds != HYBRID_AGGLOMERATED_KINDS:
+        fail(f"hybrid-cg agglomerated: levels {kinds}, expected {HYBRID_AGGLOMERATED_KINDS}")
+    # Reference Q of the comparison fields: hybrid-cg in float64, deep
+    # (HYBRID_TRUTH) and at the run's rtol (the error the tolerance leaves).
+    refs = {}
+    for name, rtol in (("truth", HYBRID_TRUTH["rtol"]), ("f64", u["rtol"])):
+        c = unstructured_config(u["levels"], u["batch"])
+        c.darcy_solver.name, c.dtype = "hybrid-cg", "float64"
+        c.darcy_solver.relative_tolerance = rtol
+        c.darcy_solver.max_iterations = HYBRID_TRUTH["maxit"]
+        refs[name] = UnstructuredDarcySolver(hier, c, torch.float64, device=device)
+
+    def err(a, b):
+        """(max, median) over samples of |a - b| / max |b|."""
+        e = (a.double() - b.double()).abs() / b.double().abs().max()
+        return float(e.max()), float(e.median())
+
+    key = PRNGKey(37)
+    for level in range(u["levels"]):
+        torch.cuda.reset_peak_memory_stats(device)
+        step = unstructured_step(sampler, solver, level, u["batch"])
+        sps, iters, conv, y = time_steps(step, fold_in(key, level), reps=2)
+        wall_ms = 1e3 * u["batch"] / sps
+        share, device_ms, nkern = device_busy(lambda: step(fold_in(key, 100 + level)), wall_ms)
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        busy = "not measured" if share is None else (
+            f"{100 * share:.1f}% ({device_ms:.1f} device ms against {wall_ms:.1f} wall ms a "
+            f"step, {nkern} kernels)")
+        # The same fields through minres-coefmg (phase 15's solver) and the
+        # float64 references: Q and Qc per sample.
+        fields = pair_fields(sampler, level, fold_in(key, 200 + level), u["batch"])
+        q_h, qc_h, ok_h, _ = solve_batch(solver, level, fields)
+        q_m, qc_m, ok_m, _ = solve_batch(minres_solver, level, fields)
+        f64 = tuple(None if f is None else f.double() for f in fields)
+        ref = {name: solve_batch(r, level, f64) for name, r in refs.items()}
+        both = ok_h & ok_m
+        pairs = [(q_h, q_m, ref["truth"][0], ref["f64"][0])]
+        if qc_h is not None:
+            pairs.append((qc_h, qc_m, ref["truth"][1], ref["f64"][1]))
+        vs_minres = [err(a[both], b[both]) for a, b, _, _ in pairs]
+        vs_truth = [err(a, t) for a, _, t, _ in pairs]
+        f64_truth = [err(f, t) for _, _, t, f in pairs]
+        minres_truth = [err(b[ok_m], t[ok_m]) for _, b, t, _ in pairs]
+        m_sps, m_iters, m_conv = ctx["steps"][level]
+        fmt = lambda errs: "[" + ", ".join(f"{a:.2e}/{b:.2e}" for a, b in errs) + "]"
+        print(f"hybrid-cg agglomerated level {level} ({kinds[level]}), batch {u['batch']}, f32, "
+              f"rtol {u['rtol']:g}: {sps:.1f} samples/s, mean iterations (fine/coarse) {iters}, "
+              f"converged fraction {conv:.4f}, device busy {busy}, peak memory {peak:.2f} GB; "
+              f"minres-coefmg (phase 15) {m_sps:.1f} samples/s, iterations {m_iters}, converged "
+              f"{m_conv:.4f}. Q (and Qc) per sample, max/median of |diff| / max |Q|: "
+              f"hybrid-cg against minres-coefmg over the {int(both.sum())} samples both "
+              f"converged {fmt(vs_minres)}; against a float64 hybrid-cg solve at rtol "
+              f"{HYBRID_TRUTH['rtol']:g}: hybrid-cg {fmt(vs_truth)}, float64 hybrid-cg at rtol "
+              f"{u['rtol']:g} {fmt(f64_truth)}, minres-coefmg (converged) {fmt(minres_truth)} "
+              f"(limits {HYBRID_Q_RTOL['max']:g}/{HYBRID_Q_RTOL['median']:g}) [{gpu}]",
+              flush=True)
+        if conv < 1.0 or not bool(ok_h.all()) or not torch.isfinite(y).all():
+            fail(f"hybrid-cg agglomerated level {level}: converged {conv}, or Y not finite")
+        for mx, med in vs_minres + vs_truth:
+            if not (mx <= HYBRID_Q_RTOL["max"] and med <= HYBRID_Q_RTOL["median"]):
+                fail(f"hybrid-cg agglomerated level {level}: Q against minres-coefmg "
+                     f"{vs_minres}, against float64 {vs_truth}")
+
+    q_dev, _, info = solver.solve_fwd(0, ctx["oracle_w"])
+    rel = abs(float(q_dev[0]) - ctx["oracle_q"]) / abs(ctx["oracle_q"])
+    print(f"hybrid-cg agglomerated oracle, level 0, phase 15's sample: device f32 Q "
+          f"{float(q_dev[0]):.7g} ({info.iterations} iterations) against its scipy spsolve f64 "
+          f"{ctx['oracle_q']:.7g}: rel err {rel:.2e} (tol {UNSTRUCTURED_ORACLE_RTOL:g}) [{gpu}]",
+          flush=True)
+    if not rel <= UNSTRUCTURED_ORACLE_RTOL:
+        fail(f"hybrid-cg oracle: device Q off the direct solve's by {rel}")
+
+    mgr = MLMCManager(solver, sampler, cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mgr.init_run([UNSTRUCTURED_SAMPLES] * u["levels"])
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    cons = [float(c) for c in mgr.consistency[:-1]]
+    est = float(mgr.estimate)
+    print(f"hybrid-cg agglomerated MLMC init_run({[UNSTRUCTURED_SAMPLES] * u['levels']}): "
+          f"estimate {est:.6f} consistency {cons} E[Q] {mgr.eQ.tolist()} mean iterations "
+          f"{mgr.solver_iterations.tolist()} run {run_s:.2f} s launches {launches} [{gpu}]",
+          flush=True)
+    if not math.isfinite(est) or not all(c < 0.1 for c in cons):
+        fail(f"hybrid-cg agglomerated MLMC: estimate {est}, consistency {cons}")
+    if launches["threefry_normal"] <= 0:
+        fail("kernel threefry_normal was not launched by the hybrid-cg MLMC run")
+    return launches
+
+
+def phase_hybrid_nested(ctx, device, gpu: str):
+    """Phase 18 (B): phase 16's nested level-0 pair step under hybrid-cg.
+    Returns launches of one step."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
+
+    n = NESTED
+    hier, sampler = ctx["hier"], ctx["sampler"]
+    cfg = unstructured_config(n["levels"], n["batch"])
+    cfg.darcy_solver.name = "hybrid-cg"
+    t0 = time.perf_counter()
+    solver = UnstructuredDarcySolver(hier, cfg, torch.float32, device=device)
+    setup_s = time.perf_counter() - t0
+    kinds = hybrid_kinds(solver)
+    step = unstructured_step(sampler, solver, 0, n["batch"])
+    key = PRNGKey(41)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    step(key)  # also the warm-up of the timed step
+    launches = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
+    y, converged, iters = step(fold_in(key, 1))
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    conv = float(converged.float().mean())
+    share, device_ms, nkern = device_busy(lambda: step(fold_in(key, 1)), wall_ms)
+    busy = "not measured (the profiler recorded no device event)" if share is None else (
+        f"{100 * share:.1f}% ({device_ms:.1f} device ms in {wall_ms:.1f} wall ms, {nkern} "
+        f"kernels)")
+    # The Darcy pair alone, on the step's fields: kernels and device ms per
+    # PCG iteration.
+    s_f, s_c = pair_fields(sampler, 0, fold_in(key, 1), n["batch"])
+    t0 = time.perf_counter()
+    _, _, i_f, i_c = solver.solve_fwd_pair(0, s_f, s_c)
+    torch.cuda.synchronize()
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    _, s_dev, s_kern = device_busy(lambda: solver.solve_fwd_pair(0, s_f, s_c), solve_ms)
+    its = i_f.iterations + i_c.iterations
+    per_it = "not measured" if s_dev is None else (
+        f"{s_kern / its:.0f} kernels and {s_dev / its:.2f} device ms per PCG iteration "
+        f"({its} iterations, {solve_ms:.1f} wall ms); its kernels by device time: "
+        f"{kernel_split(lambda: solver.solve_fwd_pair(0, s_f, s_c))}")
+    print(f"hybrid-cg nested level-0 pair step: levels {kinds}, setup {setup_s:.2f} s, batch "
+          f"{n['batch']}, f32, rtol {UNSTRUCTURED['rtol']:g}: {1e3 * n['batch'] / wall_ms:.2f} "
+          f"samples/s, iterations (fine/coarse) {iters[0]}/{iters[1]}, converged fraction "
+          f"{conv:.4f}, device busy {busy}; Darcy pair {per_it}; peak memory {peak:.2f} GB, "
+          f"launches of one step {launches}; minres-coefmg (phase 16): {ctx['sps']:.2f} "
+          f"samples/s, iterations {ctx['iters'][0]}/{ctx['iters'][1]}, busy {ctx['busy']}, peak "
+          f"{ctx['peak']:.2f} GB [{gpu}]", flush=True)
+    if kinds != ["geometric"] * n["levels"]:
+        fail(f"hybrid-cg nested: levels {kinds}")
+    if conv < 1.0 or not torch.isfinite(y).all():
+        fail(f"hybrid-cg nested pair step: converged {conv}, or Y not finite")
+    if launches["threefry_normal"] <= 0:
+        fail("kernel threefry_normal was not launched by the hybrid-cg nested pair step")
+    return launches
+
+
+def tet_box(ncells: int, origin: float, length: float):
+    """(vertices, tets, boundary triangles) of the cube [origin, origin +
+    length]^3 cut into ncells^3 hexes, each in six tets (TET_SPLIT)."""
+    import numpy as np
+
+    axis = origin + length * np.arange(ncells + 1) / ncells
+    grids = np.meshgrid(axis, axis, axis, indexing="ij")
+    verts = np.stack([g.ravel(order="F") for g in grids], axis=1)
+    m = ncells + 1
+    vid = lambda i, j, k: i + m * (j + m * k)
+    tets = []
+    for k in range(ncells):
+        for j in range(ncells):
+            for i in range(ncells):
+                c = [vid(i, j, k), vid(i + 1, j, k), vid(i + 1, j + 1, k), vid(i, j + 1, k),
+                     vid(i, j, k + 1), vid(i + 1, j, k + 1), vid(i + 1, j + 1, k + 1),
+                     vid(i, j + 1, k + 1)]
+                tets.extend([[c[v] for v in t] for t in TET_SPLIT])
+    tets = np.asarray(tets, dtype=np.int64)
+    faces = np.concatenate([np.delete(tets, i, axis=1) for i in range(4)])
+    uniq, counts = np.unique(np.sort(faces, axis=1), axis=0, return_counts=True)
+    return verts, tets, uniq[counts == 1]
+
+
+def write_tet_mesh(path: str, verts, tets, boundary, attributes=None, battributes=None) -> None:
+    """Tets and their boundary triangles as an MFEM v1.0 mesh file."""
+    import numpy as np
+
+    attributes = np.ones(len(tets), int) if attributes is None else attributes
+    battributes = np.ones(len(boundary), int) if battributes is None else battributes
+    lines = ["MFEM mesh v1.0", "", "dimension", "3", "", "elements", str(len(tets))]
+    lines += [f"{a} 4 {t[0]} {t[1]} {t[2]} {t[3]}" for a, t in zip(attributes, tets)]
+    lines += ["", "boundary", str(len(boundary))]
+    lines += [f"{a} 2 {b[0]} {b[1]} {b[2]}" for a, b in zip(battributes, boundary)]
+    lines += ["", "vertices", str(len(verts)), "3"]
+    lines += [" ".join(repr(float(x)) for x in v) for v in verts]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def timed_into(acc: list, fn):
+    """fn, adding the seconds of each call to acc[0]."""
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+    return timed
+
+
+def phase_mesh_files(device, gpu: str):
+    """Phase 19 (C): the mesh-file path through build_problem. Returns
+    ({config: launches of its MLMC round}, [K2 results at the embedded
+    draws])."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from parelagmc_tpu_torch import kernels, native, unstructured
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.problems import build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+    from parelagmc_tpu_torch.unstructured import UnstructuredProjectionSPDESampler
+
+    mf = MESH_FILES
+    t0 = time.perf_counter()
+    native.build_library()
+    native_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="mesh_files_")
+    try:
+        coarse = os.path.join(tmp, "cube.mesh")
+        box = tet_box(*mf["coarse"])
+        write_tet_mesh(coarse, *box)
+        v, t, b = tet_box(*mf["embed"])
+        c = v[t].mean(axis=1)
+        inside = np.all((c > 0.0) & (c < 1.0), axis=1)
+        write_tet_mesh(os.path.join(tmp, "cube_embed.mesh"), v, t, b, np.where(inside, 1, 2))
+        enlarge = tet_box(*mf["enlarge"])
+        write_tet_mesh(os.path.join(tmp, "cube_enlarge.mesh"), *enlarge)
+        print(f"mesh files: native geometry library {os.path.relpath(native.library_path(), HERE)} "
+              f"ready in {native_s:.2f} s (g++ at first use); files in a temporary directory: "
+              f"coarsest {len(box[1])} tets, matching embedding {len(t)} tets "
+              f"({int(inside.sum())} of material 1), non-matching enlargement "
+              f"{len(enlarge[1])} tets [{gpu}]", flush=True)
+        launches, k2s, probs = {}, [], {}
+        for name, kw in MESH_FILE_CASES:
+            cfg = unstructured_config(mf["levels"], mf["batch"])
+            cfg.darcy_solver.name = "hybrid-cg"
+            cfg.mesh = coarse
+            for k, val in kw.items():
+                setattr(cfg, k, val)
+            if name == "agglomerated":
+                # The file is the finest mesh: the plain case's level 0.
+                gm = probs["plain"].hierarchy.levels[0].mesh
+                cfg.mesh = os.path.join(tmp, "cube_fine.mesh")
+                write_tet_mesh(cfg.mesh, gm.vertices, np.stack(gm.elements),
+                               np.stack(gm.boundary), gm.attributes, gm.boundary_attributes)
+            # The mortar couplings' share of the setup: the projection
+            # sampler's two assemblers, timed where the sampler calls them.
+            mortar_s = [0.0]
+            saved = {f: getattr(unstructured, f) for f in MORTAR_ASSEMBLERS}
+            for f, fn in saved.items():
+                setattr(unstructured, f, timed_into(mortar_s, fn))
+            try:
+                t0 = time.perf_counter()
+                prob = build_problem(cfg, device=device)
+                setup_s = time.perf_counter() - t0
+            finally:
+                for f, fn in saved.items():
+                    setattr(unstructured, f, fn)
+            probs[name] = prob
+            cells = [int(l.n_s) for l in prob.hierarchy.levels]
+            embed = ([] if prob.embed_hierarchy is None else
+                     [int(l.n_s) for l in prob.embed_hierarchy.levels])
+            kinds = hybrid_kinds(prob.solver)
+            mgr = MLMCManager(prob.solver, prob.sampler, prob.config)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            mgr.init_run([mf["batch"]] * mf["levels"])
+            run_s = time.perf_counter() - t0
+            launches[name] = dict(kernels.launch_counts)
+            est = float(mgr.estimate)
+            print(f"mesh file [{name}] {type(prob.sampler).__name__}: cells {cells} embedded "
+                  f"{embed}, levels {kinds}; host setup (build_problem) {setup_s:.2f} s, of it "
+                  f"mortar assembly {mortar_s[0]:.2f} s; "
+                  f"one MLMC batch of {mf['batch']} a level: estimate {est:.6f} E[Q] "
+                  f"{mgr.eQ.tolist()} mean iterations {mgr.solver_iterations.tolist()} run "
+                  f"{run_s:.2f} s launches {launches[name]} [{gpu}]", flush=True)
+            if not math.isfinite(est) or not np.isfinite(mgr.eQ).all():
+                fail(f"mesh file [{name}]: estimate {est}")
+            if kinds[0] != "geometric" or "minres" in kinds:
+                fail(f"mesh file [{name}]: levels {kinds}")
+            if launches[name]["threefry_normal"] <= 0:
+                fail(f"kernel threefry_normal was not launched by the mesh-file run [{name}]")
+            if embed:
+                shape = (mf["batch"], embed[0])
+                _, k2 = k2_check(fold_in(PRNGKey(43), embed[0]), shape, torch.float32, device,
+                                 F32_TOL_K2, f"embedded {shape}")
+                print(k2_line(f"mesh file [{name}] level 0: K2 noise {shape} float32", k2,
+                              F32_TOL_K2, gpu), flush=True)
+                k2s.append(dict(k2, max_abs_err=k2["abs_err"], shape=list(shape)))
+            mgr.close()
+        # On the matching embedding, the P0 projection is the selection.
+        match = probs["matching"]
+        proj = UnstructuredProjectionSPDESampler(match.hierarchy, match.embed_hierarchy,
+                                                 match.config, torch.float32, device=device)
+        xi = match.sampler.sample(0, PRNGKey(47), mf["batch"])
+        rel = rel_to_max(proj.eval(0, xi), match.sampler.eval(0, xi))
+        print(f"mesh file: projection (order 0) on the matching embedding against the matching "
+              f"sampler, level 0, batch {mf['batch']}: max rel {rel:.2e} (tol "
+              f"{EMBED_AGREE_TOL:g}) [{gpu}]", flush=True)
+        if not rel <= EMBED_AGREE_TOL:
+            fail(f"mesh file: matching and projection samplers differ by {rel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, k2s
 
 
 def jax_modules_loaded():
@@ -2193,8 +2668,12 @@ def main() -> None:
     ratio_cg_schur = phase_ratio_anchor(device, gpu, solver="cg-schur",
                                         rtol=RATIO_ANCHOR_CG_SCHUR_RTOL)
     minres_box = phase_minres_box(device, gpu)
-    agglomerated, k2_agglomerated = phase_unstructured_agglomerated(device, gpu)
-    nested, k2_nested = phase_unstructured_nested(device, gpu)
+    agglomerated, k2_agglomerated, ctx = phase_unstructured_agglomerated(device, gpu)
+    hybrid_agglomerated = phase_hybrid_agglomerated(ctx, device, gpu)
+    nested, k2_nested, ctx = phase_unstructured_nested(device, gpu)
+    hybrid_nested = phase_hybrid_nested(ctx, device, gpu)
+    del ctx
+    mesh_files, k2_mesh_files = phase_mesh_files(device, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -2208,6 +2687,9 @@ def main() -> None:
     by_path = lambda k: {"golden_mlmc": golden[k], "sharded_golden_mlmc": sharded[k],
                          "unstructured_agglomerated_mlmc": agglomerated[k],
                          "unstructured_nested_pair_step": nested[k],
+                         "hybrid_agglomerated_mlmc": hybrid_agglomerated[k],
+                         "hybrid_nested_pair_step": hybrid_nested[k],
+                         **{f"mesh_file_{name}_mlmc": n[k] for name, n in mesh_files.items()},
                          "spe10_anchor": anchor[k],
                          "spe10_full_grid": full[k], "ratio_anchor": ratio_anchor[k],
                          "ratio_full_grid": ratio_full[k],
@@ -2253,7 +2735,7 @@ def main() -> None:
          # The same keys at the draws of the unstructured phases (level 0).
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                          for r in (k2_agglomerated, k2_nested)]},
+                          for r in (k2_agglomerated, k2_nested, *k2_mesh_files)]},
         # No path of either package draws uniforms: K3's path is its entry
         # point sample_uniforms, driven in phase 7 with the counts at 0.
         {"name": "threefry_uniform", "route": "cuda",

@@ -31,6 +31,7 @@ from parelagmc_tpu_torch.ops.ell import ELL, CoefELL, DiagCoef
 from parelagmc_tpu_torch.ops.mass_solve import AxisTables, MassTridiagSolver
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig
 from parelagmc_tpu_torch.physics.darcy import DarcyLevel
+from parelagmc_tpu_torch.physics.hybrid import HybridLevel
 from parelagmc_tpu_torch.samplers import kl as tkl
 from parelagmc_tpu_torch.samplers import pde as tpde
 
@@ -255,3 +256,18 @@ def simplicial_hierarchy_from_jax(h) -> SimplicialHierarchy:
     RT prolongators."""
     return host_record_copy(h, SimplicialHierarchy,
                             levels=[simplicial_level_from_jax(l) for l in h.levels])
+
+
+def hybrid_level_from_jax(H, dtype=torch.float64, device=None) -> HybridLevel:
+    """parelagmc_tpu.physics.hybrid.HybridLevel -> port HybridLevel (the
+    index tables as int64), so the two packages' tables can be compared
+    field by field and a solve run on the same tables."""
+    ints = ("c_idx", "lam_src", "own_src")
+    kw = {}
+    for name in HybridLevel._fields:
+        v = getattr(H, name)
+        if name in ("n_lam", "n_s", "nloc"):
+            kw[name] = int(v)
+        else:
+            kw[name] = _t(v, torch.int64 if name in ints else dtype, device)
+    return HybridLevel(**kw)

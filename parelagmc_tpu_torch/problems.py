@@ -19,14 +19,21 @@ The sampler follows cfg.sampler_name and cfg.embedding: the SPDE sampler
 on the original mesh ("pde", "none"), on a matching enlarged mesh
 ("matching") or on a non-matching one with mortar projection
 ("projection"), or a KL sampler over the analytic exponential or the
-Matern covariance ("analytic", "matern"). Mesh files (the unstructured
-stack) raise NotImplementedError naming their ROADMAP item instead of
-running something else.
+Matern covariance ("analytic", "matern").
+
+An MFEM mesh file (cfg.mesh = path ending in ".mesh") is the COARSEST
+mesh, refined cfg.refinements times (examples/MLMC.cpp's semantics): one
+that reads as a tensor grid takes the structured classes, a simplicial one
+the unstructured stack (unstructured.py), where cfg.unstructured_coarsening
+makes the file the FINEST mesh and agglomerates the coarse levels, and
+cfg.embedding reads an enlarged mesh from cfg.embed_mesh or from the
+file's "_embed.mesh" (matching) / "_enlarge.mesh" (projection) twin.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import NamedTuple, Optional
 
@@ -34,7 +41,13 @@ import numpy as np
 import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
-from parelagmc_tpu_torch.fem.hierarchy import GeometricHierarchy, build_geometric_hierarchy_from_fine
+from parelagmc_tpu_torch.fem.agglomeration import build_agglomerated_hierarchy
+from parelagmc_tpu_torch.fem.hierarchy import (
+    GeometricHierarchy,
+    build_geometric_hierarchy,
+    build_geometric_hierarchy_from_fine,
+)
+from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
 from parelagmc_tpu_torch.mesh.factories import (
     EGG_NCELLS,
     EGG_SPACING,
@@ -43,7 +56,8 @@ from parelagmc_tpu_torch.mesh.factories import (
     make_box_mesh,
     make_embedded_box_mesh,
 )
-from parelagmc_tpu_torch.mesh.structured import _mfem_bdr_attr
+from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh
+from parelagmc_tpu_torch.mesh.structured import StructuredMesh, _mfem_bdr_attr
 from parelagmc_tpu_torch.device import resolve_device, torch_dtype
 from parelagmc_tpu_torch.physics.darcy import DarcySolver
 from parelagmc_tpu_torch.samplers.base import MLSampler
@@ -58,6 +72,14 @@ from parelagmc_tpu_torch.samplers.pde import (
     SPDESampler,
     _TensorSPDEBase,
 )
+from parelagmc_tpu_torch.unstructured import (
+    UnstructuredDarcySolver,
+    UnstructuredEmbeddedSPDESampler,
+    UnstructuredProjectionSPDESampler,
+    UnstructuredSPDESampler,
+    build_embedded_simplicial_hierarchies,
+    label_box_boundaries_gm,
+)
 
 
 class Problem(NamedTuple):
@@ -70,10 +92,6 @@ class Problem(NamedTuple):
     device: torch.device
 
 
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1, item {item})")
-
-
 def fine_mesh_spec(cfg: ProblemConfig):
     """(fine_ncells, fine_spacings) for the configured mesh."""
     if cfg.mesh == "box":
@@ -84,8 +102,6 @@ def fine_mesh_spec(cfg: ProblemConfig):
         return tuple(SPE10_NCELLS), list(SPE10_SPACING)
     if cfg.mesh == "egg":
         return tuple(EGG_NCELLS), list(EGG_SPACING)
-    if cfg.mesh.endswith(".mesh"):
-        raise _not_ported(f"mesh file {cfg.mesh!r}", "15d")
     raise ValueError(f"unknown mesh '{cfg.mesh}'")
 
 
@@ -184,6 +200,11 @@ def build_problem(cfg: ProblemConfig, kinv_ref: Optional[np.ndarray] = None,
     axis_order permutes the axes."""
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
+    if cfg.mesh.endswith(".mesh"):
+        if cfg.axis_order is not None:
+            warnings.warn("axis_order applies only to the tensor-grid factories "
+                          "(box/spe10/egg); it is ignored for mesh files", stacklevel=2)
+        return _build_from_mesh_file(cfg, dtype, device)
     fine_ncells, fine_spacings = fine_mesh_spec(cfg)
     order = resolve_axis_order(cfg.axis_order, fine_ncells)
     if order != tuple(range(len(fine_ncells))):
@@ -255,3 +276,77 @@ def _check_marginal_norm_support(cfg: ProblemConfig, sampler) -> None:
             "samplers implement exact marginal normalization); the field "
             "keeps its raw per-level marginal variances"
         )
+
+
+def _build_from_mesh_file(cfg: ProblemConfig, dtype: torch.dtype, device: torch.device) -> Problem:
+    """Build from an MFEM mesh file (cfg.mesh = path), the file being the
+    COARSEST mesh refined cfg.refinements times, or with
+    unstructured_coarsening the FINEST mesh of an agglomerated hierarchy."""
+    mesh = read_mfem_mesh(cfg.mesh)
+    if isinstance(mesh, StructuredMesh):
+        hier = build_geometric_hierarchy(mesh, cfg.nlevels)
+        if cfg.sampler_name != "pde" or cfg.embedding != "none":
+            raise ValueError("mesh-file configs currently support the plain SPDE sampler")
+        sampler = SPDESampler(hier, cfg, dtype, device)
+        solver = DarcySolver(hier, cfg, dtype, device)
+        return Problem(cfg, hier, None, sampler, solver, dtype, device)
+
+    if np.unique(mesh.boundary_attributes).size <= 1:
+        # Single-attribute meshes: relabel the box sides so that the MFEM
+        # attribute convention applies to BCs and QoIs.
+        label_box_boundaries_gm(mesh)
+    embed_hier = None
+    selection = None
+    if cfg.embedding != "none" and cfg.sampler_name != "pde":
+        raise ValueError("embedding requires the SPDE sampler")
+    if cfg.embedding != "none":
+        embed_path = cfg.embed_mesh
+        if not embed_path:
+            stem = cfg.mesh[: -len(".mesh")]
+            suffix = "_embed.mesh" if cfg.embedding == "matching" else "_enlarge.mesh"
+            embed_path = stem + suffix
+        if not os.path.exists(embed_path):
+            raise ValueError(f"embedding='{cfg.embedding}' needs an enlarged mesh at "
+                             f"'{embed_path}' (or set embed_mesh)")
+        embed_gm = read_mfem_mesh(embed_path)
+        if cfg.embedding == "matching":
+            hier, embed_hier, selection = build_embedded_simplicial_hierarchies(
+                mesh, embed_gm, cfg.nlevels, unstructured_coarsening=cfg.unstructured_coarsening,
+                coarsening_factor=cfg.coarsening_factor)
+        else:
+            if cfg.unstructured_coarsening:
+                raise ValueError("projection embedding with agglomeration is not wired yet; "
+                                 "use matching embedding or refinement hierarchies")
+            hier = build_simplicial_hierarchy(mesh, cfg.nlevels)
+            embed_hier = build_simplicial_hierarchy(embed_gm, cfg.nlevels)
+    elif cfg.unstructured_coarsening:
+        # "Unstructured coarsening" (examples/MLMC.cpp): the file is the
+        # FINEST mesh and the coarse levels come from agglomeration.
+        hier = build_agglomerated_hierarchy(mesh, cfg.nlevels,
+                                            coarsening_factor=cfg.coarsening_factor)
+    else:
+        hier = build_simplicial_hierarchy(mesh, cfg.nlevels)
+    if cfg.sampler_name == "pde":
+        if cfg.embedding == "matching":
+            sampler = UnstructuredEmbeddedSPDESampler(hier, embed_hier, selection, cfg, dtype,
+                                                      device)
+        elif cfg.embedding == "projection":
+            sampler = UnstructuredProjectionSPDESampler(hier, embed_hier, cfg, dtype, device)
+        else:
+            sampler = UnstructuredSPDESampler(hier, cfg, dtype, device)
+    elif cfg.sampler_name == "matern":
+        # The Matern KL expansion is mesh-agnostic (a dense kernel at the
+        # cell centers).
+        cov = MaternCovariance(hier.levels[0].mesh, cfg.correlation_length, cfg.number_of_modes)
+        sampler = KLSampler(hier, cov, cfg, dtype, device)
+    elif cfg.sampler_name == "analytic":
+        d = mesh.dim
+        nmodes = max(2, round(cfg.number_of_modes ** (1.0 / d)))
+        cov = AnalyticExponentialCovariance(hier.levels[0].mesh, cfg.correlation_length,
+                                            [nmodes] * d)
+        sampler = KLSampler(hier, cov, cfg, dtype, device)
+    else:
+        raise ValueError(f"unknown sampler '{cfg.sampler_name}'")
+    _check_marginal_norm_support(cfg, sampler)
+    solver = UnstructuredDarcySolver(hier, cfg, dtype, device)
+    return Problem(cfg, hier, embed_hier, sampler, solver, dtype, device)

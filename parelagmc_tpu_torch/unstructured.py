@@ -14,9 +14,11 @@ everything else here is gathers, elementwise work and Krylov loops, which
 the reference leaves to XLA and this port to PyTorch. Every tensor lives on
 the `device` given to the constructor (None: cuda:0).
 
-Not ported here: the embedded and projection samplers on unstructured
-meshes (ROADMAP.md Queue 1, item 15d) and the hybridized "hybrid-cg"
-Darcy solver (item 15c), which raises.
+The matching-mesh embedded sampler selects the original cells of a field
+solved on an enlarged mesh; the projection sampler maps it through a
+mortar coupling that the native geometry kernels (native/, g++) assemble
+on the host at setup. The Darcy solver's "hybrid-cg" condenses each level
+onto its face multipliers (physics/hybrid.py) and runs PCG there.
 """
 
 from __future__ import annotations
@@ -30,11 +32,20 @@ import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.device import resolve_device
-from parelagmc_tpu_torch.fem.agglomeration import _level_cell_centers
-from parelagmc_tpu_torch.fem.simplicial import SimplicialLevel
-from parelagmc_tpu_torch.fem.simplicial_hierarchy import SimplicialHierarchy
+from parelagmc_tpu_torch.fem.agglomeration import (
+    _cell_adjacency,
+    _level_cell_centers,
+    agglomerate_level,
+    partition_cells,
+)
+from parelagmc_tpu_torch.fem.simplicial import SimplicialLevel, build_simplicial_level
+from parelagmc_tpu_torch.fem.simplicial_hierarchy import (
+    SimplicialHierarchy,
+    build_simplicial_hierarchy,
+)
 from parelagmc_tpu_torch.mesh.mfem_io import GeneralMesh
 from parelagmc_tpu_torch.mesh.structured import _mfem_bdr_attr
+from parelagmc_tpu_torch.native import mortar_p0_couple
 from parelagmc_tpu_torch.ops import coef_multigrid as cmg
 from parelagmc_tpu_torch.ops import multigrid as mgops
 from parelagmc_tpu_torch.ops.ell import (
@@ -46,7 +57,13 @@ from parelagmc_tpu_torch.ops.ell import (
 )
 from parelagmc_tpu_torch.ops.prng import Key, sample_normals
 from parelagmc_tpu_torch.ops.solvers import minres, pcg
+from parelagmc_tpu_torch.physics.hybrid import (
+    build_hybrid_level,
+    build_hybrid_level_algebraic,
+    hybrid_solve,
+)
 from parelagmc_tpu_torch.samplers.base import MLSampler
+from parelagmc_tpu_torch.transfer_integrators import mortar_p1_p0_couple, mortar_rt0_couple
 from parelagmc_tpu_torch.utils.special import matern_spde_scaling
 
 
@@ -267,10 +284,10 @@ class UnstructuredSPDESampler(MLSampler):
         b = self._noise_load(level, xi, xi_level)
         return self._field_from(level, self._solve_u(level, b), b)
 
-    def eval_pair(self, level: int, xi: torch.Tensor):
-        """Coupled (fine, coarse) fields with shared noise: the coarse
-        system is solved first and its velocity, prolongated with the
-        essential rows zeroed, starts the fine PCG."""
+    def _eval_gaussian_pair(self, level: int, xi: torch.Tensor):
+        """Coupled (fine, coarse) Gaussian fields with shared noise: the
+        coarse system is solved first and its velocity, prolongated with
+        the essential rows zeroed, starts the fine PCG."""
         b_f = self._noise_load(level, xi, level)
         b_c = ell_apply(self._restrict[level], b_f)
         u_c = self._solve_u(level + 1, b_c)
@@ -278,13 +295,252 @@ class UnstructuredSPDESampler(MLSampler):
         ess = self._lv[level]["face_signs"][:, 0] == 0.0  # eliminated rows
         u0 = torch.where(ess, torch.zeros_like(u0), u0)
         u_f = self._solve_u(level, b_f, x0=u0)
-        s_f, s_c = self._field_from(level, u_f, b_f), self._field_from(level + 1, u_c, b_c)
+        return self._field_from(level, u_f, b_f), self._field_from(level + 1, u_c, b_c)
+
+    def eval_pair(self, level: int, xi: torch.Tensor):
+        s_f, s_c = self._eval_gaussian_pair(level, xi)
         if self.lognormal:
             return torch.exp(s_f), torch.exp(s_c)
         return s_f, s_c
 
     def nnz(self, level: int = 0) -> int:
         return int((self._lv[level]["A"].vals != 0).sum())
+
+
+class UnstructuredEmbeddedSPDESampler(UnstructuredSPDESampler):
+    """Matching-mesh embedded SPDE sampler on unstructured meshes: the SPDE
+    is solved on the enlarged mesh (noise drawn there, K2 on a CUDA
+    device) and the field restricted to the original domain by the
+    per-level material-1 selection (the reference's EmbeddedPDESampler:
+    embedded cells with attribute 1 correspond 1:1, in element order, to
+    the original mesh). `selection[l]` maps original cell -> embedded cell
+    at level l (build_embedded_simplicial_hierarchies)."""
+
+    def __init__(self, orig_hierarchy: Union[SimplicialHierarchy, SimplicialLevel],
+                 embed_hierarchy: Union[SimplicialHierarchy, SimplicialLevel],
+                 selection: List[np.ndarray], config: ProblemConfig,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(embed_hierarchy, config, dtype, device)
+        self.orig_hierarchy = _as_hierarchy(orig_hierarchy)
+        assert self.orig_hierarchy.nlevels == self.hierarchy.nlevels == len(selection)
+        self.selection = [torch.as_tensor(np.asarray(s), dtype=torch.int64, device=self.device)
+                          for s in selection]
+
+    def field_size(self, level: int) -> int:
+        return self.orig_hierarchy.levels[level].n_s
+
+    def eval(self, level: int, xi: torch.Tensor, xi_level: Optional[int] = None):
+        s = torch.index_select(self._eval_gaussian(level, xi, xi_level), -1,
+                               self.selection[level])
+        return torch.exp(s) if self.lognormal else s
+
+    def embed_eval(self, level: int, xi: torch.Tensor, xi_level: Optional[int] = None):
+        s = self._eval_gaussian(level, xi, xi_level)
+        return torch.exp(s) if self.lognormal else s
+
+    def eval_pair(self, level: int, xi: torch.Tensor):
+        s_f, s_c = self._eval_gaussian_pair(level, xi)
+        s_f = torch.index_select(s_f, -1, self.selection[level])
+        s_c = torch.index_select(s_c, -1, self.selection[level + 1])
+        if self.lognormal:
+            return torch.exp(s_f), torch.exp(s_c)
+        return s_f, s_c
+
+
+def match_embedded_cells(orig: GeneralMesh, embed: GeneralMesh, tol=1e-10) -> np.ndarray:
+    """Original cell -> embedded cell map via materialId 1 (the reference's
+    in-element-order correspondence), verified geometrically by centroid
+    agreement."""
+    sel = np.nonzero(embed.attributes == 1)[0]
+    if sel.size != len(orig.elements):
+        raise ValueError(
+            f"embedded mesh has {sel.size} material-1 cells, original has "
+            f"{len(orig.elements)}: not a matching embedding"
+        )
+    oc = orig.vertices[np.stack(orig.elements)].mean(axis=1)
+    ec = embed.vertices[np.stack(embed.elements)].mean(axis=1)
+    err = float(np.abs(ec[sel] - oc).max())
+    if err > tol:
+        raise ValueError(
+            f"material-1 cells do not match the original mesh in element "
+            f"order (max centroid error {err:.2e})"
+        )
+    return sel
+
+
+def build_embedded_simplicial_hierarchies(
+    orig_gm: GeneralMesh,
+    embed_gm: GeneralMesh,
+    nlevels: int,
+    unstructured_coarsening: bool = False,
+    coarsening_factor: int = 8,
+):
+    """Aligned (orig, embed) hierarchies + per-level selection maps.
+
+    * Refinement mode: both meshes refine in lockstep; children enumerate
+      parent-major, so the fine selection is sel_f[o*nc + k] = sel_c[o]*nc + k.
+    * Agglomeration mode (the reference's EmbeddedBuildTopology with
+      material-interface-preserving LogicalPartitioner): partition the
+      embedded fine mesh with material-crossing edges removed, so every
+      agglomerate is purely inside or outside; the original hierarchy
+      inherits the induced partition of its twin cells and the coarse
+      selection maps original agglomerate -> embedded agglomerate.
+    """
+    sel0 = match_embedded_cells(orig_gm, embed_gm)
+
+    if not unstructured_coarsening:
+        orig_h = build_simplicial_hierarchy(orig_gm, nlevels)
+        embed_h = build_simplicial_hierarchy(embed_gm, nlevels)
+        d = orig_gm.dim
+        nc = 4 if d == 2 else 8
+        selection = [sel0]
+        for _ in range(nlevels - 1):
+            prev = selection[-1]
+            selection.append(
+                (prev[:, None] * nc + np.arange(nc)[None, :]).reshape(-1)
+            )
+        selection = selection[::-1]  # finest first (level 0)
+        return orig_h, embed_h, selection
+
+    # --- agglomeration mode ---------------------------------------------------
+    orig_levels = [build_simplicial_level(orig_gm)]
+    embed_levels = [build_simplicial_level(embed_gm)]
+    orig_P, embed_P = [], []
+    orig_parents, embed_parents = [], []
+    selection = [sel0]
+    material = np.asarray(embed_gm.attributes) == 1
+    for _ in range(nlevels - 1):
+        el = embed_levels[-1]
+        adj = _cell_adjacency(el).tocoo()
+        keep = material[adj.row] == material[adj.col]
+        adj_cut = sp.csr_matrix(
+            (adj.data[keep], (adj.row[keep], adj.col[keep])), shape=adj.shape
+        )
+        e_labels = partition_cells(adj_cut, _level_cell_centers(el), coarsening_factor)
+        # Sanity: agglomerates never straddle the material interface.
+        assert (
+            np.intersect1d(
+                np.unique(e_labels[material]), np.unique(e_labels[~material])
+            ).size
+            == 0
+        ), "agglomerate straddles the material interface"
+        e_coarse, e_P = agglomerate_level(el, e_labels)
+        # Induced original partition via the twin cells.
+        sel = selection[-1]
+        o_labels_raw = e_labels[sel]
+        uniq, o_labels = np.unique(o_labels_raw, return_inverse=True)
+        o_coarse, o_P = agglomerate_level(orig_levels[-1], o_labels)
+        embed_levels.append(e_coarse)
+        orig_levels.append(o_coarse)
+        embed_P.append(e_P)
+        orig_P.append(o_P)
+        embed_parents.append(e_labels)
+        orig_parents.append(o_labels)
+        selection.append(uniq)  # original agg i -> embedded agg uniq[i]
+        material = np.zeros(e_coarse.n_s, dtype=bool)
+        material[uniq] = True
+    orig_h = SimplicialHierarchy(levels=orig_levels, parent=orig_parents, P_rt=orig_P)
+    embed_h = SimplicialHierarchy(
+        levels=embed_levels, parent=embed_parents, P_rt=embed_P
+    )
+    return orig_h, embed_h, selection
+
+
+class UnstructuredProjectionSPDESampler(UnstructuredSPDESampler):
+    """Non-matching-mesh embedded SPDE sampler on simplicial meshes (the
+    reference's L2ProjectionPDESampler): the field is solved on an
+    independently meshed enlarged domain and projected to the original
+    mesh by the mortar coupling, assembled per level on the host by the
+    native intersection kernels (native/geometry.cc) at setup and applied
+    on the device as an ELL. projection_order 0: s = W_orig^{-1} G s_embed
+    with G the P0 coupling; 1: the L2 projection onto the original mesh's
+    P1 vertex space (the mixed P1-P0 coupling over the lumped P1 mass, so
+    constants transfer exactly), reduced to one value per cell by the mean
+    of its d+1 vertex values."""
+
+    def __init__(self, orig_hierarchy: Union[SimplicialHierarchy, SimplicialLevel],
+                 embed_hierarchy: Union[SimplicialHierarchy, SimplicialLevel],
+                 config: ProblemConfig, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(embed_hierarchy, config, dtype, device)
+        dev = self.device
+        vec = lambda x, dt=dtype: torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=dev)
+        self.orig_hierarchy = _as_hierarchy(orig_hierarchy)
+        assert self.orig_hierarchy.nlevels == self.hierarchy.nlevels
+        self.projection_order = int(getattr(config, "projection_order", 0))
+        self.G = []
+        self.winv_orig = []
+        self._cell_verts = []  # order 1: (nc, d+1) vertex gather per level
+        for l in range(self.orig_hierarchy.nlevels):
+            om = self.orig_hierarchy.levels[l]
+            em = self.hierarchy.levels[l]
+            if self.projection_order == 1:
+                G, lump = mortar_p1_p0_couple(om.mesh, em.mesh)
+                weights = lump
+                self._cell_verts.append(vec(np.stack(om.mesh.elements), torch.int64))
+            else:
+                G = mortar_p0_couple(om.mesh, em.mesh)
+                weights = om.W
+                self._cell_verts.append(None)
+            covered = np.asarray(G.sum(axis=1)).ravel()
+            if not np.allclose(covered, weights, rtol=1e-8):
+                raise ValueError("No intersection, no transfer! (level %d)" % l)
+            self.G.append(pack_csr_to_ell(G, dtype, device=dev))
+            self.winv_orig.append(vec(1.0 / weights))
+        self._vel_ops = {}
+
+    def field_size(self, level: int) -> int:
+        return self.orig_hierarchy.levels[level].n_s
+
+    def transfer_velocity(self, level: int, u_embed: torch.Tensor, rtol: float = 1e-8,
+                          max_iterations: int = 60):
+        """Mortar L2 projection of an RT0 velocity field from the embedded
+        mesh to the original one, v = M_orig^{-1} B_rt u_embed (the
+        reference's ParMortarAssembler::Transfer for vector spaces): B_rt is
+        the exact RT0-RT0 mortar coupling (transfer_integrators.
+        mortar_rt0_couple), assembled on the host at first use for the
+        level, and the original RT0 mass is inverted by Jacobi-PCG.
+        `u_embed` is (n_u_embed,) or (batch, n_u_embed) in the embedded
+        level's face numbering; returns (v, SolveInfo) in the original
+        level's."""
+        if level not in self._vel_ops:
+            ol = self.orig_hierarchy.levels[level]
+            el = self.hierarchy.levels[level]
+            B = mortar_rt0_couple(ol, el).tocsr()
+            M = ol.mass_csr().tocsr()
+            self._vel_ops[level] = (
+                pack_csr_to_ell(B, self.dtype, device=self.device),
+                pack_csr_to_ell(M, self.dtype, device=self.device),
+                torch.as_tensor(1.0 / M.diagonal(), dtype=self.dtype, device=self.device),
+            )
+        B_ell, M_ell, dinv = self._vel_ops[level]
+        rhs = ell_apply(B_ell, u_embed)
+        return pcg(lambda x: ell_apply(M_ell, x), rhs, prec=lambda r: dinv * r,
+                   max_iters=max_iterations, rtol=rtol)
+
+    def project(self, level: int, s_embed: torch.Tensor) -> torch.Tensor:
+        s_v = self.winv_orig[level] * ell_apply(self.G[level], s_embed)
+        if self.projection_order == 1:
+            return _take(s_v, self._cell_verts[level]).mean(dim=-1)
+        return s_v
+
+    transfer = project  # reference: L2ProjectionPDESampler::Transfer
+
+    def eval(self, level: int, xi: torch.Tensor, xi_level: Optional[int] = None):
+        # exp after the projection, as the reference does.
+        s = self.project(level, self._eval_gaussian(level, xi, xi_level))
+        return torch.exp(s) if self.lognormal else s
+
+    def embed_eval(self, level: int, xi: torch.Tensor, xi_level: Optional[int] = None):
+        s = self._eval_gaussian(level, xi, xi_level)
+        return torch.exp(s) if self.lognormal else s
+
+    def eval_pair(self, level: int, xi: torch.Tensor):
+        s_f, s_c = self._eval_gaussian_pair(level, xi)
+        s_f = self.project(level, s_f)
+        s_c = self.project(level + 1, s_c)
+        if self.lognormal:
+            return torch.exp(s_f), torch.exp(s_c)
+        return s_f, s_c
 
 
 class UnstructuredDarcySolver:
@@ -294,16 +550,15 @@ class UnstructuredDarcySolver:
     preconditioner: diag(M(w))^-1 on the velocity and, on the pressure,
     the diagonal of B diag(M(w))^-1 B^T (minres-bj), a static Schur V-cycle
     scaled by the sample's geometric-mean coefficient (minres-mg), or the
-    per-sample Galerkin coefficient MG (minres-coefmg). QoI functionals and
-    forcing are assembled on the finest level and restricted through the
-    exact block prolongator transposes."""
+    per-sample Galerkin coefficient MG (minres-coefmg). Under hybrid-cg
+    each level that hybridizes solves its SPD face-multiplier system by PCG
+    instead, with the coefficient MG as the auxiliary-space half of the
+    preconditioner. QoI functionals and forcing are assembled on the
+    finest level and restricted through the exact block prolongator
+    transposes."""
 
     def __init__(self, hierarchy: Union[SimplicialHierarchy, SimplicialLevel],
                  config: ProblemConfig, dtype: torch.dtype = torch.float32, device=None):
-        if config.darcy_solver.name == "hybrid-cg":
-            raise NotImplementedError(
-                "darcy_solver.name 'hybrid-cg' (the hybridized solver, physics/hybrid.py) is "
-                "not ported yet (ROADMAP.md Queue 1, item 15c)")
         self.hierarchy = _as_hierarchy(hierarchy)
         self.config = config
         self.dtype = dtype
@@ -358,10 +613,11 @@ class UnstructuredDarcySolver:
         self._coef_mg = [None] * self.hierarchy.nlevels
         for l, lvl in enumerate(levels):
             ess = lvl.ess_faces(ess_attr)
-            if self.solver_cfg.name == "minres-coefmg":
+            if self.solver_cfg.name in ("minres-coefmg", "hybrid-cg"):
                 # Per-sample Galerkin Schur MG below this MLMC level from the
                 # face incidence alone (agglomerated parents): any simplicial,
-                # agglomerated or curved mesh.
+                # agglomerated or curved mesh. hybrid-cg takes it as the
+                # auxiliary-space half of its preconditioner.
                 fs_m = lvl.face_signs.copy()
                 fs_m[ess, :] = 0.0
                 self._coef_mg[l] = cmg.build_coef_mg_graph(
@@ -401,9 +657,22 @@ class UnstructuredDarcySolver:
                 obs=vec(obs_np[l]),
             ))
         # Mean-field warm starts (config.meanfield_x0): per-level cached
-        # saddle vector of the w == 1 solve.
+        # w == 1 solution - the saddle vector on MINRES levels, the trace
+        # multiplier on hybridized ones.
         self._mf_cache = {}
         self._mf_building: set = set()
+        # Hybridized SPD path (hybrid-cg, physics/hybrid.py): the geometric
+        # tables on simplicial levels, the algebraic ones from the
+        # per-agglomerate Galerkin mass blocks on agglomerated levels; a
+        # level where both return None keeps MINRES.
+        self._hybrid = [None] * self.hierarchy.nlevels
+        if self.solver_cfg.name == "hybrid-cg":
+            for l, lvl in enumerate(levels):
+                ess = lvl.ess_faces(ess_attr)
+                h = build_hybrid_level(lvl, ess, rhs_np[l], obs_np[l], dtype, dev)
+                if h is None:
+                    h = build_hybrid_level_algebraic(lvl, ess, rhs_np[l], obs_np[l], dtype, dev)
+                self._hybrid[l] = h
         # Block prolongations for warm-started pair solves.
         self._prolong_rt = [pack_csr_to_ell(P.tocsr(), dtype, device=dev)
                             for P in self.hierarchy.P_rt]
@@ -429,7 +698,13 @@ class UnstructuredDarcySolver:
                        max_iters: Optional[int] = None):
         """Coupled (fine, coarse) solves with the fine MINRES warm-started
         from the block-prolongated coarse solution [P_rt u_c; p_c[parent]].
-        Returns (q, qc, info_f, info_c)."""
+        A hybridized fine level recovers (u, p~) element-locally and has no
+        saddle iterate to start from, so its pair runs as two independent
+        cold solves. Returns (q, qc, info_f, info_c)."""
+        if self._hybrid[level] is not None:
+            qc, _, info_c = self.solve_fwd(level + 1, w_c, max_iters=max_iters)
+            q, _, info_f = self.solve_fwd(level, w_f, max_iters=max_iters)
+            return q, qc, info_f, info_c
         qc, _, info_c, x_c = self.solve_fwd(level + 1, w_c, return_solution=True,
                                             max_iters=max_iters)
         n_uc = int(self._lv[level + 1]["n_u"])
@@ -481,7 +756,26 @@ class UnstructuredDarcySolver:
         `return_pressure` and the saddle solution x under
         `return_solution`. `x0` starts MINRES (else the mean-field vector
         under meanfield_x0, else zero); `max_iters` overrides
-        config.max_iterations for this solve."""
+        config.max_iterations for this solve. A hybridized level solves
+        the multiplier system instead (hybrid_solve), unless x0 or the
+        saddle solution is asked for."""
+        mf = (getattr(self.solver_cfg, "meanfield_x0", False)
+              and level not in self._mf_building)
+        cfg = self.solver_cfg
+        budget = cfg.max_iterations if max_iters is None else int(max_iters)
+        if self._hybrid[level] is not None and x0 is None and not return_solution:
+            lam0 = None
+            if mf:
+                lam_ref = self._meanfield_start(level)
+                lam0 = lam_ref.expand(w.shape[:-1] + lam_ref.shape[-1:])
+            Q, info, pe = hybrid_solve(
+                self._hybrid[level], w, max_iters=budget, rtol=cfg.relative_tolerance,
+                atol=cfg.absolute_tolerance, restart_every=cfg.restart_every,
+                aux_cycle=self._coefmg_cycle(level, w), lam0=lam0)
+            cost = float(self.num_dofs(level))
+            if return_pressure:
+                return Q, cost, info, -pe
+            return Q, cost, info
         L = self._lv[level]
         n_u = int(L["n_u"])
         ess = L["ess"]
@@ -497,14 +791,11 @@ class UnstructuredDarcySolver:
         dM = L["m_diag"](w)
         inv_dM = 1.0 / torch.where(ess, torch.ones_like(dM), dM)
         prec = self._prec(level, w, inv_dM)
-        if x0 is None and (getattr(self.solver_cfg, "meanfield_x0", False)
-                           and level not in self._mf_building):
+        if x0 is None and mf:
             x_ref = self._meanfield_start(level)
             x0 = x_ref.expand(w.shape[:-1] + x_ref.shape[-1:])
         b = L["rhs"].expand(w.shape[:-1] + L["rhs"].shape)
-        cfg = self.solver_cfg
-        x, info = minres(apply_A, b, prec=prec, x0=x0,
-                         max_iters=cfg.max_iterations if max_iters is None else int(max_iters),
+        x, info = minres(apply_A, b, prec=prec, x0=x0, max_iters=budget,
                          rtol=cfg.relative_tolerance, atol=cfg.absolute_tolerance)
         Q = torch.sum(x * L["obs"], dim=-1)
         cost = float(self.num_dofs(level))
@@ -515,19 +806,29 @@ class UnstructuredDarcySolver:
         return Q, cost, info
 
     def _meanfield_start(self, level: int) -> torch.Tensor:
-        """Mean-field initial iterate (config.meanfield_x0): the saddle
-        vector of one reference solve with w == 1 on this level (up to 8
-        restarts until converged), cached. The reference measured it to
-        slow the unstructured MINRES down, so it stays off by default; the
-        `_mf_building` guard keeps the setup solve from starting itself."""
+        """Mean-field initial iterate (config.meanfield_x0): one reference
+        solve with w == 1 on this level (up to 8 restarts until converged),
+        cached - the saddle vector on a MINRES level, the trace multiplier
+        (hybrid_solve's lam0) on a hybridized one. The reference measured
+        it to slow the unstructured MINRES down, so it stays off by
+        default; the `_mf_building` guard keeps the setup solve from
+        starting itself."""
         if level in self._mf_cache:
             return self._mf_cache[level]
         self._mf_building.add(level)
         try:
             ones = torch.ones((1, self._lv[level]["n_s"]), dtype=self.dtype, device=self.device)
+            H = self._hybrid[level]
+            cfg = self.solver_cfg
             x = None
             for _ in range(8):
-                _, _, info, x = self.solve_fwd(level, ones, x0=x, return_solution=True)
+                if H is not None:
+                    _, info, _, x = hybrid_solve(
+                        H, ones, max_iters=cfg.max_iterations, rtol=cfg.relative_tolerance,
+                        atol=cfg.absolute_tolerance, restart_every=cfg.restart_every,
+                        aux_cycle=self._coefmg_cycle(level, ones), lam0=x, return_lam=True)
+                else:
+                    _, _, info, x = self.solve_fwd(level, ones, x0=x, return_solution=True)
                 if bool(info.converged.all()):
                     break
         finally:

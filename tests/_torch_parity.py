@@ -99,15 +99,24 @@ def simplex_box_arrays(ncells, lengths=None):
     return verts, elements, uniq[counts == 1]
 
 
-def general_mesh(module, ncells, lengths=None, label=True):
+def general_mesh(module, ncells, lengths=None, label=True, origin=None, material_box=None):
     """The GeneralMesh of `module` (the mfem_io module of either package)
-    for simplex_box_arrays, boundary attributes set by that package's
-    label_box_boundaries_gm (MFEM box sides) or all 1."""
+    for simplex_box_arrays, moved to `origin`, boundary attributes set by
+    that package's label_box_boundaries_gm (MFEM box sides) or all 1.
+    With `material_box` (lo, hi) the cells whose centroid lies inside it
+    get attribute 1 and the others 2 (an embedding mesh); else all are 1."""
     verts, elements, boundary = simplex_box_arrays(ncells, lengths)
     d = len(ncells)
+    if origin is not None:
+        verts = verts + np.asarray(origin, dtype=np.float64)
+    attributes = np.ones(len(elements), dtype=np.int32)
+    if material_box is not None:
+        c = verts[elements].mean(axis=1)
+        inside = np.all((c > material_box[0]) & (c < material_box[1]), axis=1)
+        attributes = np.where(inside, 1, 2).astype(np.int32)
     gm = module.GeneralMesh(
         dim=d, vertices=verts, elements=list(elements),
-        attributes=np.ones(len(elements), dtype=np.int32),
+        attributes=attributes,
         geom_types=np.full(len(elements), 2 if d == 2 else 4, dtype=np.int32),
         boundary=list(boundary), boundary_attributes=np.ones(len(boundary), dtype=np.int32))
     if label:
@@ -133,3 +142,11 @@ def write_mfem_v10(path, dim, vertices, elements, geom, boundary=(), bgeom=None,
     lines += [" ".join(repr(float(x)) for x in v) for v in vertices]
     path.write_text("\n".join(lines) + "\n")
     return str(path)
+
+
+def write_general_mesh(path, gm):
+    """A simplicial GeneralMesh as an MFEM v1.0 file at `path`."""
+    d = gm.dim
+    return write_mfem_v10(path, d, gm.vertices, np.stack(gm.elements), 2 if d == 2 else 4,
+                          np.stack(gm.boundary), 1 if d == 2 else 2,
+                          attributes=gm.attributes, battributes=gm.boundary_attributes)

@@ -54,16 +54,20 @@ def test_port_imports_leave_jax_out():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "print(any(k == 'jax' or k.startswith('jax.') for k in sys.modules),\n"
-        "      any(k == 'parelagmc_tpu' or k.startswith('parelagmc_tpu.') for k in sys.modules))\n"
+        "      any(k == 'parelagmc_tpu' or k.startswith('parelagmc_tpu.') for k in sys.modules),\n"
+        "      sys.modules['parelagmc_tpu_torch.native']._LIB is None,\n"
+        "      sys.modules['parelagmc_tpu_torch.kernels']._LIB is None)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    # Neither jax nor the JAX package; no library (CUDA or g++) loaded at import.
+    assert out.stdout.split() == ["False", "False", "True", "True"]
     assert len(MODULES) > 25 and "parelagmc_tpu_torch.fem.galerkin_mass" in MODULES
     for name in ("ops.ell", "samplers.covariance", "samplers.kl", "uq.bayes", "uq.ratio_managers",
                  "ops.multigrid", "ops.coef_multigrid", "fem.agglomeration", "parallel.sharding",
-                 "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured"):
+                 "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured",
+                 "physics.hybrid", "native", "transfer_integrators"):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
 
@@ -199,7 +203,13 @@ def test_entry_points_default_to_the_card():
     from parelagmc_tpu_torch.samplers.kl import KLSampler
     from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
     from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh
-    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver, UnstructuredSPDESampler
+    from parelagmc_tpu_torch.physics.hybrid import build_hybrid_level
+    from parelagmc_tpu_torch.unstructured import (
+        UnstructuredDarcySolver,
+        UnstructuredEmbeddedSPDESampler,
+        UnstructuredProjectionSPDESampler,
+        UnstructuredSPDESampler,
+    )
 
     mesh = tfactories.make_box_mesh((2, 2, 2))
     lvl = tassembly.build_mixed_level(mesh)
@@ -212,6 +222,12 @@ def test_entry_points_default_to_the_card():
         lambda: build_problem(cfg),
         lambda: UnstructuredSPDESampler(shier, cfg),
         lambda: UnstructuredDarcySolver(shier, cfg),
+        lambda: UnstructuredEmbeddedSPDESampler(
+            shier, shier, [np.arange(l.n_s) for l in shier.levels], cfg),
+        lambda: UnstructuredProjectionSPDESampler(shier, shier, cfg),
+        lambda: build_hybrid_level(shier.levels[0], np.zeros(shier.levels[0].n_u, bool),
+                                   np.zeros(shier.levels[0].n_u + shier.levels[0].n_s),
+                                   np.zeros(shier.levels[0].n_u + shier.levels[0].n_s)),
         lambda: DarcySolver(hier, cfg),
         lambda: SPDESampler(hier, cfg),
         lambda: EmbeddedSPDESampler(hier, hier, cfg),
@@ -246,9 +262,12 @@ def test_entry_points_default_to_the_card():
      ("darcy_solver.spatial_shards", 2, 14), ("darcy_solver.name", "hybrid-cg", "15c")],
 )
 def test_build_problem_refuses_unported_configs(field, value, item):
-    """What is not ported raises, naming its ROADMAP item (mesh files; the
-    hybridized solver of the unstructured stack, on a simplicial
-    hierarchy; spatial sharding), instead of running something else."""
+    """What is not ported raises, naming its ROADMAP item (spatial
+    sharding), or says it is not supported (bfloat16), instead of running
+    something else. The cases of items 15 and 15c, ported since, pin what
+    replaced their refusal: a mesh file that does not exist raises the
+    reader's error, and the hybridized solver builds on a simplicial
+    hierarchy and solves."""
     from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
     from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh
     from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
@@ -259,12 +278,20 @@ def test_build_problem_refuses_unported_configs(field, value, item):
     for name in path:
         target = getattr(target, name)
     setattr(target, leaf, value)
-    build = lambda: build_problem(cfg, device=CPU)
+    if value == "cube.mesh":
+        with pytest.raises(FileNotFoundError, match="cube.mesh"):
+            build_problem(cfg, device=CPU)
+        return
     if value == "hybrid-cg":
         hier = build_simplicial_hierarchy(read_mfem_mesh_inline_tri(read_mfem_mesh), 2)
-        build = lambda: UnstructuredDarcySolver(hier, cfg, device=CPU)
+        cfg.dtype = "float64"
+        solver = UnstructuredDarcySolver(hier, cfg, torch.float64, device=CPU)
+        assert all(h is not None for h in solver._hybrid)
+        q, _, info = solver.solve_fwd(0, torch.ones(2, hier.levels[0].n_s, dtype=torch.float64))
+        assert bool(info.converged.all()) and torch.isfinite(q).all()
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}" if item else "not supported"):
-        build()
+        build_problem(cfg, device=CPU)
 
 
 @pytest.mark.parametrize(
@@ -531,8 +558,44 @@ def test_copied_unstructured_host_modules_match_the_jax_package():
         for name in ref:
             assert mine[name] == ref[name], f"{tm.__name__}.{name}"
     pairs = [(jassembly, tassembly, ("pack_ell",)),
-             (jun, tun, ("label_box_boundaries_gm", "label_box_boundaries", "_as_hierarchy"))]
+             (jun, tun, ("label_box_boundaries_gm", "label_box_boundaries", "_as_hierarchy",
+                         "match_embedded_cells", "build_embedded_simplicial_hierarchies"))]
     for jm, tm, names in pairs:
         mine, ref = _defs_normalized(tm), _defs_normalized(jm)
         for n in names:
             assert mine[n] == ref[n], f"{tm.__name__}.{n}"
+
+
+def test_copied_mesh_file_host_code_matches_the_jax_package():
+    """transfer_integrators.py is a copy; native/ binds the same C entry
+    points with the same marshalling, and its geometry.cc is the
+    original's code (comments aside); the hybrid element mass is the
+    original's."""
+    from parelagmc_tpu import native as jnative
+    from parelagmc_tpu import transfer_integrators as jti
+    from parelagmc_tpu.physics import hybrid as jhybrid
+    from parelagmc_tpu_torch import native as tnative
+    from parelagmc_tpu_torch import transfer_integrators as tti
+    from parelagmc_tpu_torch.physics import hybrid as thybrid
+
+    mine, ref = _defs_normalized(tti), _defs_normalized(jti)
+    assert set(mine) == set(ref) and len(mine) >= 6
+    for name in ref:
+        assert mine[name] == ref[name], f"transfer_integrators.{name}"
+    mine, ref = _defs_normalized(tnative), _defs_normalized(jnative)
+    for name in ("mesh_arrays", "_as_arrays", "mortar_p0_couple", "mortar_moments",
+                 "detect_intersections_bruteforce", "element_measure"):
+        assert mine[name] == ref[name], f"native.{name}"
+    # _lib's body after the library is loaded: the types of every entry point.
+    lib = lambda m: [ast.dump(n) for n in ast.parse(inspect.getsource(m._lib)).body[0].body[1]
+                     .body[1:]]
+    assert lib(tnative) == lib(jnative) and len(lib(tnative)) > 8
+
+    def code(path):
+        with open(path) as f:
+            return [ln for ln in (l.split("//")[0].rstrip() for l in f) if ln]
+
+    assert code(os.path.join(PKG, "native", "geometry.cc")) == code(
+        os.path.join(REPO, "parelagmc_tpu", "native", "geometry.cc"))
+    assert (_defs_normalized(thybrid)["element_outward_mass"]
+            == _defs_normalized(jhybrid)["element_outward_mass"])

@@ -121,6 +121,77 @@ def test_threefry_kernel_at_the_unstructured_shapes(cuda_device, shape):
     assert err <= 1e-5, err
 
 
+def _hybrid_solver(device):
+    """hybrid-cg on the nested hierarchy of a 2 x 2 x 2 tet box (48 -> 6
+    tets), float64, and a lognormal field on level 0."""
+    from _torch_parity import general_mesh
+    from parelagmc_tpu_torch.config import ProblemConfig
+    from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
+    from parelagmc_tpu_torch.mesh import mfem_io
+    from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
+
+    hier = build_simplicial_hierarchy(general_mesh(mfem_io, (2, 2, 2)), 2)
+    cfg = ProblemConfig(refinements=1, dtype="float64")
+    cfg.darcy_solver.name = "hybrid-cg"
+    cfg.darcy_solver.relative_tolerance = 1e-10
+    cfg.darcy_solver.coarse_dense_cutoff = 20
+    w = np.exp(0.5 * np.random.default_rng(0).normal(size=(3, hier.levels[0].n_s)))
+    return (UnstructuredDarcySolver(hier, cfg, torch.float64, device=device),
+            torch.as_tensor(w, device=device))
+
+
+def test_hybrid_block_product_runs_without_tf32(monkeypatch):
+    """hybrid_solve's block einsum runs with TF32 off and the float32
+    matmul precision "highest", whatever the caller set, and gives the
+    caller's setting back."""
+    seen = []
+    einsum = torch.einsum
+
+    def spy(*args):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()))
+        return einsum(*args)
+
+    solver, w = _hybrid_solver(CPU)
+    monkeypatch.setattr(torch, "einsum", spy)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        q, _, info = solver.solve_fwd(0, w)
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision(prev)
+    assert bool(info.converged.all()) and len(seen) > info.iterations
+    assert set(seen) == {(False, "highest")}
+    assert after == (True, "high")
+
+
+@pytest.mark.gpu
+def test_embedded_noise_and_hybrid_solve_on_the_card(cuda_device):
+    """K2 at the embedded draw shapes of chip_smoke.py's mesh-file phase
+    (batch 32 x the enlarged meshes' level-0 cells: 196 608 matching, 82 944
+    non-matching): the raw bits bit for bit and the normals to 1e-5 against
+    the plain version (CUDA's erfinvf against PyTorch's); then hybrid_solve
+    on the card against the same solve on the CPU."""
+    for shape in ((32, 196608), (32, 82944)):
+        key = prng.fold_in(prng.PRNGKey(6), shape[1])
+        assert torch.equal(prng.random_bits(key, 32, shape, cuda_device),
+                           prng.random_bits_plain(key, 32, shape, cuda_device))
+        n0 = kernels.launch_counts["threefry_normal"]
+        got = prng.sample_normals(key, shape, torch.float32, cuda_device)
+        assert kernels.launch_counts["threefry_normal"] == n0 + 1
+        ref = prng.normals_plain(key, shape, torch.float32, cuda_device)
+        err = ((got - ref).abs() / (1.0 + ref.abs())).max().item()
+        assert err <= 1e-5, err
+    (gpu, w_gpu), (cpu, w_cpu) = _hybrid_solver(cuda_device), _hybrid_solver(CPU)
+    q_g, _, info_g, p_g = gpu.solve_fwd(0, w_gpu, return_pressure=True)
+    q_c, _, info_c, p_c = cpu.solve_fwd(0, w_cpu, return_pressure=True)
+    assert bool(info_g.converged.all()) and abs(info_g.iterations - info_c.iterations) <= 2
+    assert ((q_g.cpu() - q_c).abs().max() / q_c.abs().max()).item() <= 1e-10
+    assert ((p_g.cpu() - p_c).abs().max() / p_c.abs().max()).item() <= 1e-10
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,L", [(17, 131072), (86, 4099)])
 def test_thomas_bf16_kernel_matches_plain(cuda_device, n, L):

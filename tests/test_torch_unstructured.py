@@ -6,8 +6,9 @@ tet) to 1e-10 at sampler rtol 1e-12; UnstructuredDarcySolver's solve_fwd
 and solve_fwd_pair under minres-bj, minres-mg and minres-coefmg, mean-field
 start on and off, Q to 1e-9 on variance-0.25 fields at Darcy rtol 1e-9,
 iteration counts within 2 % (see assert_iterations); an MLMC run on a three-level tet hierarchy with the reference's
-per-level sums (its pair step goes through the samplers' eval_pair); and
-the refusal of hybrid-cg. The JAX side is jitted (its eager while-loops are
+per-level sums (its pair step goes through the samplers' eval_pair), under
+minres and under hybrid-cg (whose solver tests are in
+tests/test_torch_hybrid.py). The JAX side is jitted (its eager while-loops are
 slow)."""
 
 import dataclasses
@@ -251,13 +252,55 @@ def test_mlmc_three_level_tet_matches_jax(tmp_path):
 
 
 def test_hybrid_cg_refused():
-    """The hybridized solver is ROADMAP item 15c: it raises, and nothing
-    runs MINRES in its place."""
-    _, th = hierarchies("tri", "nested", 2)
-    cfg = port_config(config())
+    """hybrid-cg, refused until the hybridized solver was ported, now
+    builds and solves: every level of a nested tri hierarchy hybridizes
+    (nothing runs MINRES in its place) and its Q equals minres-bj's on the
+    same fields."""
+    jh, th = hierarchies("tri", "nested", 2)
+    cfg = config()
     cfg.darcy_solver.name = "hybrid-cg"
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        tun.UnstructuredDarcySolver(th, cfg, F64, device=CPU)
+    tsol = tun.UnstructuredDarcySolver(th, port_config(cfg), F64, device=CPU)
+    assert all(h is not None for h in tsol._hybrid)
+    cfg.darcy_solver.name = "minres-bj"
+    ref = tun.UnstructuredDarcySolver(th, port_config(cfg), F64, device=CPU)
+    w = sampled_fields(th, cfg, 2, 4)
+    for level in range(2):
+        q, _, info = tsol.solve_fwd(level, torch.as_tensor(w[level]))
+        q_ref, _, _ = ref.solve_fwd(level, torch.as_tensor(w[level]))
+        assert bool(info.converged.all()) and rel_err(q, q_ref) <= 1e-8
+
+
+def test_mlmc_hybrid_cg_matches_jax(tmp_path):
+    """An MLMCManager run under hybrid-cg on a three-level agglomerated tet
+    hierarchy (level 0 geometric, levels 1-2 algebraic): its level steps
+    give the JAX package's Q and Qc per sample on the same keys, then the
+    same per-level sums after init_run."""
+    JaxTimeManager.reset()
+    TimeManager.reset()
+    jh, th = hierarchies("tet", "agglomerated", 3)
+    cfg = config(refinements=2, mse=1e10, batch_size=8, initial_samples=8, cost_model="dofs",
+                 output_filename=str(tmp_path / "hybrid.dat"))
+    cfg.darcy_solver.name = "hybrid-cg"
+    cfg.darcy_solver.coarse_dense_cutoff = 20
+    tcfg = port_config(cfg)
+    jsol = jun.UnstructuredDarcySolver(jh, cfg, jnp.float64)
+    tsol = tun.UnstructuredDarcySolver(th, tcfg, F64, device=CPU)
+    assert [h is not None for h in tsol._hybrid] == [h is not None for h in jsol._hybrid]
+    assert all(h is not None for h in tsol._hybrid)
+    jmgr = JaxMLMCManager(jsol, jun.UnstructuredSPDESampler(jh, cfg, jnp.float64), cfg)
+    mgr = MLMCManager(tsol, tun.UnstructuredSPDESampler(th, tcfg, F64, device=CPU), tcfg)
+    for level in (2, 1, 0):
+        key = jax.random.fold_in(jax.random.PRNGKey(9), level)
+        want = jmgr._step(level)(key)
+        got = mgr._step(level)(tuple(int(v) for v in np.asarray(jax.random.key_data(key))))
+        for a, b in zip(got[:2], want[:2]):
+            np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-8, atol=1e-12)
+    jmgr.init_run([8, 8, 8])
+    mgr.init_run([8, 8, 8])
+    np.testing.assert_allclose(mgr.sums, jmgr.sums, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(mgr.solver_iterations, jmgr.solver_iterations, rtol=0.02)
+    mgr.close()
+    jmgr.close()
 
 
 def test_single_level_and_own_builders():
