@@ -43,8 +43,11 @@ Phases, each printing one line (or block) before the last line:
              and noise draw at batch 16, float64).
 9. SPE10   - the full 60x220x85 grid with the production solver settings
              (physics/spe10.full_grid_solver_defaults, float32, corlen 100,
-             normalized marginals, axis_order auto, synthetic permeability):
-             host setup seconds, then
+             normalized marginals, axis_order auto, synthetic permeability;
+             the config from the port's drivers, spe10_mlmc.build_config on
+             SPE10_FULL_ARGV and spe10_ratio_mlmc.with_wells, held equal to
+             the settings written out in spe10_full_problem): host setup
+             seconds, then
    9a. K1 on the coefMG line tables: struct_mg_setup on a sampled level-1
        field with coefmg_line_axes "auto", kernel (the special case of
        (n, L) tables, solved axis first) against its plain version per
@@ -76,7 +79,9 @@ Phases, each printing one line (or block) before the last line:
              of tests/test_nondyadic.py:115-131): embedded shapes (64, 64,
              11) and (32, 32, 5) and the estimate (see EGG below).
 11. ratio anchor - examples/spe10_ratio_mlmc.py --grid 16,32,8
-             --refinements 1 --samples 8 --batch 8 --dtype float64 through
+             --refinements 1 --samples 8 --batch 8 --dtype float64 (the
+             config from the port's twin, spe10_ratio_mlmc.build_config,
+             held equal to the one written out in phase_ratio_anchor) through
              build_problem, BayesianInverseProblem and BayesRatioManager
              on cg-schur-coefmg: ratio estimate within 2e-3 of 354.436,
              splitting estimate (the same moment table) within 2e-3 of
@@ -192,6 +197,28 @@ Phases, each printing one line (or block) before the last line:
              against its plain version at each embedded draw shape; the
              order-0 projection sampler on the matching embedding against
              the matching sampler (EMBED_AGREE_TOL).
+20. drivers - the port's command-line drivers (parelagmc_tpu_torch/
+             examples/), each through its main(argv) in process on the
+             default device (cuda:0, no --device given) in a temporary
+             directory, the launch counts set to 0 just before each: mlmc
+             with no arguments (the golden configuration at full width:
+             dofs 17152/2240/304, f32, estimate within 0.25 of 2.56, K1 and
+             K2 launched) and the golden keys as a ParameterList read through
+             --xml-file (config equal to the default field by field);
+             darcy_test --refinements 2 (Q = 2 on every level at 1e-4);
+             darcy_random_input and likelihood_example at refinements 2,
+             float64, seed 0 (the pins of tests/test_examples.py at 1e-4);
+             slmc, mlmc_manual, ratio_estimator_mlmc --splitting and
+             ratio_estimator_mc, plain and --splitting, at that file's small
+             settings and pins; compute_reference_obs_data (the file, finite);
+             sampler_test and realization_test (the VTK and mesh files);
+             spe10_mlmc on the 8x12x4 grid (487.129 at rtol 0.01);
+             spe10_ratio_mlmc on phase 11's command line under
+             cg-schur-coefmg (ratio and splitting estimates equal to phase
+             11's to 1e-8 relative). Each run's wall and launches are
+             printed; then K1 and K2 against their plain versions at the
+             golden driver's shapes (batch 32) and the scaled SPE10 driver's
+             (batch 4), float32.
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -214,7 +241,8 @@ branch, see executed_path): the busiest pipe over them or, if larger, all of
 them over the SM's dispatch width.
 
 Then one JSON line with the kernels' numbers (launches of each path with
-the counts at 0 before it, `launches` being the ratio full-grid run's;
+the counts at 0 before it, the drivers' as drivers_<run>, `launches` being
+the ratio full-grid run's;
 errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
 K1 and K2, which the MLMC and the ratio run share, of sample_uniforms for
 K3), the card's
@@ -296,6 +324,43 @@ OBS_EPS = 30.0
 # against 1e-3 there.
 EGG = dict(estimate=99835.47, rtol=3e-3, embedded=[(64, 64, 11), (32, 32, 5)])
 RATIO_ANCHOR = dict(ratio=354.436, splitting=350.767, rtol=2e-3)
+# The command lines of the port's drivers whose configs phases 9 and 11 take
+# (parelagmc_tpu_torch/examples/spe10_mlmc.py, spe10_ratio_mlmc.py).
+SPE10_FULL_ARGV = ["--refinements", "2", "--dtype", "float32", "--output", ""]
+RATIO_ANCHOR_ARGV = ["--grid", "16,32,8", "--refinements", "1", "--samples", "8", "--batch", "8",
+                     "--dtype", "float64", "--output", ""]
+# Phase 20: the drivers at the settings of tests/test_examples.py, and its pins.
+DRIVER_SMALL = ["--refinements", "1", "--batch", "8", "--samples", "8", "--mse", "0.05"]
+DRIVER_GOLDEN_F64 = ["--refinements", "2", "--dtype", "float64", "--seed", "0"]
+DRIVER_SAMPLERS = ["--refinements", "1", "--batch", "16", "--samples", "8", "--corlen", "0.4"]
+DARCY_RANDOM_PINS = (2.6480155, 2.7483976, 1.8151928)
+LIKELIHOOD_PINS = (0.92472297, 0.92566917, 0.92746946)
+DRIVER_PIN_RTOL = 1e-4
+# The ratio anchor's stream run through the driver against phase 11's run.
+DRIVER_RATIO_RTOL = 1e-8
+# The golden keys of the reference's test parameters as a ParameterList.
+GOLDEN_XML = """<ParameterList name="MLMC golden">
+  <ParameterList name="Problem parameters">
+    <Parameter name="Correlation length" type="double" value="0.1"/>
+    <Parameter name="Variance" type="double" value="1.0"/>
+    <Parameter name="Lognormal" type="bool" value="true"/>
+    <Parameter name="Sampler name" type="string" value="pde"/>
+    <Parameter name="Serial refinement levels" type="int" value="1"/>
+    <Parameter name="Parallel refinement levels" type="int" value="1"/>
+    <Parameter name="Mean square error" type="double" value="1e-3"/>
+    <Parameter name="Number of samples" type="int" value="10"/>
+    <Parameter name="Quantity of interest" type="string" value="eff_perm"/>
+    <Parameter name="Essential attributes" type="vector_int" value="0 1 1 1 1 0"/>
+    <Parameter name="Observational attributes" type="vector_int" value="1 0 0 0 0 0"/>
+    <Parameter name="Inflow attributes" type="vector_int" value="0 0 0 0 0 1"/>
+    <Parameter name="Output filename for MC managers" type="string" value="MLMC.dat"/>
+  </ParameterList>
+  <ParameterList name="Bayesian inverse problem parameters">
+    <Parameter name="Noise" type="double" value="0.1"/>
+    <Parameter name="Number of observational data points" type="int" value="0"/>
+  </ParameterList>
+</ParameterList>
+"""
 # Phase 13a: (label, darcy_solver options, sampler_solver.coarse_dense_cutoff
 # or None for the default) on the scaled SPE10 grid. The static multigrid is
 # one dense inverse at that grid's 4096 cells under the default cutoff, so
@@ -790,14 +855,14 @@ def k2_line(label: str, r: dict, tol: float, gpu: str) -> str:
             f"torch.randn {r['library_ms']:.4f} ms [{gpu}]")
 
 
-def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: str, gpu: str):
+def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: str, gpu: str,
+                       solve: bool = True):
     """M(w)^{-1} (K1) and K2 against their plain versions at the shapes a
     path gives them, on every level: K1 on the M(w)^{-1} tables factored
-    for a sampled field at the level's batch, K2 on the level's noise draw.
-    Returns {kernel: level-0 result dict, with max_abs_err the largest over
-    the levels}."""
-    import torch
-
+    for a sampled field at the level's batch (not where `solve` is false:
+    a path that only draws), K2 on the level's noise draw. Returns
+    {kernel: level-0 result dict, with max_abs_err the largest over the
+    levels}."""
     from parelagmc_tpu_torch.ops.prng import fold_in
 
     sampler, solver = prob.sampler, prob.solver
@@ -809,25 +874,38 @@ def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: 
         shape = (batch, sampler.sample_size(level))
         _, k2 = k2_check(lkey, shape, dtype, solver.device, k2_tol,
                          f"{label} level {level} {name}")
-        w = sampler.eval(level, sampler.sample(level, lkey, batch))
-        ms_ = solver.levels[level].mass_solver
-        fac = ms_.factor(w)
-        k1 = k1_check(ms_, fac, random_rhs(fac, level), k1_tol, f"{label} level {level} {name}")
-        print(k1_line(f"{label} level {level} batch {batch} {name}: K1 M(w)^-1 "
-                      f"{ms_.shape} cells", k1, k1_tol, gpu), flush=True)
-        k1["rhs2"] = k1_rhs_check(ms_, fac, k1_tol, f"{label} level {level} batch {batch} {name}",
-                                  gpu, k1["ms"])
-        del w, fac
-        torch.cuda.empty_cache()
         print(k2_line(f"{label} level {level} {name}: K2 noise {shape}", k2, k2_tol, gpu),
               flush=True)
-        for k, r, err in (("thomas", k1, max(k1["abs_err"], k1["rhs2"]["abs_err"])),
-                          ("threefry_normal", k2, k2["abs_err"])):
+        results = [("threefry_normal", k2, k2["abs_err"])]
+        if solve:
+            results.append(("thomas", *level_k1_check(sampler, solver, level, lkey, batch,
+                                                       k1_tol, f"{label} level {level}", name,
+                                                       gpu)))
+        for k, r, err in results:
             if k in out:
                 out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
             else:
                 out[k] = dict(r, max_abs_err=err)
     return out
+
+
+def level_k1_check(sampler, solver, level: int, key, batch: int, tol: float, label: str,
+                   name: str, gpu: str):
+    """K1 against its plain version on the level's M(w)^{-1} tables factored
+    for a sampled field of `batch` samples, with one and with two right-hand
+    sides per table set: (result dict, max abs error of both)."""
+    import torch
+
+    w = sampler.eval(level, sampler.sample(level, key, batch))
+    ms_ = solver.levels[level].mass_solver
+    fac = ms_.factor(w)
+    k1 = k1_check(ms_, fac, random_rhs(fac, level), tol, f"{label} {name}")
+    print(k1_line(f"{label} batch {batch} {name}: K1 M(w)^-1 {ms_.shape} cells", k1, tol, gpu),
+          flush=True)
+    k1["rhs2"] = k1_rhs_check(ms_, fac, tol, f"{label} batch {batch} {name}", gpu, k1["ms"])
+    del w, fac
+    torch.cuda.empty_cache()
+    return k1, max(k1["abs_err"], k1["rhs2"]["abs_err"])
 
 
 def phase_k1(device, gpu: str):
@@ -1097,19 +1175,27 @@ def phase_spe10_anchor(device, gpu: str):
 def spe10_full_problem(device):
     """The full-grid production problem of examples/spe10_mlmc.py and
     examples/spe10_ratio_mlmc.py (--refinements 2 --dtype float32, synthetic
-    permeability)."""
-    from parelagmc_tpu_torch.physics.spe10 import full_grid_solver_defaults, load_spe10_kinv
+    permeability), its config taken from the port's twins of those drivers
+    (spe10_mlmc.build_config, then spe10_ratio_mlmc.with_wells) and held
+    equal to the settings written out here."""
+    import dataclasses
+
+    from parelagmc_tpu_torch.examples import spe10_mlmc, spe10_ratio_mlmc
+    from parelagmc_tpu_torch.physics.spe10 import full_grid_solver_defaults
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
 
-    cfg = ProblemConfig(mesh="spe10", refinements=2, dtype="float32", correlation_length=100.0,
-                        mse=-1.0, initial_samples=32, batch_size=32, normalize_marginals=True,
-                        axis_order="auto", output_filename="",
-                        # Read by the ratio run only (examples/spe10_ratio_mlmc.py);
-                        # axis_order relabels the coordinates with the mesh.
-                        bayes_num_obs=3, bayes_obs_coords=OBS_COORDS, bayes_eps=OBS_EPS,
-                        bayes_generate_ref_data=True, bayes_ref_data_file="")
-    full_grid_solver_defaults(cfg)
-    kinv = load_spe10_kinv(None, ncells=(60, 220, 85))
+    cfg, device, kinv, _ = spe10_mlmc.build_config(SPE10_FULL_ARGV + ["--device", str(device)])
+    cfg = spe10_ratio_mlmc.with_wells(cfg)
+    hand = ProblemConfig(mesh="spe10", refinements=2, dtype="float32", correlation_length=100.0,
+                         mse=-1.0, initial_samples=32, batch_size=32, normalize_marginals=True,
+                         axis_order="auto", output_filename="",
+                         # Read by the ratio run only (examples/spe10_ratio_mlmc.py);
+                         # axis_order relabels the coordinates with the mesh.
+                         bayes_num_obs=3, bayes_obs_coords=OBS_COORDS, bayes_eps=OBS_EPS,
+                         bayes_generate_ref_data=True, bayes_ref_data_file="")
+    full_grid_solver_defaults(hand)
+    if dataclasses.asdict(cfg) != dataclasses.asdict(hand):
+        fail(f"SPE10 full grid: the drivers' config {cfg} differs from {hand}")
     return build_problem(cfg, kinv_ref=kinv, device=device)
 
 
@@ -1385,24 +1471,31 @@ def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
     splitting run of the test draws the same stream), under `solver`; the
     pins were taken on "cg-schur" (phase 13a holds that run to `rtol`
     1e-3)."""
+    import dataclasses
+
     from parelagmc_tpu_torch import kernels
-    from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
+    from parelagmc_tpu_torch.examples import spe10_ratio_mlmc
+    from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
     from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
     from parelagmc_tpu_torch.uq.ratio_managers import YRATIO, Z
 
+    cfg, device, kinv, _ = spe10_ratio_mlmc.build_config(
+        RATIO_ANCHOR_ARGV + ["--solver-opt", f"name={solver}", "--device", str(device)])
     grid = (16, 32, 8)
     lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
     # Coarser cells than the real grid's: widen the radius to keep a cell in range.
     eps = max(OBS_EPS, 0.75 * max(L / n for L, n in zip(lengths, grid)))
-    cfg = ProblemConfig(mesh="box", ncells=tuple(g // 2 for g in grid), lengths=lengths,
-                        refinements=1, correlation_length=100.0, mse=1e10, initial_samples=8,
-                        batch_size=8, normalize_marginals=True, axis_order="auto",
-                        dtype="float64", bayes_num_obs=3, bayes_obs_coords=OBS_COORDS,
-                        bayes_eps=eps, bayes_generate_ref_data=True, bayes_ref_data_file="",
-                        output_filename="")
-    cfg.darcy_solver.name = solver
-    prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
+    hand = ProblemConfig(mesh="box", ncells=tuple(g // 2 for g in grid), lengths=lengths,
+                         refinements=1, correlation_length=100.0, mse=1e10, initial_samples=8,
+                         batch_size=8, normalize_marginals=True, axis_order="auto",
+                         dtype="float64", bayes_num_obs=3, bayes_obs_coords=OBS_COORDS,
+                         bayes_eps=eps, bayes_generate_ref_data=True, bayes_ref_data_file="",
+                         output_filename="")
+    hand.darcy_solver.name = solver
+    if dataclasses.asdict(cfg) != dataclasses.asdict(hand):
+        fail(f"ratio anchor: the driver's config {cfg} differs from {hand}")
+    prob = build_problem(cfg, kinv_ref=kinv, device=device)
     bip = BayesianInverseProblem(prob.solver, prob.sampler, prob.config, prob.dtype)
     mgr = BayesRatioManager(bip, prob.config)
     kernels.reset_launch_counts()
@@ -1427,7 +1520,7 @@ def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
     for k in ("thomas", "threefry_normal"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the ratio anchor run")
-    return launches
+    return launches, (ratio, splitting)
 
 
 def phase_ratio_full(prob, device, gpu: str):
@@ -2606,6 +2699,224 @@ def phase_mesh_files(device, gpu: str):
     return launches, k2s
 
 
+def run_driver(name: str, argv, workdir: str):
+    """(return value, stdout, wall s, launches) of the port's driver
+    parelagmc_tpu_torch.examples.<name> run in process in `workdir` on its
+    default device (cuda:0), the launch counts set to 0 just before it."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+
+    module = importlib.import_module(f"parelagmc_tpu_torch.examples.{name}")
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    os.chdir(workdir)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = module.main(list(argv))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+    finally:
+        os.chdir(cwd)
+    return result, buf.getvalue(), dt, launches
+
+
+def driver_rows(out: str, ncols: int):
+    """The rows of a driver's level table: lines of `ncols` numbers whose
+    first is a level index."""
+    rows = [line.split() for line in out.splitlines()]
+    return [r for r in rows if len(r) == ncols and r[0].isdigit()]
+
+
+def phase_drivers(gpu: str, ratio_anchor_estimates):
+    """Phase 20: the port's command-line drivers (parelagmc_tpu_torch/
+    examples/), each run in process on the default device through its
+    main(argv) in a temporary directory, the launch counts set to 0 before
+    each, held to the pins of tests/test_examples.py; then K1 and K2
+    against their plain versions at each distinct (config, per-level
+    batch, dtype) of those runs. Returns ({run: launches}, {check:
+    results})."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from parelagmc_tpu_torch.examples import common, sampler_test, spe10_mlmc, spe10_ratio_mlmc
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.problems import build_problem
+    from parelagmc_tpu_torch.uq.ratio_managers import YRATIO
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    t_phase = time.perf_counter()
+    runs, walls = {}, {}
+
+    def drive(tag, name, argv, marker):
+        result, out, dt, launches = run_driver(name, argv, tmp)
+        runs[tag], walls[tag] = launches, round(dt, 3)
+        est = result[0] if isinstance(result, tuple) else result
+        est = est.estimate if hasattr(est, "estimate") else est
+        print(f"drivers {tag}: examples.{name} {' '.join(argv)}: "
+              f"{'' if est is None else f'estimate {float(est):.8g} '}{dt:.2f} s "
+              f"launches {launches} [{gpu}]", flush=True)
+        if marker not in out:
+            fail(f"drivers {tag}: no '{marker}' in its output:\n{out[-3000:]}")
+        return result, out
+
+    def pin(tag, got, want, rtol=0.0, atol=0.0):
+        if not (math.isfinite(got) and abs(got - want) <= atol + rtol * abs(want)):
+            fail(f"drivers {tag}: {got} not within atol {atol:g} / rtol {rtol:g} of {want}")
+
+    # The golden configuration at full width, float32, on cuda:0 by default.
+    est, out = drive("mlmc", "mlmc", [], "FINAL MLMC ERRORS")
+    dofs = [int(x) for x in next(l for l in out.splitlines()
+                                 if l.startswith("DOFS in Forward Problem")).split()[-3:]]
+    if dofs != [17152, 2240, 304]:
+        fail(f"drivers mlmc: dofs {dofs}")
+    pin("mlmc", est, 2.56, atol=0.25)
+    for k in ("thomas", "threefry_normal"):
+        if runs["mlmc"][k] <= 0:
+            fail(f"kernel {k} was not launched by the mlmc driver")
+    xml = os.path.join(tmp, "golden.xml")
+    with open(xml, "w") as f:
+        f.write(GOLDEN_XML)
+    from_xml, default = common.parse_config(["--xml-file", xml]), common.parse_config([])
+    if dataclasses.asdict(from_xml) != dataclasses.asdict(default):
+        fail(f"drivers: the golden ParameterList gives {from_xml}, not {default}")
+    print(f"drivers mlmc --xml-file: the golden ParameterList's config equals the default "
+          f"field by field ({len(dataclasses.fields(default))} fields)", flush=True)
+
+    _, out = drive("darcy_test", "darcy_test", ["--refinements", "2"], "DarcyTest")
+    rows = driver_rows(out, 4)
+    if [int(r[2]) for r in rows] != [17152, 2240, 304]:
+        fail(f"drivers darcy_test: rows {rows}")
+    for r in rows:
+        pin(f"darcy_test level {r[0]}", float(r[3]), 2.0, rtol=DRIVER_PIN_RTOL)
+    for tag, pins, ncols in (("darcy_random_input", DARCY_RANDOM_PINS, 3),
+                             ("likelihood_example", LIKELIHOOD_PINS, None)):
+        _, out = drive(tag, tag, DRIVER_GOLDEN_F64,
+                       "DarcyTest_RandomInput" if ncols else "L = 2 : ")
+        if ncols:
+            vals = [float(r[1]) for r in driver_rows(out, 3)]
+        else:
+            vals = [float(l.split(":")[1]) for l in out.splitlines() if l.startswith("L = ")]
+        if len(vals) != 3:
+            fail(f"drivers {tag}: {out[-2000:]}")
+        for level, (got, want) in enumerate(zip(vals, pins)):
+            pin(f"{tag} level {level}", got, want, rtol=DRIVER_PIN_RTOL)
+
+    f64 = ["--dtype", "float64", "--seed", "0"]
+    for tag, name, argv, marker, want, atol, rtol in (
+            ("slmc", "slmc", DRIVER_SMALL, "FINAL SLMC ERRORS", 2.21055, 0.02, 0.0),
+            ("mlmc_manual", "mlmc_manual", DRIVER_SMALL, "MLMC estimate", 2.48959, 0.02, 0.0),
+            ("ratio_estimator_mlmc_splitting", "ratio_estimator_mlmc",
+             DRIVER_SMALL + ["--splitting"], "Splitting Estimate", 2.29769, 0.02, 0.0),
+            ("ratio_estimator_mc", "ratio_estimator_mc", DRIVER_SMALL + f64,
+             "FINAL SL_BayesRatio_Manager ERRORS", 2.24332, 0.0, 0.05),
+            ("ratio_estimator_mc_splitting", "ratio_estimator_mc",
+             DRIVER_SMALL + f64 + ["--splitting"], "Splitting Estimate", 2.24155, 0.0, 0.05)):
+        est, _ = drive(tag, name, argv, marker)
+        pin(tag, float(est), want, rtol=rtol, atol=atol)
+
+    _, out = drive("compute_reference_obs_data", "compute_reference_obs_data",
+                   ["--refinements", "1"] + f64, "reference observational data")
+    data = np.loadtxt(os.path.join(tmp, out.split("-> ")[1].split(":")[0]))
+    if not np.isfinite(data).all():
+        fail(f"drivers compute_reference_obs_data: {data}")
+    _, out = drive("sampler_test", "sampler_test", DRIVER_SAMPLERS, "SPDE-projection")
+    if sum("||E[s]-exact||" in l for l in out.splitlines()) != 10:
+        fail(f"drivers sampler_test: {out}")
+    _, out = drive("sampler_performance", "sampler_performance",
+                   DRIVER_SAMPLERS + ["--samples", "32"], "samples/sec")
+    if len(driver_rows(out, 4)) != 2:
+        fail(f"drivers sampler_performance: {out}")
+    drive("realization_test", "realization_test", ["--refinements", "1"], "saved realization")
+    for f in ("realization_L00.vtk", "realization_mesh_L00.mesh", "realization_L00.gf",
+              "realization_L01.vtk"):
+        if not os.path.isfile(os.path.join(tmp, f)):
+            fail(f"drivers realization_test: {f} not written")
+    with open(os.path.join(tmp, "realization_L00.vtk")) as fh:
+        vtk = fh.read()
+    if "RECTILINEAR_GRID" not in vtk or "CELL_DATA" not in vtk:
+        fail("drivers realization_test: not a VTK cell field")
+
+    spe10_small = ["--grid", "8,12,4", "--refinements", "1", "--samples", "4", "--batch", "4",
+                   "--mse", "1e10"]
+    mgr, _ = drive("spe10_mlmc", "spe10_mlmc", spe10_small, "Estimate")
+    pin("spe10_mlmc", mgr.estimate, 487.129, rtol=0.01)
+    out_json = os.path.join(tmp, "ratio.json")
+    ratio_argv = RATIO_ANCHOR_ARGV + ["--solver-opt", "name=cg-schur-coefmg"]
+    (ratio, mgr), _ = drive("spe10_ratio_mlmc", "spe10_ratio_mlmc",
+                            ratio_argv + ["--out", out_json], "FINAL ML_BayesRatio_Manager ERRORS")
+    splitting = float(mgr.E[:, YRATIO].sum())
+    for what, got, want in (("ratio", ratio, ratio_anchor_estimates[0]),
+                            ("splitting", splitting, ratio_anchor_estimates[1])):
+        pin(f"spe10_ratio_mlmc {what} against phase 11", got, want, rtol=DRIVER_RATIO_RTOL)
+    with open(out_json) as fh:
+        if json.load(fh)["posterior_estimate"] != ratio:
+            fail("drivers spe10_ratio_mlmc: evidence file does not hold the estimate")
+    print(f"drivers spe10_ratio_mlmc: ratio {ratio!r} splitting {splitting!r} against phase "
+          f"11's {ratio_anchor_estimates[0]!r} {ratio_anchor_estimates[1]!r} (rtol "
+          f"{DRIVER_RATIO_RTOL:g})", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    drivers_s = time.perf_counter() - t_phase
+
+    # K1 and K2 against their plain versions at each distinct (config,
+    # per-level batch, dtype) the runs above give them: K1 picks its group
+    # from the launch shape, so batch 1 and batch 32 are checks of their own.
+    checks, covered = {}, set()
+
+    def check(tag, cfg, dev, batches, runs_, kinv=None, solve=True):
+        wide = cfg.dtype == "float64"
+        checks[tag] = path_kernel_checks(
+            build_problem(cfg, kinv_ref=kinv, device=dev), batches,
+            fold_in(PRNGKey(cfg.seed), 97), F64_TOL_K1 if wide else F32_TOL_K1,
+            F64_TOL_K2 if wide else F32_TOL_K2, f"drivers {tag}", gpu, solve=solve)
+        covered.update(runs_)
+        print(f"drivers {tag}: the shapes of {', '.join(runs_)}", flush=True)
+
+    ratio_runs = ("ratio_estimator_mc", "ratio_estimator_mc_splitting")
+    for tag, argv, batch, nlevels, runs_ in (
+            ("golden_f32_batch32", [], 32, 3, ("mlmc",)),
+            ("golden_f32_batch1", ["--refinements", "2"], 1, 3, ("darcy_test",)),
+            ("golden_f64_batch1", DRIVER_GOLDEN_F64, 1, 3,
+             ("darcy_random_input", "likelihood_example")),
+            ("small_f32_batch8", DRIVER_SMALL, 8, 2,
+             ("slmc", "mlmc_manual", "ratio_estimator_mlmc_splitting")),
+            # One draw per level; the observational data of the ratio run.
+            ("small_f32_batch1", ["--refinements", "1"], 1, 2,
+             ("realization_test", "ratio_estimator_mlmc_splitting")),
+            ("small_f64_batch8", DRIVER_SMALL + f64, 8, 2, ratio_runs),
+            # The observational data: one solve on level 0.
+            ("small_f64_batch1", ["--refinements", "1"] + f64, 1, 1,
+             ("compute_reference_obs_data",) + ratio_runs)):
+        cfg, dev = common.parse_args(argv)
+        check(tag, cfg, dev, [batch] * nlevels, runs_)
+    cfg, dev = common.parse_args(DRIVER_SAMPLERS)
+    for name, kw in sampler_test.VARIANTS:
+        # The samplers draw and solve nothing: K2 alone.
+        check(f"sampler_test_{name}", dataclasses.replace(cfg, **kw), dev, [16, 16],
+              ("sampler_test",) + (("sampler_performance",) if name == "SPDE" else ()),
+              solve=False)
+    cfg, dev, kinv, _ = spe10_mlmc.build_config(spe10_small)
+    check("spe10_scaled_f32_batch4", cfg, dev, [cfg.batch_size] * cfg.nlevels, ("spe10_mlmc",),
+          kinv)
+    cfg, dev, kinv, _ = spe10_ratio_mlmc.build_config(ratio_argv)
+    check("spe10_ratio_f64_batch8", cfg, dev, [8, 8], ("spe10_ratio_mlmc",), kinv)
+    check("spe10_ratio_f64_batch1", cfg, dev, [1], ("spe10_ratio_mlmc",), kinv)
+    if covered != set(runs):
+        fail(f"drivers: runs {sorted(set(runs) - covered)} have no kernel check at their shapes")
+    print(f"drivers: {len(runs)} runs in {drivers_s:.2f} s, phase with the kernel checks "
+          f"{time.perf_counter() - t_phase:.2f} s; wall per run {walls} [{gpu}]", flush=True)
+    return runs, checks
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -2653,7 +2964,7 @@ def main() -> None:
     phase_64(device, gpu)
     anchor, _ = phase_spe10_anchor(device, gpu)
     samplers = phase_samplers(device, gpu)
-    ratio_anchor = phase_ratio_anchor(device, gpu)
+    ratio_anchor, ratio_anchor_estimates = phase_ratio_anchor(device, gpu)
     t0 = time.perf_counter()
     spe10 = spe10_full_problem(device)
     setup_s = time.perf_counter() - t0
@@ -2665,7 +2976,7 @@ def main() -> None:
     static_full, k1_static = phase_static_mg_full(device, gpu)
     scaled_solvers = phase_solvers_scaled(device, gpu)
     phase_minres_scaled(device, gpu)
-    ratio_cg_schur = phase_ratio_anchor(device, gpu, solver="cg-schur",
+    ratio_cg_schur, _ = phase_ratio_anchor(device, gpu, solver="cg-schur",
                                         rtol=RATIO_ANCHOR_CG_SCHUR_RTOL)
     minres_box = phase_minres_box(device, gpu)
     agglomerated, k2_agglomerated, ctx = phase_unstructured_agglomerated(device, gpu)
@@ -2674,6 +2985,7 @@ def main() -> None:
     hybrid_nested = phase_hybrid_nested(ctx, device, gpu)
     del ctx
     mesh_files, k2_mesh_files = phase_mesh_files(device, gpu)
+    drivers, driver_checks = phase_drivers(gpu, ratio_anchor_estimates)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -2697,7 +3009,8 @@ def main() -> None:
                          "static_mg_full_grid": static_full[k],
                          "ratio_anchor_cg_schur": ratio_cg_schur[k],
                          "minres_and_cg_schur_64_box": minres_box[k],
-                         **{f"scaled_anchor_{name}": n[k] for name, n in scaled_solvers.items()}}
+                         **{f"scaled_anchor_{name}": n[k] for name, n in scaled_solvers.items()},
+                         **{f"drivers_{name}": n[k] for name, n in drivers.items()}}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -2719,6 +3032,10 @@ def main() -> None:
          "rhs": [{k: k1["rhs2"][k] for k in ("R", "ms", "plain_ms", "bound_ms", "abs_err")},
                  {k: k1_static[k] for k in ("R", "n", "lines", "ms", "plain_ms", "bound_ms",
                                             "abs_err")}],
+         # M(w)^{-1} at each distinct (config, batch, dtype) of phase 20's
+         # driver runs, level 0 (max_abs_err over the levels).
+         "drivers": {p: {k: c["thomas"][k] for k in fields} for p, c in driver_checks.items()
+                     if "thomas" in c},
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
@@ -2732,6 +3049,8 @@ def main() -> None:
          "measured_on": on_path,
          "sharded_golden_shard": {k: sharded_checks["threefry_normal"][k]
                                   for k in fields + ("device_ms", "library_ms")},
+         "drivers": {p: {k: c["threefry_normal"][k] for k in fields + ("library_ms",)}
+                     for p, c in driver_checks.items()},
          # The same keys at the draws of the unstructured phases (level 0).
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -1,17 +1,92 @@
-"""Typed configuration tree: `ProblemConfig` and the `SolverConfig` it nests.
+"""Typed configuration tree and the reference's XML ParameterList reader.
 
-The port's own copy of the dataclasses of parelagmc_tpu/config.py, with the
-same fields and defaults (the reference's built-in test parameters,
-examples/example_helpers/CreateMLMCParameterList.hpp): the port imports
-nothing of the JAX package. The XML ParameterList reader stays out.
+The port's own copy of parelagmc_tpu/config.py (the port imports nothing of
+the JAX package):
+
+* `ProblemConfig` and the `SolverConfig` it nests, with the same fields and
+  defaults (the reference's built-in test parameters,
+  examples/example_helpers/CreateMLMCParameterList.hpp);
+* `ParameterList` - a light hierarchical dict with `sublist`/`get` semantics;
+* `read_xml_parameterlist` - reads the reference's SimpleXML format (a path
+  or an XML string; a bare <ParameterList> or a wrapper element);
+* `ProblemConfig.from_parameterlist` - maps the reference key names of the
+  "Problem parameters" and "Bayesian inverse problem parameters" sublists
+  onto the typed config.
+
 Comments that name the TPU record why the JAX package chose a default;
 the H100 numbers of the port are in PERF.md.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+import xml.etree.ElementTree as ET
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, List, Optional, Tuple
+
+
+class ParameterList(dict):
+    """Hierarchical key-value list with reference-compatible accessors."""
+
+    def sublist(self, name: str, create: bool = True) -> "ParameterList":
+        if name not in self:
+            if not create:
+                raise KeyError(name)
+            self[name] = ParameterList()
+        return self[name]
+
+    def get(self, name: str, default: Any = None) -> Any:  # type: ignore[override]
+        return dict.get(self, name, default)
+
+
+def _parse_value(type_str: str, value: str) -> Any:
+    t = type_str.strip().lower()
+    v = value.strip()
+    if t in ("int", "integer"):
+        return int(v)
+    if t in ("double", "float"):
+        return float(v)
+    if t in ("bool", "boolean"):
+        return v.lower() in ("true", "1", "yes")
+    if t.startswith("vector"):
+        inner = t.split("(")[-1].rstrip(")")
+        parts = v.split()
+        if "int" in inner:
+            return [int(p) for p in parts]
+        if "double" in inner or "float" in inner:
+            return [float(p) for p in parts]
+        return parts
+    return v
+
+
+def read_xml_parameterlist(path_or_str: str) -> ParameterList:
+    """Read the reference's SimpleXML ParameterList format:
+    <ParameterList name="..."> <Parameter name=".." type=".." value=".."/> ...
+    """
+    try:
+        tree = ET.parse(path_or_str)
+        root = tree.getroot()
+    except (OSError, ET.ParseError):
+        root = ET.fromstring(path_or_str)
+
+    def walk(node: ET.Element) -> ParameterList:
+        out = ParameterList()
+        for child in node:
+            tag = child.tag.lower()
+            if tag == "parameterlist":
+                out[child.attrib.get("name", "")] = walk(child)
+            elif tag == "parameter":
+                out[child.attrib["name"]] = _parse_value(
+                    child.attrib.get("type", "string"), child.attrib.get("value", "")
+                )
+        return out
+
+    if root.tag.lower() == "parameterlist":
+        return walk(root)
+    # Wrapper element containing a single ParameterList.
+    for child in root:
+        if child.tag.lower() == "parameterlist":
+            return walk(child)
+    return walk(root)
 
 
 @dataclass
@@ -292,3 +367,70 @@ class ProblemConfig:
     @property
     def dim(self) -> int:
         return len(self.ncells)
+
+    @classmethod
+    def from_parameterlist(cls, plist: ParameterList) -> "ProblemConfig":
+        """Map the reference's XML key names onto the typed config."""
+        prob = plist.sublist("Problem parameters", create=True)
+        cfg = cls()
+        kw: Dict[str, Any] = {}
+        if "Correlation length" in prob:
+            kw["correlation_length"] = prob["Correlation length"]
+        if "Variance" in prob:
+            kw["variance"] = prob["Variance"]
+        if "Lognormal" in prob:
+            kw["lognormal"] = prob["Lognormal"]
+        if "Sampler name" in prob:
+            kw["sampler_name"] = prob["Sampler name"]
+        if "Number of modes" in prob:
+            kw["number_of_modes"] = prob["Number of modes"]
+        if "Parallel refinement levels" in prob or "Serial refinement levels" in prob:
+            kw["refinements"] = int(prob.get("Parallel refinement levels", 0)) + int(
+                prob.get("Serial refinement levels", 0)
+            )
+            kw["nlevels"] = None
+        if "Unstructured coarsening" in prob:
+            kw["unstructured_coarsening"] = prob["Unstructured coarsening"]
+        if "Coarsening factor" in prob:
+            kw["coarsening_factor"] = prob["Coarsening factor"]
+        if "Mean square error" in prob:
+            kw["mse"] = prob["Mean square error"]
+        if "MSE splitting ratio" in prob:
+            kw["mse_splitting_ratio"] = prob["MSE splitting ratio"]
+        if "Number of samples" in prob:
+            kw["initial_samples"] = prob["Number of samples"]
+        if "Output filename for MC managers" in prob:
+            kw["output_filename"] = prob["Output filename for MC managers"]
+        if "Quantity of interest" in prob:
+            kw["qoi"] = prob["Quantity of interest"]
+        if "Essential attributes" in prob:
+            kw["ess_attr"] = tuple(prob["Essential attributes"])
+        if "Observational attributes" in prob:
+            kw["obs_attr"] = tuple(prob["Observational attributes"])
+        if "Inflow attributes" in prob:
+            kw["inflow_attr"] = tuple(prob["Inflow attributes"])
+        if "Local average pressure QoI spatial point" in prob:
+            kw["qoi_point"] = tuple(prob["Local average pressure QoI spatial point"])
+        if "Epsilon for local average pressure QoI" in prob:
+            kw["qoi_eps"] = prob["Epsilon for local average pressure QoI"]
+        if "Verbosity" in prob:
+            kw["verbose"] = prob["Verbosity"]
+        bayes = plist.get("Bayesian inverse problem parameters")
+        if bayes:
+            if "Noise" in bayes:
+                kw["bayes_noise"] = bayes["Noise"]
+            if "Number of observational data points" in bayes:
+                kw["bayes_num_obs"] = bayes["Number of observational data points"]
+            if "Epsilon for local average pressure" in bayes:
+                kw["bayes_eps"] = bayes["Epsilon for local average pressure"]
+            if "Observational data coordinates" in bayes:
+                kw["bayes_obs_coords"] = tuple(bayes["Observational data coordinates"])
+            if "Generate reference observational data" in bayes:
+                kw["bayes_generate_ref_data"] = bayes[
+                    "Generate reference observational data"
+                ]
+            if "Reference observational data filename" in bayes:
+                kw["bayes_ref_data_file"] = bayes[
+                    "Reference observational data filename"
+                ]
+        return replace(cfg, **kw)

@@ -42,6 +42,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "parelagmc_tpu_torch")
 MODULES = ["parelagmc_tpu_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(parelagmc_tpu_torch.__path__, "parelagmc_tpu_torch."))
+# The command-line drivers of the port (parelagmc_tpu_torch/examples/).
+EXAMPLES = ("mlmc", "slmc", "mlmc_manual", "ratio_estimator_mc", "ratio_estimator_mlmc",
+            "likelihood_example", "compute_reference_obs_data", "spe10_mlmc", "spe10_ratio_mlmc",
+            "darcy_test", "darcy_random_input", "sampler_test", "realization_test",
+            "sampler_performance")
 # Program files of the port outside the package.
 SCRIPTS = ("chip_smoke.py", "profile_pair_step.py")
 
@@ -67,7 +72,9 @@ def test_port_imports_leave_jax_out():
     for name in ("ops.ell", "samplers.covariance", "samplers.kl", "uq.bayes", "uq.ratio_managers",
                  "ops.multigrid", "ops.coef_multigrid", "fem.agglomeration", "parallel.sharding",
                  "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured",
-                 "physics.hybrid", "native", "transfer_integrators"):
+                 "physics.hybrid", "native", "transfer_integrators", "utils.io_vtk",
+                 "utils.reporting", "examples.common",
+                 *(f"examples.{d}" for d in EXAMPLES)):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
 
@@ -210,6 +217,7 @@ def test_entry_points_default_to_the_card():
         UnstructuredProjectionSPDESampler,
         UnstructuredSPDESampler,
     )
+    from parelagmc_tpu_torch.examples.common import parse_args
 
     mesh = tfactories.make_box_mesh((2, 2, 2))
     lvl = tassembly.build_mixed_level(mesh)
@@ -220,6 +228,7 @@ def test_entry_points_default_to_the_card():
     shier = build_simplicial_hierarchy(tri, 2)
     calls = [
         lambda: build_problem(cfg),
+        lambda: parse_args([]),
         lambda: UnstructuredSPDESampler(shier, cfg),
         lambda: UnstructuredDarcySolver(shier, cfg),
         lambda: UnstructuredEmbeddedSPDESampler(
@@ -522,11 +531,15 @@ def test_copied_host_modules_match_the_jax_package():
         assert mine[name] == ref[name]
 
 
-def _defs_normalized(module):
+def _defs_normalized(module, *replacements):
     """_defs_without_docstrings with imports inside functions dropped and
     the port's package name read as the JAX package's (the copies import
-    their neighbours from their own package)."""
-    tree = ast.parse(inspect.getsource(module))
+    their neighbours from their own package); each (old, new) of
+    `replacements` is applied to the source first."""
+    source = inspect.getsource(module)
+    for old, new in replacements:
+        source = source.replace(old, new)
+    tree = ast.parse(source)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and body:
@@ -599,3 +612,28 @@ def test_copied_mesh_file_host_code_matches_the_jax_package():
         os.path.join(REPO, "parelagmc_tpu", "native", "geometry.cc"))
     assert (_defs_normalized(thybrid)["element_outward_mass"]
             == _defs_normalized(jhybrid)["element_outward_mass"])
+
+
+def test_copied_config_io_and_reporting_match_the_jax_package():
+    """config.py (the XML ParameterList reader and from_parameterlist with
+    the dataclasses) and utils/reporting.py are copies, definition for
+    definition; utils/io_vtk.py too, its writers reading a field through
+    `_host` (numpy, or a torch tensor on any device) where the original
+    calls np.asarray."""
+    from parelagmc_tpu.utils import io_vtk as jio
+    from parelagmc_tpu.utils import reporting as jrep
+    from parelagmc_tpu_torch.utils import io_vtk as tio
+    from parelagmc_tpu_torch.utils import reporting as trep
+
+    for jm, tm, n in ((jconfig, tconfig, 5), (jrep, trep, 6)):
+        mine, ref = _defs_normalized(tm), _defs_normalized(jm)
+        assert set(mine) == set(ref) and len(mine) == n, tm.__name__
+        for name in ref:
+            assert mine[name] == ref[name], f"{tm.__name__}.{name}"
+    assert {"ParameterList", "_parse_value", "read_xml_parameterlist"} <= set(
+        _defs_normalized(tconfig))
+    mine = _defs_normalized(tio, ("= _host(field)", "= np.asarray(field)"))
+    ref = _defs_normalized(jio)
+    assert set(mine) - set(ref) == {"_host"} and len(ref) == 5
+    for name in ref:
+        assert mine[name] == ref[name], f"io_vtk.{name}"
