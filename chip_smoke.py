@@ -45,8 +45,8 @@ Phases, each printing one line (or block) before the last line:
              (physics/spe10.full_grid_solver_defaults, float32, corlen 100,
              normalized marginals, axis_order auto, synthetic permeability;
              the config from the port's drivers, spe10_mlmc.build_config on
-             SPE10_FULL_ARGV and spe10_ratio_mlmc.with_wells, held equal to
-             the settings written out in spe10_full_problem): host setup
+             SPE10_FULL_ARGV and spe10_ratio_mlmc.with_wells, whose
+             settings tests/test_torch_examples.py pins): host setup
              seconds, then
    9a. K1 on the coefMG line tables: struct_mg_setup on a sampled level-1
        field with coefmg_line_axes "auto", kernel (the special case of
@@ -81,7 +81,7 @@ Phases, each printing one line (or block) before the last line:
 11. ratio anchor - examples/spe10_ratio_mlmc.py --grid 16,32,8
              --refinements 1 --samples 8 --batch 8 --dtype float64 (the
              config from the port's twin, spe10_ratio_mlmc.build_config,
-             held equal to the one written out in phase_ratio_anchor) through
+             pinned by tests/test_torch_examples.py) through
              build_problem, BayesianInverseProblem and BayesRatioManager
              on cg-schur-coefmg: ratio estimate within 2e-3 of 354.436,
              splitting estimate (the same moment table) within 2e-3 of
@@ -219,6 +219,37 @@ Phases, each printing one line (or block) before the last line:
              printed; then K1 and K2 against their plain versions at the
              golden driver's shapes (batch 32) and the scaled SPE10 driver's
              (batch 4), float32.
+21. spatial sharding (parallel/spatial_darcy.py), stacked on cuda:0 (every
+             slab on the one card; torch.cuda.device_count() is printed, and
+             the torch.distributed form, one slab a rank, is covered by the
+             CPU gloo tests only):
+   21a. the golden MLMC (float32, cg-schur, rtol 1e-5) unsharded, with
+       spatial_shards 4 and with spatial_sample_shards 2 on top: one keyed
+       level-0 pair step each with the plain and the adjoint-corrected QoI
+       (Q per sample against the unsharded step: SPATIAL_GOLDEN_PLAIN_Q_RTOL
+       and SPATIAL_GOLDEN_Q_RTOL; (2, 4) against sp 4 bit for bit or the
+       gap printed), then run() each (estimate within 0.25 of 2.56, K1 and
+       K2 launched), iterations and launches beside the unsharded run's;
+   21b. phase 8's scaled SPE10 anchor with spatial_shards 8 (estimate within
+       0.5 of 361.882, E[Q] pins, both kernels launched);
+   21c. phase 9's full-grid problem at the production settings: one level-0
+       pair step at batch 8, replicated, with spatial_shards 4 and with
+       (dp, sp) = (2, 4), at the production settings (Q per sample to
+       PRODUCTION_Q_RTOL) and with a float32 state at rtol 1e-5 (to
+       SPATIAL_TIGHT_SPREAD); then the same grid built in float64 at rtol
+       1e-6 (to TIGHT_Q_RTOL): converged fraction 1.0, iterations, ms per
+       step, busy
+       share (production), K1 launches, peak memory (stacked: all slabs on
+       one card);
+   21d. K1 on the sharded M(w)^{-1}'s layouts - slab x lines, z lines (row
+       stride m nx), decoupled y lines (row stride nx) and the SPIKE spike
+       solves with R = 2 - against thomas_grid_plain, float32 at 21c's
+       shapes and float64 at 21b's: max relative error, ms per launch, byte
+       bound (5 words per unknown, 7 with R = 2) and its share;
+   21e. python -m parelagmc_tpu_torch.examples.spatial_scaling on its
+       defaults (60x110x42, 8 slabs, batch 2, float64) in a temporary
+       directory: every run's iterations, qoi_rel_err_vs_deep and peak_mb,
+       converged fraction 1.0 each.
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -240,7 +271,8 @@ normal draw to the instructions of its own executed path (the common erfinv
 branch, see executed_path): the busiest pipe over them or, if larger, all of
 them over the SM's dispatch width.
 
-Then one JSON line with the kernels' numbers (launches of each path with
+Then one line with each phase's wall seconds, one JSON line with the
+kernels' numbers (launches of each path with
 the counts at 0 before it, the drivers' as drivers_<run>, `launches` being
 the ratio full-grid run's;
 errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
@@ -266,6 +298,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 # rel. to max |z|: the kernel's order of operations (FMA, the segments of
 # the contiguous axis) against the plain recurrence's.
 F32_TOL_K1, F64_TOL_K1 = 1e-5, 1e-12
@@ -313,10 +346,6 @@ SAMPLER_CASES = (("matching", dict(embedding="matching")),
                  ("matern", dict(sampler_name="matern")))
 # Matching selection against mortar projection on one embedded mesh, float32.
 EMBED_AGREE_TOL = 1e-4
-# Three wells at mid-depth along the long axis (ft), local averages of
-# radius 30 ft (examples/spe10_ratio_mlmc.py).
-OBS_COORDS = (300.0, 550.0, 85.0, 600.0, 1100.0, 85.0, 900.0, 1650.0, 85.0)
-OBS_EPS = 30.0
 # tests/test_nondyadic.py:115-131. The pin comes from solves cut at 500
 # iterations (both levels run to the limit), so it holds the unconverged
 # iterates of the reference's float64 CG, which another package's rounding
@@ -423,6 +452,27 @@ SPE10_CELLS = [1_122_000, 138_600, 17_325]
 # Phase 14: shards in one process, global batch, and the agreement of the
 # sharded step with four unsharded steps if not bit for bit (relative to max |q|).
 SHARDS, SHARD_BATCH, SHARD_RTOL = 4, 512, 1e-6
+# Phase 21: spatial sharding, stacked on cuda:0. The golden and full-grid
+# runs cut y into SPATIAL_SHARDS slabs (with SPATIAL_DP sample rows on top),
+# the scaled SPE10 anchor into SPATIAL_ANCHOR_SHARDS. Level-0 Q per sample of
+# the sharded golden pair step against the unsharded one, float32 at rtol
+# 1e-5 under two preconditioners: the plain flux QoI is only as sharp as the
+# residual leaves it on the golden field (float64 solves at rtol 1e-5 miss a
+# deep one by up to 4.5e-4 and 2.4e-3; the two float32 steps part by 7.9e-3
+# at most, 7.0e-4 median, over 64 samples on a CPU), the adjoint-corrected
+# QoI is sharp (2.5e-6 at most there).
+SPATIAL_SHARDS, SPATIAL_DP, SPATIAL_ANCHOR_SHARDS = 4, 2, 8
+SPATIAL_GOLDEN_PLAIN_Q_RTOL, SPATIAL_GOLDEN_Q_RTOL = 5e-2, 1e-4
+# Phase 21c, full grid, sharded against replicated level-0 pair steps (two
+# preconditioners: slab Schwarz against the global coefMG). With a float32
+# state at rtol 1e-5 the two iterates' adjoint-corrected Q part by 1.87e-5
+# (measured on one H100): each is only that close to the solution, so
+# that setting is held to SPATIAL_TIGHT_SPREAD; float32 cannot go a decade
+# deeper on this grid, so Q is held to TIGHT_Q_RTOL on the grid built in
+# float64 at rtol 1e-6 (SPATIAL_F64_ARGV).
+SPATIAL_TIGHT_SPREAD = 1e-4
+SPATIAL_F64_ARGV = ["--refinements", "2", "--dtype", "float64", "--output", "", "--solver-opt",
+                    "coefmg_prec_dtype=", "--solver-opt", "relative_tolerance=1e-6"]
 # Phases 15-16, examples/unstructured_performance.py's defaults.
 UNSTRUCTURED = dict(refine=4, levels=4, coarsening_factor=8, batch=128, rtol=1e-5, maxit=800,
                     variance=0.25, corlen=0.3, solver="minres-coefmg")
@@ -1123,8 +1173,11 @@ def phase_k3(device, gpu: str):
     return main_path, launches
 
 
-def phase_spe10_anchor(device, gpu: str):
-    """tests/test_spe10_anchor.py::test_spe10_scaled_anchor on the card."""
+def phase_spe10_anchor(device, gpu: str, spatial_shards: int = 0):
+    """tests/test_spe10_anchor.py::test_spe10_scaled_anchor on the card;
+    with `spatial_shards` (phase 21b) level 0 runs sharded into that many
+    y-slabs and the kernel checks are left to phase 21d. Returns (launches,
+    the kernel checks or None, the problem)."""
     from parelagmc_tpu_torch import kernels
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
     from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
@@ -1141,6 +1194,7 @@ def phase_spe10_anchor(device, gpu: str):
     cfg.darcy_solver.name = "cg-schur-coefmg"
     cfg.darcy_solver.relative_tolerance = 1e-8
     cfg.darcy_solver.max_iterations = 2000
+    cfg.darcy_solver.spatial_shards = spatial_shards
     prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
     mgr = MLMCManager(prob.solver, prob.sampler, cfg)
     kernels.reset_launch_counts()
@@ -1151,7 +1205,9 @@ def phase_spe10_anchor(device, gpu: str):
     dofs = [prob.solver.num_dofs(l) for l in range(3)]
     eq = [float(x) for x in mgr.eQ]
     cons = float(mgr.consistency.max())
-    print(f"SPE10 scaled anchor (16x32x8, f64, cg-schur-coefmg, rtol 1e-8): estimate "
+    sharded = (f", level 0 in {spatial_shards} y-slabs of {prob.solver._spatial(0).m} cell "
+               f"planes, stacked on one card" if spatial_shards else "")
+    print(f"SPE10 scaled anchor (16x32x8, f64, cg-schur-coefmg, rtol 1e-8{sharded}): estimate "
           f"{mgr.estimate:.6f} (pin {SPE10_ANCHOR['estimate']}) E[Q] {[round(x, 4) for x in eq]} "
           f"dofs {dofs} consistency {cons:.4f} iterations {mgr.solver_iterations.tolist()} "
           f"run {dt:.2f} s launches {launches} [{gpu}]", flush=True)
@@ -1167,36 +1223,24 @@ def phase_spe10_anchor(device, gpu: str):
     for k in ("thomas", "threefry_normal"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the SPE10 anchor run")
+    if spatial_shards:
+        return launches, None, prob
     checks = path_kernel_checks(prob, mgr.level_batch, fold_in(PRNGKey(cfg.seed), 98),
                                 F64_TOL_K1, F64_TOL_K2, "SPE10 anchor kernels vs plain", gpu)
-    return launches, checks
+    return launches, checks, prob
 
 
 def spe10_full_problem(device):
     """The full-grid production problem of examples/spe10_mlmc.py and
     examples/spe10_ratio_mlmc.py (--refinements 2 --dtype float32, synthetic
     permeability), its config taken from the port's twins of those drivers
-    (spe10_mlmc.build_config, then spe10_ratio_mlmc.with_wells) and held
-    equal to the settings written out here."""
-    import dataclasses
-
+    (spe10_mlmc.build_config, then spe10_ratio_mlmc.with_wells, whose
+    settings tests/test_torch_examples.py pins)."""
     from parelagmc_tpu_torch.examples import spe10_mlmc, spe10_ratio_mlmc
-    from parelagmc_tpu_torch.physics.spe10 import full_grid_solver_defaults
-    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.problems import build_problem
 
     cfg, device, kinv, _ = spe10_mlmc.build_config(SPE10_FULL_ARGV + ["--device", str(device)])
-    cfg = spe10_ratio_mlmc.with_wells(cfg)
-    hand = ProblemConfig(mesh="spe10", refinements=2, dtype="float32", correlation_length=100.0,
-                         mse=-1.0, initial_samples=32, batch_size=32, normalize_marginals=True,
-                         axis_order="auto", output_filename="",
-                         # Read by the ratio run only (examples/spe10_ratio_mlmc.py);
-                         # axis_order relabels the coordinates with the mesh.
-                         bayes_num_obs=3, bayes_obs_coords=OBS_COORDS, bayes_eps=OBS_EPS,
-                         bayes_generate_ref_data=True, bayes_ref_data_file="")
-    full_grid_solver_defaults(hand)
-    if dataclasses.asdict(cfg) != dataclasses.asdict(hand):
-        fail(f"SPE10 full grid: the drivers' config {cfg} differs from {hand}")
-    return build_problem(cfg, kinv_ref=kinv, device=device)
+    return build_problem(spe10_ratio_mlmc.with_wells(cfg), kinv_ref=kinv, device=device)
 
 
 def phase_k1_lines(prob, device, gpu: str):
@@ -1470,31 +1514,16 @@ def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
     anchors on the card (both estimators read one moment table: the
     splitting run of the test draws the same stream), under `solver`; the
     pins were taken on "cg-schur" (phase 13a holds that run to `rtol`
-    1e-3)."""
-    import dataclasses
-
+    1e-3). The config is the port's twin's, spe10_ratio_mlmc.build_config,
+    whose settings tests/test_torch_examples.py pins."""
     from parelagmc_tpu_torch import kernels
     from parelagmc_tpu_torch.examples import spe10_ratio_mlmc
-    from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING
-    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.problems import build_problem
     from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
     from parelagmc_tpu_torch.uq.ratio_managers import YRATIO, Z
 
     cfg, device, kinv, _ = spe10_ratio_mlmc.build_config(
         RATIO_ANCHOR_ARGV + ["--solver-opt", f"name={solver}", "--device", str(device)])
-    grid = (16, 32, 8)
-    lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
-    # Coarser cells than the real grid's: widen the radius to keep a cell in range.
-    eps = max(OBS_EPS, 0.75 * max(L / n for L, n in zip(lengths, grid)))
-    hand = ProblemConfig(mesh="box", ncells=tuple(g // 2 for g in grid), lengths=lengths,
-                         refinements=1, correlation_length=100.0, mse=1e10, initial_samples=8,
-                         batch_size=8, normalize_marginals=True, axis_order="auto",
-                         dtype="float64", bayes_num_obs=3, bayes_obs_coords=OBS_COORDS,
-                         bayes_eps=eps, bayes_generate_ref_data=True, bayes_ref_data_file="",
-                         output_filename="")
-    hand.darcy_solver.name = solver
-    if dataclasses.asdict(cfg) != dataclasses.asdict(hand):
-        fail(f"ratio anchor: the driver's config {cfg} differs from {hand}")
     prob = build_problem(cfg, kinv_ref=kinv, device=device)
     bip = BayesianInverseProblem(prob.solver, prob.sampler, prob.config, prob.dtype)
     mgr = BayesRatioManager(bip, prob.config)
@@ -2917,6 +2946,302 @@ def phase_drivers(gpu: str, ratio_anchor_estimates):
     return runs, checks
 
 
+def spatial_k1_checks(sd, w, tol: float, label: str, gpu: str):
+    """Phase 21d: K1 on the layouts of the sharded M(w)^{-1} - the slab x
+    lines, the z lines (row stride m nx), the decoupled y lines (row stride
+    nx) and the SPIKE spike solves with R = 2 right-hand sides per table set
+    - on the tables SpatialDarcy factors for the fields w, against
+    thomas_grid_plain on the same inputs. Prints one line per layout;
+    returns {layout: dict with max_rel_err, max_abs_err, ms, plain_ms,
+    bound_ms}. Fails above `tol`."""
+    import torch
+
+    from parelagmc_tpu_torch.ops.tridiag_pallas import thomas_grid, thomas_grid_plain
+
+    g = sd.grids
+    wg = sd._to_slabs(w.reshape(-1, sd.n_s), 1.0, slice(None)).masked_fill(g.pad_cell, 1.0)
+    fx, fy, fz = sd._minv_factor(g, wg, sd.comm.halo_up(wg.narrow(-2, sd.m - 1, 1)))
+    flat = lambda t: t.reshape((-1,) + tuple(t.shape[2:]))
+    gen = torch.Generator(device=wg.device).manual_seed(21)
+    layouts = (("x lines", fx, 3, 1), ("z lines", fz, 1, 1),
+               ("y lines, decoupled", (fy.dl_in, fy.d, fy.du_in), 2, 1),
+               ("spike solves, R = 2", (fy.dl_in, fy.d, fy.du_in), 2, 2))
+    out = {}
+    for name, tabs, dim, R in layouts:
+        tabs = [flat(t).contiguous() for t in tabs]
+        shape = tuple(tabs[1].shape)
+        b = torch.randn((shape[0], R) + shape[1:] if R > 1 else shape, generator=gen,
+                        device=wg.device, dtype=wg.dtype)
+        x = thomas_grid(*tabs, b, dim)
+        ref = thomas_grid_plain(*tabs, b, dim)
+        torch.cuda.synchronize()
+        if not torch.isfinite(x).all():
+            fail(f"K1 {label} {name}: non-finite output")
+        abs_err = (x - ref).abs().max().item()
+        rel = abs_err / ref.abs().max().item()
+        ms = cuda_ms(lambda: thomas_grid(*tabs, b, dim))
+        plain_ms = cuda_ms(lambda: thomas_grid_plain(*tabs, b, dim), reps=3)
+        n = tabs[1].numel()
+        bound = bytes_bound_ms(k1_rhs_bytes(n, R, b.element_size()))
+        out[name] = dict(max_rel_err=rel, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, R=R, lines=n // shape[dim], n=shape[dim])
+        print(f"K1 {label} {name} (tables {shape}, {n // shape[dim]} lines of {shape[dim]}, "
+              f"R {R}, {3 + 2 * R} words per unknown): max_rel_err {rel:.3e} (tol {tol:g}) "
+              f"kernel {ms:.4f} plain {plain_ms:.4f} bound {bound:.4f} ms/launch "
+              f"({100 * bound / ms:.1f}% of bound) [{gpu}]", flush=True)
+        if not rel <= tol:
+            fail(f"K1 {label} {name}: rel err {rel} > {tol}")
+    return out
+
+
+def phase_spatial_golden(device, gpu: str):
+    """Phase 21a: the golden MLMC (full width, float32, cg-schur at rtol
+    1e-5) unsharded, with spatial_shards = SPATIAL_SHARDS, and with
+    spatial_sample_shards = SPATIAL_DP on top, all on cuda:0 in the stacked
+    form: one level-0 pair step on a fixed key, with the plain and with the
+    adjoint-corrected QoI (Q per sample of the sharded runs against the
+    unsharded one: SPATIAL_GOLDEN_PLAIN_Q_RTOL, SPATIAL_GOLDEN_Q_RTOL), and
+    an adaptive run() each (estimate within 0.25 of 2.56). Returns {run:
+    launches of its run()}."""
+    import dataclasses
+
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg = ProblemConfig(refinements=2)
+    cfg.darcy_solver.relative_tolerance = 1e-5
+    cfg.output_filename = ""
+    prob = build_problem(cfg, device=device)
+    solver = prob.solver
+    base = solver.solver_cfg
+    key = fold_in(PRNGKey(41), 0)
+    sp, dp = SPATIAL_SHARDS, SPATIAL_DP
+    runs = (("unsharded", {}), (f"sp{sp}", dict(spatial_shards=sp)),
+            (f"dp{dp}_sp{sp}", dict(spatial_shards=sp, spatial_sample_shards=dp)))
+    res = {}
+    for name, kw in runs:
+        r = res[name] = {}
+        for qoi, adjoint in (("adjoint", True), ("plain", False)):
+            solver.solver_cfg = dataclasses.replace(base, adjoint_qoi=adjoint, **kw)
+            mgr = MLMCManager(solver, prob.sampler, cfg)
+            q, qc, its = mgr._step(0)(key)
+            r[qoi] = dict(q=q.double(), qc=qc.double(), its=float(its.mean()))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r["est"] = mgr.run()
+        r.update(dt=time.perf_counter() - t0, launches=dict(kernels.launch_counts),
+                 iterations=[round(float(x), 1) for x in mgr.solver_iterations],
+                 samples=mgr.level_nsamples.tolist())
+    solver.solver_cfg = base
+    ref = res["unsharded"]
+    for name, r in res.items():
+        print(f"spatial golden MLMC [{name}]: estimate {r['est']:.6f} samples {r['samples']} "
+              f"mean iterations per level {r['iterations']} run {r['dt']:.2f} s launches K1 "
+              f"{r['launches']['thomas']} K2 {r['launches']['threefry_normal']}; level-0 pair "
+              f"step (batch {cfg.batch_size}) mean fine + coarse iterations: plain "
+              f"{r['plain']['its']:.1f}, adjoint (primal + adjoint) {r['adjoint']['its']:.1f} "
+              f"[{gpu}]", flush=True)
+        if not math.isfinite(r["est"]) or abs(r["est"] - 2.56) >= 0.25:
+            fail(f"spatial golden [{name}]: estimate {r['est']} not within 0.25 of 2.56")
+        if name == "unsharded":
+            continue
+        for k in ("thomas", "threefry_normal"):
+            if r["launches"][k] <= 0:
+                fail(f"kernel {k} was not launched by the spatial golden MLMC run [{name}]")
+        for qoi, tol in (("plain", SPATIAL_GOLDEN_PLAIN_Q_RTOL),
+                         ("adjoint", SPATIAL_GOLDEN_Q_RTOL)):
+            a, b = r[qoi], ref[qoi]
+            rel = (a["q"] - b["q"]).abs() / b["q"].abs()
+            same_c = torch.equal(a["qc"], b["qc"])
+            print(f"spatial golden level-0 step [{name}] [{qoi} QoI] against the unsharded step "
+                  f"on the same key: rel Q diff max {rel.max().item():.3e} (tol {tol:g}) median "
+                  f"{rel.median().item():.3e}, coarse Q {'identical' if same_c else 'differs'} "
+                  f"[{gpu}]", flush=True)
+            if not (torch.isfinite(a["q"]).all() and rel.max().item() <= tol and same_c):
+                fail(f"spatial golden [{name}] [{qoi}]: level-0 Q differs from the unsharded "
+                     f"step by {rel.max().item()}")
+    for qoi in ("plain", "adjoint"):
+        a, b = res[f"sp{sp}"][qoi]["q"], res[f"dp{dp}_sp{sp}"][qoi]["q"]
+        gap = "bit for bit" if torch.equal(a, b) else \
+            f"max rel diff {((a - b).abs() / a.abs()).max().item():.3e}"
+        print(f"spatial golden level-0 step [{qoi} QoI] (dp, sp) = ({dp}, {sp}) against sp {sp} "
+              f"alone: {gap} [{gpu}]", flush=True)
+    print(f"spatial golden: torch.cuda.device_count() {torch.cuda.device_count()}; every run "
+          f"stacked on cuda:0; the torch.distributed form (one slab per rank) ran only in the "
+          f"CPU tests (tests/test_torch_spatial.py, 2 and 4 gloo processes), not here [{gpu}]",
+          flush=True)
+    return {name: r["launches"] for name, r in res.items() if name != "unsharded"}
+
+
+def spatial_step_compare(prob, device, gpu: str, label: str, override: dict, tol: float,
+                         busy: bool = False) -> int:
+    """One level-0 pair step of `prob` at its level-0 batch on a fixed key,
+    replicated, with spatial_shards = SPATIAL_SHARDS and with (dp, sp) =
+    (SPATIAL_DP, SPATIAL_SHARDS), each with the solver settings `override`:
+    Q per sample of the sharded steps against the replicated one to `tol`,
+    converged fraction 1.0, iterations, ms per step (after a first call
+    that builds the SpatialDarcy and warms up), the busy share (`busy`), K1
+    launches and peak memory. Returns the K1 launches of the sharded steps."""
+    import dataclasses
+
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg, solver, sampler = prob.config, prob.solver, prob.sampler
+    batch = cfg.batch_size_per_level[0]
+    budget = MLMCManager(solver, sampler, cfg).pair_budget
+    step = level_step(solver, sampler, 0, fold_in(PRNGKey(cfg.seed), 121), batch, budget)
+    base = solver.solver_cfg
+    sp, dp = SPATIAL_SHARDS, SPATIAL_DP
+    res = {}
+    for name, kw in (("replicated", {}), (f"sp {sp}", dict(spatial_shards=sp)),
+                     (f"(dp, sp) ({dp}, {sp})", dict(spatial_shards=sp,
+                                                     spatial_sample_shards=dp))):
+        solver.solver_cfg = dataclasses.replace(base, **override, **kw)
+        t0 = time.perf_counter()
+        step()  # builds the SpatialDarcy of this setting (host setup) and warms up
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        q, infos = step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n_k1 = kernels.launch_counts["thomas"]
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        busy_share = device_busy(step, ms)[0] if busy else None
+        conv = float(torch.cat([i.converged.float() for i in infos]).mean())
+        res[name] = dict(q=q.double(), its=[i.iterations for i in infos], ms=ms, n_k1=n_k1,
+                         conv=conv, peak=peak_gb, busy=busy_share, setup=setup_s)
+    solver.solver_cfg = base
+    solver._spatial_cache.clear()
+    ref = res["replicated"]
+    for name, r in res.items():
+        rel = ((r["q"] - ref["q"]).abs() / ref["q"].abs()).max().item()
+        share = "not measured" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
+        mem = "stacked: all slabs on one card" if name != "replicated" else "replicated"
+        print(f"spatial SPE10 full grid level-0 pair step batch {batch} [{label}] [{name}]: "
+              f"max rel Q diff vs replicated {rel:.3e} (tol {tol:g}) iterations (coarse, fine; "
+              f"primal + adjoint) {r['its']} converged fraction {r['conv']} step "
+              f"{r['ms']:.1f} ms ({r['ms'] / batch:.2f} ms/sample, first call incl. setup "
+              f"{r['setup']:.2f} s) busy {share} K1 launches {r['n_k1']} peak memory "
+              f"{r['peak']:.2f} GB ({mem}) [{gpu}]", flush=True)
+        if r["conv"] < 1.0 or not torch.isfinite(r["q"]).all():
+            fail(f"spatial full grid [{label}] [{name}]: converged fraction {r['conv']}")
+        if name != "replicated" and not rel <= tol:
+            fail(f"spatial full grid [{label}] [{name}]: Q differs from the replicated step "
+                 f"by {rel}")
+    a, b = res[f"sp {sp}"]["q"], res[f"(dp, sp) ({dp}, {sp})"]["q"]
+    gap = "bit for bit" if torch.equal(a, b) else \
+        f"max rel diff {((a - b).abs() / a.abs()).max().item():.3e}"
+    print(f"spatial SPE10 full grid [{label}]: (dp, sp) = ({dp}, {sp}) against sp {sp} alone: "
+          f"{gap} [{gpu}]", flush=True)
+    return sum(r["n_k1"] for name, r in res.items() if name != "replicated")
+
+
+def phase_spatial_full(prob, device, gpu: str):
+    """Phase 21c on phase 9's full-grid problem (float32): the level-0 pair
+    step replicated and sharded (spatial_step_compare) at the production
+    settings (Q per sample to PRODUCTION_Q_RTOL, busy share) and with a
+    float32 state at rtol 1e-5 (to SPATIAL_TIGHT_SPREAD); then 21d in
+    float32 at these shapes. Returns (K1 launches of the sharded steps,
+    the 21d results)."""
+    import dataclasses
+
+    import torch
+
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+
+    launches = spatial_step_compare(prob, device, gpu, "production", {}, PRODUCTION_Q_RTOL,
+                                    busy=True)
+    launches += spatial_step_compare(prob, device, gpu, "float32 state, rtol 1e-5",
+                                     TIGHT_SETTINGS, SPATIAL_TIGHT_SPREAD)
+    if launches <= 0:
+        fail("kernel thomas was not launched by the sharded full-grid steps")
+    solver, sampler = prob.solver, prob.sampler
+    base = solver.solver_cfg
+    batch = prob.config.batch_size_per_level[0]
+    solver.solver_cfg = dataclasses.replace(base, spatial_shards=SPATIAL_SHARDS)
+    sd = solver._spatial(0)
+    w = sampler.eval(0, sampler.sample(0, fold_in(PRNGKey(prob.config.seed), 122), batch))
+    layouts = spatial_k1_checks(sd, w, F32_TOL_K1, f"sharded M(w)^-1 SPE10 full grid level 0 "
+                                f"sp {SPATIAL_SHARDS} batch {batch} float32", gpu)
+    solver.solver_cfg = base
+    del sd, w
+    solver._spatial_cache.clear()
+    torch.cuda.empty_cache()
+    return launches, layouts
+
+
+def phase_spatial_full_f64(device, gpu: str) -> int:
+    """Phase 21c in float64: the full SPE10 grid built in float64 with a
+    float64 MG state at rtol 1e-6 (float32 stalls there: converged 0.19 at
+    rtol 1e-6, measured on one H100), the level-0 pair step replicated and
+    sharded with Q per sample to TIGHT_Q_RTOL. Returns the sharded steps'
+    K1 launches."""
+    import torch
+
+    from parelagmc_tpu_torch.examples import spe10_mlmc
+    from parelagmc_tpu_torch.problems import build_problem
+
+    cfg, device, kinv, _ = spe10_mlmc.build_config(SPATIAL_F64_ARGV + ["--device", str(device)])
+    t0 = time.perf_counter()
+    prob = build_problem(cfg, kinv_ref=kinv, device=device)
+    print(f"spatial SPE10 full grid float64: host setup {time.perf_counter() - t0:.2f} s "
+          f"[{gpu}]", flush=True)
+    launches = spatial_step_compare(prob, device, gpu, "float64, float64 state, rtol 1e-6", {},
+                                    TIGHT_Q_RTOL)
+    del prob
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spatial_anchor_layouts(prob, gpu: str):
+    """Phase 21d in float64: K1 on the sharded layouts at the scaled SPE10
+    anchor's level-0 shapes (phase 21b's problem, its level batch)."""
+    from parelagmc_tpu_torch.ops.prng import PRNGKey
+
+    sd = prob.solver._spatial(0)
+    batch = prob.config.batch_size
+    w = prob.sampler.eval(0, prob.sampler.sample(0, PRNGKey(123), batch))
+    return spatial_k1_checks(sd, w, F64_TOL_K1, f"sharded M(w)^-1 scaled SPE10 anchor level 0 "
+                             f"sp {sd.n_sp} batch {batch} float64", gpu)
+
+
+def phase_spatial_scaling(gpu: str):
+    """Phase 21e: the port's spatial_scaling driver on its defaults (60 x
+    110 x 42, 8 slabs, batch 2, float64, cuda:0) in a temporary directory.
+    Returns its runs."""
+    import tempfile
+
+    from parelagmc_tpu_torch.examples import spatial_scaling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = spatial_scaling.main(["--out", os.path.join(tmp, "spatial.json")])
+        dt = time.perf_counter() - t0
+    for tag, r in res["runs"].items():
+        peak = "-" if r["peak_mb"] is None else f"{r['peak_mb']:.1f}"
+        print(f"spatial_scaling {res['grid']} {res['shards']} slabs batch {res['batch']} "
+              f"{res['dtype']} [{tag}]: iterations {r['iterations']} converged fraction "
+              f"{r['converged_fraction']} qoi_rel_err_vs_deep {r['qoi_rel_err_vs_deep']:.3e} "
+              f"peak_mb {peak} ({r['execution']}"
+              f"{': all slabs on one card' if r['execution'] == 'stacked' else ''}) [{gpu}]",
+              flush=True)
+        if r["converged_fraction"] < 1.0 or not math.isfinite(r["qoi_rel_err_vs_deep"]):
+            fail(f"spatial_scaling [{tag}]: {r}")
+    print(f"spatial_scaling driver: {dt:.2f} s [{gpu}]", flush=True)
+    return res["runs"]
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -2948,44 +3273,65 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
-    libs = kernels.build_library()
+    walls = {}
+
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its wall seconds kept under `name`."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    libs = timed("1 build", kernels.build_library)
     kernels.library()
-    print(f"build: {[os.path.relpath(p, HERE) for p in libs]} in {time.perf_counter() - t0:.2f} s "
+    print(f"build: {[os.path.relpath(p, HERE) for p in libs]} in {walls['1 build']:.2f} s "
           f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'}); "
           f"SM clocks {sm_clocks_per_s() / 1e12:.3f} T/s [{gpu}]", flush=True)
 
-    phase_k1(device, gpu)
-    phase_k2(device, gpu)
-    k3, k3_launches = phase_k3(device, gpu)
-    golden = phase_mlmc(device, gpu)
-    sharded, sharded_checks = phase_sharded_golden(device, gpu)
-    phase_bench(device, gpu)
-    phase_64(device, gpu)
-    anchor, _ = phase_spe10_anchor(device, gpu)
-    samplers = phase_samplers(device, gpu)
-    ratio_anchor, ratio_anchor_estimates = phase_ratio_anchor(device, gpu)
+    timed("2 K1", phase_k1, device, gpu)
+    timed("3 K2", phase_k2, device, gpu)
+    k3, k3_launches = timed("7 K3", phase_k3, device, gpu)
+    golden = timed("4 MLMC", phase_mlmc, device, gpu)
+    sharded, sharded_checks = timed("14 sharded golden", phase_sharded_golden, device, gpu)
+    timed("5 bench", phase_bench, device, gpu)
+    timed("6 64^3", phase_64, device, gpu)
+    anchor, _, _ = timed("8 anchor", phase_spe10_anchor, device, gpu)
+    samplers = timed("10 samplers", phase_samplers, device, gpu)
+    ratio_anchor, ratio_anchor_estimates = timed("11 ratio anchor", phase_ratio_anchor, device,
+                                                 gpu)
     t0 = time.perf_counter()
-    spe10 = spe10_full_problem(device)
+    spe10 = timed("9 SPE10 setup", spe10_full_problem, device)
     setup_s = time.perf_counter() - t0
-    phase_k1_lines(spe10, device, gpu)
-    full, checks = phase_spe10_full(spe10, setup_s, device, gpu)
-    ratio_full = phase_ratio_full(spe10, device, gpu)
-    full_solvers = phase_solvers_full(spe10, device, gpu)
+    timed("9a K1 lines", phase_k1_lines, spe10, device, gpu)
+    full, checks = timed("9b SPE10", phase_spe10_full, spe10, setup_s, device, gpu)
+    ratio_full = timed("12 ratio full", phase_ratio_full, spe10, device, gpu)
+    full_solvers = timed("13b solvers full", phase_solvers_full, spe10, device, gpu)
+    spatial_full, layouts_f32 = timed("21c spatial full grid + 21d f32", phase_spatial_full, spe10,
+                                      device, gpu)
     del spe10
-    static_full, k1_static = phase_static_mg_full(device, gpu)
-    scaled_solvers = phase_solvers_scaled(device, gpu)
-    phase_minres_scaled(device, gpu)
-    ratio_cg_schur, _ = phase_ratio_anchor(device, gpu, solver="cg-schur",
-                                        rtol=RATIO_ANCHOR_CG_SCHUR_RTOL)
-    minres_box = phase_minres_box(device, gpu)
-    agglomerated, k2_agglomerated, ctx = phase_unstructured_agglomerated(device, gpu)
-    hybrid_agglomerated = phase_hybrid_agglomerated(ctx, device, gpu)
-    nested, k2_nested, ctx = phase_unstructured_nested(device, gpu)
-    hybrid_nested = phase_hybrid_nested(ctx, device, gpu)
+    spatial_full += timed("21c spatial full grid f64", phase_spatial_full_f64, device, gpu)
+    static_full, k1_static = timed("13b static MG", phase_static_mg_full, device, gpu)
+    scaled_solvers = timed("13a solvers scaled", phase_solvers_scaled, device, gpu)
+    timed("13a minres scaled", phase_minres_scaled, device, gpu)
+    ratio_cg_schur, _ = timed("13a ratio cg-schur", phase_ratio_anchor, device, gpu,
+                              solver="cg-schur", rtol=RATIO_ANCHOR_CG_SCHUR_RTOL)
+    minres_box = timed("13b minres box", phase_minres_box, device, gpu)
+    agglomerated, k2_agglomerated, ctx = timed("15 unstructured agglomerated",
+                                               phase_unstructured_agglomerated, device, gpu)
+    hybrid_agglomerated = timed("17 hybrid agglomerated", phase_hybrid_agglomerated, ctx, device,
+                                gpu)
+    nested, k2_nested, ctx = timed("16 unstructured nested", phase_unstructured_nested, device,
+                                   gpu)
+    hybrid_nested = timed("18 hybrid nested", phase_hybrid_nested, ctx, device, gpu)
     del ctx
-    mesh_files, k2_mesh_files = phase_mesh_files(device, gpu)
-    drivers, driver_checks = phase_drivers(gpu, ratio_anchor_estimates)
+    mesh_files, k2_mesh_files = timed("19 mesh files", phase_mesh_files, device, gpu)
+    drivers, driver_checks = timed("20 drivers", phase_drivers, gpu, ratio_anchor_estimates)
+    spatial_golden = timed("21a spatial golden", phase_spatial_golden, device, gpu)
+    spatial_anchor, _, anchor_prob = timed("21b spatial anchor", phase_spe10_anchor, device, gpu,
+                                           spatial_shards=SPATIAL_ANCHOR_SHARDS)
+    layouts_f64 = timed("21d f64", phase_spatial_anchor_layouts, anchor_prob, gpu)
+    del anchor_prob
+    timed("21e spatial_scaling", phase_spatial_scaling, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -3010,7 +3356,10 @@ def main() -> None:
                          "ratio_anchor_cg_schur": ratio_cg_schur[k],
                          "minres_and_cg_schur_64_box": minres_box[k],
                          **{f"scaled_anchor_{name}": n[k] for name, n in scaled_solvers.items()},
-                         **{f"drivers_{name}": n[k] for name, n in drivers.items()}}
+                         **{f"drivers_{name}": n[k] for name, n in drivers.items()},
+                         **{f"spatial_golden_mlmc_{name}": n[k]
+                            for name, n in spatial_golden.items()},
+                         f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor[k]}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -3022,7 +3371,8 @@ def main() -> None:
          "launches": ratio_full["thomas"],
          # The full-grid steps of phase 13b count K1 alone, per step.
          "launches_by_path": {**by_path("thomas"), **{
-             f"full_grid_{name}_steps": n for name, n in full_solvers.items()}},
+             f"full_grid_{name}_steps": n for name, n in full_solvers.items()},
+             f"spatial_full_grid_sp{SPATIAL_SHARDS}_steps": spatial_full},
          **{k: k1[k] for k in fields}, "bound_by": "bytes",
          # M(w)^{-1} on the golden level-0 tables at one shard's batch.
          "sharded_golden_shard": {k: sharded_checks["thomas"][k] for k in fields},
@@ -3036,6 +3386,11 @@ def main() -> None:
          # driver runs, level 0 (max_abs_err over the levels).
          "drivers": {p: {k: c["thomas"][k] for k in fields} for p, c in driver_checks.items()
                      if "thomas" in c},
+         # The sharded M(w)^{-1}'s layouts (phase 21d): the slab x, z and
+         # decoupled y lines and the spike solves with R = 2, float32 at
+         # the full-grid level-0 shapes, float64 at the scaled anchor's.
+         "spatial_layouts": {f"full grid sp{SPATIAL_SHARDS} float32": layouts_f32,
+                             f"scaled anchor sp{SPATIAL_ANCHOR_SHARDS} float64": layouts_f64},
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
@@ -3066,6 +3421,8 @@ def main() -> None:
          "library_call": "torch.rand (Philox: another generator, not jax.random's values)",
          "measured_on": f"sample_uniforms {K3_SHAPE} float32"},
     ]}
+    print(f"phase walls (s): {json.dumps(walls)} total "
+          f"{time.perf_counter() - START:.1f} [{gpu}]", flush=True)
     print(json.dumps(report), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

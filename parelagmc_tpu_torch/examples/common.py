@@ -98,10 +98,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spatial-shards", type=int, default=None,
                    help="shard each finest-level Darcy solve into this "
                         "many y-slabs (config.darcy_solver.spatial_shards; "
-                        "not ported: above 1 the Darcy solver raises)")
+                        "parallel/spatial_darcy.py: all slabs in this "
+                        "process, or one per rank under torch.distributed "
+                        "with that many ranks)")
     p.add_argument("--spatial-sample-shards", type=int, default=None,
                    help="with --spatial-shards: additionally shard the "
-                        "sample batch (shards * sample_shards devices total)")
+                        "sample batch (shards * sample_shards ranks under "
+                        "torch.distributed)")
     p.add_argument("--solver-opt", action="append", default=None,
                    metavar="KEY=VALUE",
                    help="set any DarcySolverConfig field by name, e.g. "

@@ -24,9 +24,11 @@ line smoother: one (n, L) table set for the whole batch): the kernel reads
 each row of dl, d, du once and carries one g and x recurrence per
 right-hand side, which lie `rhs_stride` apart (`line_index` with `rhs`).
 
-`thomas` (for (n, ...) tables) and `thomas_lines` (any layout) launch the
-kernel for CUDA tensors, and `thomas` runs the plain version for CPU
-tensors; for a CUDA tensor they launch or raise, never fall back.
+`thomas` (for (n, ...) tables), `thomas_grid` (lines along any dim of a
+batch of grids, in place) and `thomas_lines` (any layout) launch the
+kernel for CUDA tensors, and `thomas` and `thomas_grid` run the plain
+version for CPU tensors; for a CUDA tensor they launch or raise, never
+fall back.
 """
 
 from __future__ import annotations
@@ -171,6 +173,54 @@ def thomas_lines(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.T
     kernels.launch("thomas", b.device, fn, dl.data_ptr(), d.data_ptr(), du.data_ptr(),
                    b.data_ptr(), x.data_ptr(), lay.n, lay.L, lay.J, lay.O, lay.sO, lay.sB,
                    lay.sI, lay.base, int(rhs), int(rhs_stride), sBb)
+
+
+def thomas_grid_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
+                      dim: int) -> torch.Tensor:
+    """thomas_grid's plain version, on any device: thomas_plain with the
+    solved dim moved first (and the right-hand sides before it)."""
+    k = dim % d.dim()
+    first = lambda t: t.movedim(k, 0)
+    if b.dim() == d.dim() + 1:
+        x = thomas_plain(first(dl), first(d), first(du), b.movedim(1, 0).movedim(k + 1, 1))
+        return x.movedim(1, k + 1).movedim(0, 1)
+    return thomas_plain(first(dl), first(d), first(du), first(b)).movedim(0, k)
+
+
+def thomas_grid(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """x with tridiag(dl, d, du) x = b along array dim `dim` of a batch of
+    grids, solved in place: tables (N, *grid), b (N, *grid) or
+    (N, R, *grid) - R right-hand sides per table set. CUDA: one K1 launch
+    on `grid_axis_layout` (lines along a dim of C-contiguous grids, no
+    permute copy). CPU: thomas_grid_plain."""
+    many = b.dim() == d.dim() + 1
+    grid = tuple(d.shape[1:])
+    if (b.shape[2:] if many else b.shape[1:]) != grid or b.shape[0] != d.shape[0]:
+        raise ValueError(f"thomas: b has shape {tuple(b.shape)}, tables {tuple(d.shape)}")
+    _check_same(dl, d, du, b, rhs=many)
+    k = dim % d.dim()
+    if k == 0:
+        raise ValueError("thomas_grid: dim 0 is the batch of grids")
+    if b.device.type == "cpu":
+        return thomas_grid_plain(dl, d, du, b, k)
+    if b.device.type != "cuda":
+        raise ValueError(f"thomas: unsupported device {b.device}")
+    tabs = [t.contiguous() for t in (dl, d, du)]
+    b = b.contiguous()
+    x = torch.empty_like(b)
+    lay, rhs = grid_launch(tuple(d.shape), k, int(b.shape[1]) if many else 1)
+    thomas_lines(*tabs, b, x, lay, **rhs)
+    return x
+
+
+def grid_launch(shape: Sequence[int], dim: int, R: int = 1):
+    """(LineLayout, right-hand-side keywords) of thomas_grid's launch: lines
+    along dim `dim` >= 1 of C-contiguous (N, *grid) tables, R right-hand
+    sides per table set in an (N, R, *grid) b."""
+    G = math.prod(shape[1:])
+    lay = grid_axis_layout(int(shape[0]), shape[1:], dim - 1, batch_stride=G)
+    return lay, dict(rhs=R, rhs_stride=G if R > 1 else 0, rhs_batch_stride=R * G)
 
 
 def thomas(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,

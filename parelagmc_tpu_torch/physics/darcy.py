@@ -43,8 +43,11 @@ right-hand-side axis at -2, every M(w)^{-1} apply solving both vectors on
 one read of the sample's tables - and `meanfield_x0` starts every cold
 solve from a cached w = 1 solution.
 
-Still raising NotImplementedError: spatial_shards (ROADMAP.md Queue 1,
-item 14b).
+With `spatial_shards` > 1 the finest level's Schur CG runs sharded into
+y-slabs (parallel/spatial_darcy.SpatialDarcy; `spatial_sample_shards`
+splits the batch into sample rows as well): in this process with the slabs
+stacked on one device, or one slab per rank when a torch.distributed
+process group of spatial_shards * spatial_sample_shards ranks is up.
 
 CPU parity tests: tests/test_torch_darcy.py, tests/test_torch_spe10.py
 (every solver name against the JAX package, `device="cpu"`); on the card,
@@ -54,7 +57,8 @@ phase 13 of chip_smoke.py drives every solver.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+import warnings
+from typing import Dict, List, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -102,7 +106,6 @@ from parelagmc_tpu_torch.ops.multigrid import MGHierarchy, build_mg_hierarchy, v
 from parelagmc_tpu_torch.ops.solvers import SolveInfo, minres, pcg
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig, build_tensor_solver, tensor_solve
 
-_ROADMAP = "not ported yet (ROADMAP.md Queue 1, item {item})"
 _SOLVERS = ("cg-schur", "cg-schur-diag", "cg-schur-exact", "cg-schur-coefmg", "minres-bj")
 _PREC_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "float64": torch.float64}
@@ -229,8 +232,6 @@ def _check_config(config: ProblemConfig) -> None:
     cfg = config.darcy_solver
     if cfg.name not in _SOLVERS:
         raise ValueError(f"darcy solver {cfg.name!r}: expected one of {_SOLVERS}")
-    if int(getattr(cfg, "spatial_shards", 0) or 0) > 1:
-        raise NotImplementedError("spatial_shards " + _ROADMAP.format(item="14b"))
     pdt = getattr(cfg, "coefmg_prec_dtype", "")
     if pdt and pdt not in _PREC_DTYPES:
         raise ValueError(f"coefmg_prec_dtype {pdt!r}: expected one of {sorted(_PREC_DTYPES)}")
@@ -423,6 +424,17 @@ class DarcySolver:
         # Parent cell maps for the warm-started pair solves (coarse -> fine
         # piecewise-constant pressure prolongation).
         self._parent = [as_t(p, torch.int64) for p in hierarchy.parent]
+        # Spatially sharded solvers of config spatial_shards, built at first use.
+        self._spatial_cache: Dict[tuple, object] = {}
+        n_spatial = int(getattr(cfg, "spatial_shards", 0) or 0)
+        if n_spatial > 1 and cfg.name == "minres-bj":
+            # Falling back to the replicated solve would defeat the reason
+            # spatial_shards exists (a device's memory at SPE10 scale).
+            raise ValueError("spatial_shards requires a cg-schur-family solver; "
+                             "minres-bj solves the full saddle system replicated")
+        if int(getattr(cfg, "spatial_sample_shards", 1) or 1) > 1 and n_spatial <= 1:
+            warnings.warn("spatial_sample_shards > 1 has no effect without spatial_shards > 1 "
+                          "(no (dp, sp) sharding is built)", stacklevel=2)
 
     def level_blocks(self, level: int):
         """Per-(cell, axis) mass blocks (bll, blr, brr) of the level: the
@@ -492,6 +504,9 @@ class DarcySolver:
         adjoint (return_adjoint, needs config.adjoint_qoi). With
         config.meanfield_x0 the solve starts from the cached w = 1 solution.
         `max_iters` overrides config.max_iterations for this solve."""
+        if self._use_spatial(level):
+            return self._solve_spatial(level, w, return_pressure, return_adjoint=return_adjoint,
+                                       max_iters=max_iters)
         if self.solver_cfg.name == "minres-bj":
             if getattr(self.solver_cfg, "adjoint_qoi", False):
                 raise NotImplementedError("adjoint_qoi applies to the cg-schur solver family")
@@ -531,6 +546,9 @@ class DarcySolver:
             return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
         p0 = torch.index_select(p_coarse, -1, self._parent[level])
         lam0 = torch.index_select(lam_c, -1, self._parent[level]) if lam_c is not None else None
+        if self._use_spatial(level):
+            return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
+                                       return_adjoint=return_adjoint, max_iters=max_iters)
         return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0, lam0=lam0,
                                     return_adjoint=return_adjoint, max_iters=max_iters)
 
@@ -542,10 +560,66 @@ class DarcySolver:
         the reference's API, whose examples continue solves with it; no
         path of this package calls it (MLMCManager runs each pair solve
         composed instead). minres-bj solves cold."""
+        if self._use_spatial(level):
+            return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
+                                       return_adjoint=return_adjoint, max_iters=max_iters)
         if self.solver_cfg.name == "minres-bj":
             return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
         return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0, lam0=lam0,
                                     return_adjoint=return_adjoint, max_iters=max_iters)
+
+    # -- spatial domain decomposition (config spatial_shards) ------------------
+    def _use_spatial(self, level: int) -> bool:
+        """Route this level through the spatially sharded solver? The finest
+        level only (where a device's memory binds), never under minres-bj."""
+        return (int(getattr(self.solver_cfg, "spatial_shards", 0) or 0) > 1 and level == 0
+                and self.solver_cfg.name != "minres-bj")
+
+    def _spatial(self, level: int):
+        """The SpatialDarcy of this level, built at first use: cg-schur-coefmg
+        gets the two-level Schwarz slab coefMG, the other cg-schur variants
+        sqrt(w)-scaled diag(S_bar) Jacobi. Cached on every config field it
+        bakes in, so `solver.solver_cfg = dataclasses.replace(...)` rebuilds
+        it instead of answering with the old settings (the reference's key
+        leaves out coarse_dense_cutoff and mg_coarse_sweeps). A solve's
+        max_iters override reaches the sharded solve without a rebuild."""
+        cfg = self.solver_cfg
+        n_sp = int(cfg.spatial_shards)
+        n_dp = int(getattr(cfg, "spatial_sample_shards", 1) or 1)
+        key = (level, cfg.name, n_sp, n_dp, float(cfg.relative_tolerance),
+               int(cfg.max_iterations), int(getattr(cfg, "restart_every", 50) or 0),
+               getattr(cfg, "coefmg_prec_dtype", ""), int(getattr(cfg, "coefmg_cycles", 1)),
+               int(getattr(cfg, "coefmg_cheby_order", 0)),
+               float(getattr(cfg, "coefmg_cheby_lo", 0.25)), int(getattr(cfg, "coefmg_sweeps", 2)),
+               float(getattr(cfg, "coefmg_omega", 0.8)), getattr(cfg, "coefmg_line_axes", ""),
+               float(getattr(cfg, "coefmg_line_omega", 1.0)),
+               getattr(cfg, "coefmg_coarsen", "galerkin"), int(cfg.coarse_dense_cutoff),
+               int(cfg.mg_coarse_sweeps))
+        if key not in self._spatial_cache:
+            from parelagmc_tpu_torch.parallel.spatial_darcy import SpatialDarcy
+
+            self._spatial_cache[key] = SpatialDarcy.from_darcy(self, level, n_sp=n_sp, n_dp=n_dp)
+        return self._spatial_cache[key]
+
+    def _solve_spatial(self, level: int, w: torch.Tensor, return_pressure: bool, p0=None,
+                       lam0=None, return_adjoint: bool = False, max_iters: Optional[int] = None):
+        """(Q, cost, info[, p[, lam]]) of the sharded solve: rel and conv from
+        its verified exit; with adjoint_qoi rel is the max of the primal and
+        adjoint solves', conv their AND and the iterations their sum."""
+        adjoint = bool(getattr(self.solver_cfg, "adjoint_qoi", False))
+        if return_adjoint and not adjoint:
+            raise ValueError("return_adjoint requires config.adjoint_qoi")
+        out = self._spatial(level).solve_fwd(
+            w, p0=p0, return_pressure=return_pressure or return_adjoint, lam0=lam0,
+            adjoint=adjoint, max_iters=max_iters)
+        q, it, rel, conv = out[:4]
+        info = SolveInfo(int(it.max()), rel, conv)
+        cost = float(self.num_dofs(level))
+        if return_adjoint:
+            return q, cost, info, out[4], out[5]
+        if return_pressure:
+            return q, cost, info, out[4]
+        return q, cost, info
 
     def solve_fwd_pair(self, level: int, w_f: torch.Tensor, w_c: torch.Tensor,
                        max_iters: Optional[int] = None):

@@ -150,3 +150,102 @@ def write_general_mesh(path, gm):
     return write_mfem_v10(path, d, gm.vertices, np.stack(gm.elements), 2 if d == 2 else 4,
                           np.stack(gm.boundary), 1 if d == 2 else 2,
                           attributes=gm.attributes, battributes=gm.boundary_attributes)
+
+
+# -- spatial sharding cases, run stacked here and by gloo processes ----------------
+
+
+def spatial_one_level(ncells, name="cg-schur", kinv_sigma=None, rtol=1e-9, seed=0,
+                      **solver_kw):
+    """(hierarchy, port DarcySolver) of one level on the unit box with the
+    y boundaries essential, on the CPU in float64."""
+    from parelagmc_tpu_torch.config import ProblemConfig
+    from parelagmc_tpu_torch.fem.hierarchy import build_geometric_hierarchy_from_fine
+    from parelagmc_tpu_torch.mesh.factories import make_box_mesh
+    from parelagmc_tpu_torch.physics import DarcySolver
+
+    cfg = ProblemConfig(mesh="box", ncells=ncells, lengths=(1.0, 1.0, 1.0), refinements=0,
+                        dtype="float64", ess_attr=(0, 1, 1, 1, 1, 0))
+    cfg.darcy_solver.name = name
+    cfg.darcy_solver.relative_tolerance = rtol
+    cfg.darcy_solver.max_iterations = 4000
+    cfg.darcy_solver.local_schur_scaling = True
+    for k, v in solver_kw.items():
+        setattr(cfg.darcy_solver, k, v)
+    kinv = None
+    if kinv_sigma:
+        kinv = np.exp(np.random.default_rng(seed).normal(size=(int(np.prod(ncells)), 3))
+                      * kinv_sigma)
+    hier = build_geometric_hierarchy_from_fine(
+        make_box_mesh(ncells, spacings=[1.0 / n for n in ncells]), 1)
+    return hier, DarcySolver(hier, cfg, torch.float64, device=CPU, kinv_ref=kinv)
+
+
+def _spatial_fields(n_s, batch, seed, sigma=0.5):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.exp(rng.normal(size=(batch, n_s)) * sigma))
+
+
+def darcy_sp2(rank):
+    """n_sp = 2, in one process (rank None) or as `rank` of two
+    torch.distributed processes: SpatialDarcy's Jacobi solve with the
+    pressure and its adjoint-corrected solve, DarcySolver's routing through
+    an MLMC round of the golden box refined once, and SpatialSolver on a
+    tridiagonal CSR. Returns numpy arrays."""
+    import scipy.sparse as sp
+
+    from parelagmc_tpu_torch.config import ProblemConfig
+    from parelagmc_tpu_torch.fem import build_geometric_hierarchy
+    from parelagmc_tpu_torch.mesh import make_box_mesh
+    from parelagmc_tpu_torch.parallel.spatial import SpatialSolver
+    from parelagmc_tpu_torch.parallel.spatial_darcy import SpatialDarcy
+    from parelagmc_tpu_torch.physics import DarcySolver
+    from parelagmc_tpu_torch.samplers.pde import SPDESampler
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    out = {}
+    hier, solver = spatial_one_level((6, 14, 5), kinv_sigma=1.0)
+    sd = SpatialDarcy.from_darcy(solver, 0, n_sp=2)
+    assert sd.comm.distributed == (rank is not None)
+    w = _spatial_fields(hier.levels[0].n_s, 4, 1)
+    q, it, rel, conv, p = sd.solve_fwd(w, return_pressure=True)
+    out.update(q=q, it=it, rel=rel, conv=conv, p=p)
+    qa, ita, _, conva, pa, lam = sd.solve_fwd(w, adjoint=True, return_pressure=True)
+    out.update(q_adj=qa, it_adj=ita, conv_adj=conva, p_adj=pa, lam=lam)
+
+    cfg = ProblemConfig(refinements=1, mse=1e10, batch_size=8, initial_samples=8, seed=0,
+                        output_filename="", cost_model="dofs")
+    cfg.darcy_solver.relative_tolerance = 1e-9
+    cfg.darcy_solver.max_iterations = 2000
+    cfg.darcy_solver.spatial_shards = 2
+    mh = build_geometric_hierarchy(make_box_mesh((4, 4, 4), lengths=(2.0, 2.0, 2.0)), 2)
+    ds = DarcySolver(mh, cfg, torch.float64, device=CPU)
+    mgr = MLMCManager(ds, SPDESampler(mh, cfg, torch.float64, device=CPU), cfg)
+    mgr.init_run([8, 8])
+    assert ds._spatial(0).comm.distributed == (rank is not None)
+    out.update(mlmc_sums=mgr.sums, mlmc_estimate=np.asarray(mgr.estimate))
+
+    n = 30
+    A = sp.diags([np.full(n - 1, -0.5), 2.0 + np.arange(n) * 0.01, np.full(n - 1, -0.5)],
+                 [-1, 0, 1]).tocsr()
+    b = np.random.default_rng(2).normal(size=(3, n))
+    x, its = SpatialSolver(A, np.arange(n, dtype=np.float64)[:, None], n_sp=2,
+                           dtype=torch.float64, device=CPU).solve(b, rtol=1e-12)
+    out.update(csr_x=x, csr_it=np.asarray(its))
+    return {k: to_np(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}
+
+
+def darcy_dp2_sp2(rank):
+    """(dp, sp) = (2, 2), in one process or as `rank` of four processes:
+    the two-level slab coefMG (its global coarse level engaged: coarse
+    cutoff 600), with the pressure."""
+    from parelagmc_tpu_torch.parallel.spatial_darcy import SpatialDarcy
+
+    hier, solver = spatial_one_level((8, 16, 6), name="cg-schur-coefmg", kinv_sigma=1.0,
+                                     coarse_dense_cutoff=600)
+    sd = SpatialDarcy.from_darcy(solver, 0, n_sp=2, n_dp=2)
+    assert sd.global_mg is not None and sd.comm.distributed == (rank is not None)
+    w = _spatial_fields(hier.levels[0].n_s, 4, 3)
+    q, it, rel, conv, p = sd.solve_fwd(w, return_pressure=True)
+    return {k: to_np(v) for k, v in dict(q=q, it=it, rel=rel, conv=conv, p=p).items()}

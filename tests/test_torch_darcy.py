@@ -172,12 +172,21 @@ def test_constant_coefficient_gives_unit_slab_flux():
 
 @pytest.mark.parametrize("options", [dict(spatial_shards=2)])
 def test_not_ported_solver_options_raise(options):
+    """The options this test once saw refused (ROADMAP item 14b) are ported:
+    with spatial_shards = 2 the solver builds on the CPU, routes level 0
+    through the sharded solve, and gives the unsharded solver's Q."""
     hier, _ = _hierarchies((2, 2, 2), 1)
     cfg = ProblemConfig(refinements=0)
+    cfg.darcy_solver.relative_tolerance = 1e-10
+    ref = DarcySolver(hier, port_config(cfg), F64, device=CPU)
     for field, value in options.items():
         setattr(cfg.darcy_solver, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DarcySolver(hier, port_config(cfg), F64, device=CPU)
+    solver = DarcySolver(hier, port_config(cfg), F64, device=CPU)
+    assert solver._use_spatial(0)
+    w = torch.from_numpy(np.exp(0.5 * np.random.default_rng(0).normal(size=(3, 8))))
+    q, _, info = solver.solve_fwd(0, w)
+    assert bool(info.converged.all()) and solver._spatial(0).execution == "stacked"
+    np.testing.assert_allclose(to_np(q), to_np(ref.solve_fwd(0, w)[0]), rtol=1e-8)
 
 
 def test_unknown_solver_name_is_refused():

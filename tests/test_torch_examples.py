@@ -13,6 +13,7 @@ between the numbers must be identical (the dof and level rows)."""
 import dataclasses
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -576,11 +577,21 @@ def test_no_fallback_to_the_cpu(name, tmp_path, monkeypatch):
     (["--sample-shards", "2"], ValueError, "sample_shards=2"),
 ])
 def test_unported_options_raise(argv, error, match, tmp_path, monkeypatch):
-    """--spatial-shards above 1 reaches the Darcy solver's refusal (ROADMAP
-    item 14b), --dtype bfloat16 the port's dtype refusal, and two sample
+    """--dtype bfloat16 reaches the port's dtype refusal and two sample
     shards on the CPU's one device the config rule's ValueError: nothing
-    runs something else instead."""
+    runs something else instead. --spatial-shards 2, refused until ROADMAP
+    item 14b was ported, now runs: its MLMC estimate (float64, the small
+    settings whose first round meets the target, so no timing can change
+    the sample counts) equals the unsharded run's."""
     monkeypatch.chdir(tmp_path)
+    if argv == ["--spatial-shards", "2"]:
+        mlmc = _module("parelagmc_tpu_torch.examples", "mlmc")
+        small = SMALL + ["--dtype", "float64", "--device", "cpu", "--solver-opt",
+                         "relative_tolerance=1e-10"]
+        est = mlmc.main(small + argv)
+        assert math.isfinite(est)
+        np.testing.assert_allclose(est, mlmc.main(small), rtol=1e-8)
+        return
     with pytest.raises(error, match=match):
         _module("parelagmc_tpu_torch.examples", "mlmc").main(
             ["--refinements", "1", "--device", "cpu"] + argv)

@@ -46,7 +46,7 @@ MODULES = ["parelagmc_tpu_torch"] + sorted(
 EXAMPLES = ("mlmc", "slmc", "mlmc_manual", "ratio_estimator_mc", "ratio_estimator_mlmc",
             "likelihood_example", "compute_reference_obs_data", "spe10_mlmc", "spe10_ratio_mlmc",
             "darcy_test", "darcy_random_input", "sampler_test", "realization_test",
-            "sampler_performance")
+            "sampler_performance", "spatial_scaling")
 # Program files of the port outside the package.
 SCRIPTS = ("chip_smoke.py", "profile_pair_step.py")
 
@@ -73,7 +73,8 @@ def test_port_imports_leave_jax_out():
                  "ops.multigrid", "ops.coef_multigrid", "fem.agglomeration", "parallel.sharding",
                  "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured",
                  "physics.hybrid", "native", "transfer_integrators", "utils.io_vtk",
-                 "utils.reporting", "examples.common",
+                 "utils.reporting", "examples.common", "parallel.slabs", "parallel.spatial",
+                 "parallel.spatial_darcy",
                  *(f"examples.{d}" for d in EXAMPLES)):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
@@ -87,8 +88,27 @@ def _program_sources():
         yield os.path.join(REPO, f)
 
 
+def test_spatial_modules_import_without_jax():
+    """The spatial-sharding modules and their driver twin, imported alone in
+    a fresh interpreter, load neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import parelagmc_tpu_torch.parallel.spatial_darcy, parelagmc_tpu_torch.parallel.spatial\n"
+        "import parelagmc_tpu_torch.examples.spatial_scaling\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'parelagmc_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_no_jax_import_in_package_sources():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    scanned = {os.path.relpath(p, REPO) for p in _program_sources()}
+    assert {"parelagmc_tpu_torch/parallel/spatial.py", "parelagmc_tpu_torch/parallel/slabs.py",
+            "parelagmc_tpu_torch/parallel/spatial_darcy.py",
+            "parelagmc_tpu_torch/examples/spatial_scaling.py"} <= scanned
     for path in _program_sources():
         with open(path) as fh:
             assert not pat.search(fh.read()), path
@@ -271,12 +291,12 @@ def test_entry_points_default_to_the_card():
      ("darcy_solver.spatial_shards", 2, 14), ("darcy_solver.name", "hybrid-cg", "15c")],
 )
 def test_build_problem_refuses_unported_configs(field, value, item):
-    """What is not ported raises, naming its ROADMAP item (spatial
-    sharding), or says it is not supported (bfloat16), instead of running
-    something else. The cases of items 15 and 15c, ported since, pin what
-    replaced their refusal: a mesh file that does not exist raises the
-    reader's error, and the hybridized solver builds on a simplicial
-    hierarchy and solves."""
+    """What is not ported says it is not supported (bfloat16) instead of
+    running something else. The cases of items 14, 15 and 15c, ported since,
+    pin what replaced their refusal: spatial sharding builds through
+    build_problem and solves like the unsharded solver, a mesh file that
+    does not exist raises the reader's error, and the hybridized solver
+    builds on a simplicial hierarchy and solves."""
     from parelagmc_tpu_torch.fem.simplicial_hierarchy import build_simplicial_hierarchy
     from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh
     from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
@@ -290,6 +310,17 @@ def test_build_problem_refuses_unported_configs(field, value, item):
     if value == "cube.mesh":
         with pytest.raises(FileNotFoundError, match="cube.mesh"):
             build_problem(cfg, device=CPU)
+        return
+    if field == "darcy_solver.spatial_shards":
+        cfg.dtype = "float64"
+        cfg.darcy_solver.relative_tolerance = 1e-10
+        prob = build_problem(cfg, device=CPU)
+        ref = build_problem(dataclasses.replace(cfg, darcy_solver=dataclasses.replace(
+            cfg.darcy_solver, spatial_shards=0)), device=CPU)
+        w = torch.ones(2, prob.hierarchy.levels[0].n_s, dtype=torch.float64)
+        q, _, info = prob.solver.solve_fwd(0, w)
+        assert bool(info.converged.all()) and prob.solver._spatial(0).n_sp == value
+        np.testing.assert_allclose(q.numpy(), ref.solver.solve_fwd(0, w)[0].numpy(), rtol=1e-8)
         return
     if value == "hybrid-cg":
         hier = build_simplicial_hierarchy(read_mfem_mesh_inline_tri(read_mfem_mesh), 2)

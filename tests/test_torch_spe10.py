@@ -344,14 +344,23 @@ def test_coefmg_bfloat16_state_matches_jax():
 
 @pytest.mark.parametrize("kw,msg", [(dict(spatial_shards=2), "item 14")])
 def test_unported_kinv_options_raise(kw, msg):
+    """Once refused (ROADMAP `msg`), now ported: cg-schur-coefmg with a
+    kinv_ref and spatial_shards = 2 builds on the CPU (the slab coefMG) and
+    gives the replicated coefMG's Q on level 0."""
     hier = _hierarchy(2)
     cfg = ProblemConfig(refinements=1)
     cfg.darcy_solver.name = "cg-schur-coefmg"
+    cfg.darcy_solver.relative_tolerance = 1e-10
+    kinv = np.exp(np.random.default_rng(1).normal(size=(hier.levels[0].n_s, 3)))
+    ref = DarcySolver(hier, port_config(cfg), F64, device=CPU, kinv_ref=kinv)
     for k, v in kw.items():
         setattr(cfg.darcy_solver, k, v)
-    with pytest.raises(NotImplementedError, match=msg):
-        DarcySolver(hier, port_config(cfg), F64, device=CPU,
-                    kinv_ref=np.ones((hier.levels[0].n_s, 3)))
+    solver = DarcySolver(hier, port_config(cfg), F64, device=CPU, kinv_ref=kinv)
+    w = torch.from_numpy(np.exp(0.5 * np.random.default_rng(2).normal(
+        size=(2, hier.levels[0].n_s))))
+    q, _, info = solver.solve_fwd(0, w)
+    assert bool(info.converged.all()) and solver._spatial(0).precond == "coefmg"
+    assert rel_err(q, ref.solve_fwd(0, w)[0]) < 1e-8
 
 
 # -- every Darcy solver under a kinv_ref --------------------------------------------
