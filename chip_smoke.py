@@ -160,10 +160,10 @@ Phases, each printing one line (or block) before the last line:
              as the coarsest of a 3-level nested hierarchy (196 608 / 24 576 /
              3072 tets, ~6e5 Darcy dofs at level 0): the level-0 pair step at
              batch 32, float32, minres-coefmg: samples/s, iterations,
-             converged fraction (1.0 required), device-busy share (the
-             profiler's kernel time over the synchronized wall of an
-             unprofiled step, device_busy), peak memory; K2 against its
-             plain version at (32, 196 608).
+             converged fraction (1.0 required), peak memory (its
+             device-busy share is no longer profiled: tracing the step's
+             ~3e5 kernels took ~1 min); K2 against its plain version at
+             (32, 196 608).
 17. hybrid-cg, agglomerated (A) - phase 15's hierarchy and sampler under
              darcy_solver.name "hybrid-cg" (physics/hybrid.py: PCG on the
              face multipliers with Jacobi, constant-mode deflation and the
@@ -171,8 +171,9 @@ Phases, each printing one line (or block) before the last line:
              geometrically, algebraically or keep MINRES
              (HYBRID_AGGLOMERATED_KINDS, the JAX package's choice); per level
              samples/s, fine/coarse iterations, converged fraction (1.0
-             required), device-busy share, peak memory, and Q/Qc per sample
-             against minres-coefmg on the same fields and against a deep
+             required), device-busy share (the profiler's kernel time over
+             the synchronized wall of an unprofiled step, device_busy), peak
+             memory, and Q/Qc per sample against minres-coefmg on the same fields and against a deep
              float64 hybrid-cg solve (HYBRID_Q_RTOL: max and median);
              phase 15's level-0 oracle sample against its spsolve
              (UNSTRUCTURED_ORACLE_RTOL; the direct solve is not repeated);
@@ -250,6 +251,48 @@ Phases, each printing one line (or block) before the last line:
        defaults (60x110x42, 8 slabs, batch 2, float64) in a temporary
        directory: every run's iterations, qoi_rel_err_vs_deep and peak_mb,
        converged fraction 1.0 each.
+22. evidence drivers - the port's twins of the JAX package's evidence and
+             tuning drivers, each through its main(argv) in process on
+             cuda:0 in a temporary working directory (its JSON written
+             there), the launch counts set to 0 just before each; rows are
+             printed beside the JAX package's TPU evidence files, each
+             labelled with its device:
+   22a. spe10_performance --selfcheck at its defaults (full grid, 3 levels,
+       synthetic permeability): the selfcheck passes, converged 1.0 per
+       level, finite fields;
+   22b. spe10_sampler_performance at its defaults (60x220x84, batch 256,
+       plain/matching/projection): finite moments, each embedded level-0
+       field mean within EVIDENCE_EMBED_MEAN_RTOL of the plain one; peak
+       memory and host setup per variant;
+   22c. (run last) unstructured_performance on the generated six-tet cube
+       file, its defaults otherwise (refine 4, 4 agglomerated levels, batch
+       128, hybrid-cg, rtol 1e-5) but for the depth of
+       EVIDENCE_UNSTRUCTURED_ARGV (256 samples: two timed reps a level):
+       QoI oracle within EVIDENCE_ORACLE_RTOL, converged 1.0 per level
+       (--compare off: phases 15 and 17 compare the solvers). Its one-core
+       scipy baseline is replaced by NaN, and its oracle's sparse LU runs
+       in a thread from the start of phase 22 on the same system (taken
+       only if bit-equal to the twin's);
+   22d. spe10_adjoint_check on the command line of
+       SPE10_ADJOINT_EVIDENCE.json (full grid, batch 8, seed 7): every leg
+       converged, finite Y, errors and iterations beside the TPU's; then
+       its truth pair once more on its float32 fields, in float32 and in
+       float64 (which must converge): E[Y] of each and their distance;
+   22e. spe10_beta_noise --samples EVIDENCE_BETA_SAMPLES on the full grid
+       (a depth cut from 256): the prod leg's Y finite per level; noise
+       fraction, correlation, mean iterations per leg, a deep-leg level at
+       or above one solve's budget marked;
+   22f. spe10_mg_tuning at its defaults (30x110x42, float64, batch 4,
+       fourteen variants, rtol 1e-5): every row converges; the measured
+       t_schur, t_ovh, t_apply; then --quick (the first three variants) at
+       EVIDENCE_MG_DEEP_RTOL, where the converged rows' Q[0] must agree to
+       EVIDENCE_MG_Q0_RTOL (at 1e-5 they part by ~2.5e-2: the driver's own
+       warning);
+   22g. spe10_rate_diagnostics at its defaults (16x56x16, n 64, 3 levels,
+       float64): every solve converged;
+   22h. after each: K1 and K2 against their plain versions at each distinct
+       (configuration, per-level batch, dtype) it launched, on the problem
+       it built (recorded through its build_problem), as phase 20 does.
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -274,7 +317,8 @@ them over the SM's dispatch width.
 Then one line with each phase's wall seconds, one JSON line with the
 kernels' numbers (launches of each path with
 the counts at 0 before it, the drivers' as drivers_<run>, `launches` being
-the ratio full-grid run's;
+the ratio full-grid run's; phase 22's as evidence_<driver>, its checks
+under each kernel's "evidence_drivers";
 errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
 K1 and K2, which the MLMC and the ratio run share, of sample_uniforms for
 K3), the card's
@@ -287,6 +331,7 @@ result. It also fails if the JAX package or jax was imported.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import json
 import math
@@ -515,6 +560,26 @@ MESH_FILE_CASES = (("plain", {}),
                    ("matching", dict(embedding="matching")),
                    ("projection-0", dict(embedding="projection")),
                    ("projection-1", dict(embedding="projection", projection_order=1)))
+# Phase 22: the evidence and tuning drivers at their defaults. 22e's
+# samples per level (the original's default 256: a depth cut, PERF.md
+# section 4); 22b's embedded level-0 field mean against the plain one; 22f's
+# agreement of the converged rows' Q[0] (the driver's own warning), held at
+# a deep rtol on the first three variants: at the default 1e-5 the rows
+# part by 2.5e-2 on the CPU and on the card alike (PERF.md); 22c's QoI
+# oracle (float32 at rtol 1e-5 against the float64 direct solve) and its
+# depth cut (two timed reps of 128 samples a level, not four).
+EVIDENCE_BETA_SAMPLES = 32
+EVIDENCE_EMBED_MEAN_RTOL = 0.05
+EVIDENCE_MG_Q0_RTOL = 1e-3
+EVIDENCE_MG_DEEP_RTOL = 1e-8
+EVIDENCE_ORACLE_RTOL = 1e-4
+# 22d: the command line SPE10_ADJOINT_EVIDENCE.json records.
+EVIDENCE_ADJOINT_ARGV = ["--plain-rtol", "1e-6", "--truth-rtol", "1e-6"]
+EVIDENCE_UNSTRUCTURED_ARGV = ["--samples", "256"]
+# 22h times the plain versions once and replays K2's CUDA graph twice (the
+# earlier phases: five and ten): a plain draw of 256 x 1.4M normals takes
+# ~0.4 s, a replay of 200 kernel launches ~0.3 s.
+EVIDENCE_PLAIN_REPS, EVIDENCE_GRAPH_REPLAYS = 1, 2
 # Six tets around the main diagonal of the unit cube (corners numbered x
 # fastest, then y, then z): the shape and counts of the reference's
 # cube_tet.mesh, which is not in the repository.
@@ -870,7 +935,8 @@ def bound_basis(mode: str) -> str:
     return f"{sass_counts(mode.replace('Normal', 'Uniform'))}"
 
 
-def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int = 5):
+def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int = 5,
+             replays: int = GRAPH_REPLAYS):
     """K2 against its plain version on one draw of `shape`: (kernel
     output, dict of max abs error, max |a-b|/(1+|b|), kernel, plain, bound
     and torch.randn ms). Fails above `tol`."""
@@ -891,7 +957,8 @@ def k2_check(key, shape, dtype, device, tol: float, label: str, plain_reps: int 
     return xk, dict(
         abs_err=abs_err, scaled=scaled, bound_ms=bound, bound_by=bound_by,
         ms=cuda_ms(lambda: prng.sample_normals(key, shape, dtype, device)),
-        device_ms=graph_ms(lambda: prng.sample_normals(key, shape, dtype, device, out=buf)),
+        device_ms=graph_ms(lambda: prng.sample_normals(key, shape, dtype, device, out=buf),
+                           replays=replays),
         plain_ms=cuda_ms(lambda: prng.normals_plain(key, shape, dtype, device), reps=plain_reps),
         # Philox: another generator, so not jax.random's values.
         library_ms=cuda_ms(lambda: torch.randn(shape, dtype=dtype, device=device)))
@@ -906,13 +973,14 @@ def k2_line(label: str, r: dict, tol: float, gpu: str) -> str:
 
 
 def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: str, gpu: str,
-                       solve: bool = True):
+                       solve: bool = True, plain_reps: int = 5, replays: int = GRAPH_REPLAYS):
     """M(w)^{-1} (K1) and K2 against their plain versions at the shapes a
     path gives them, on every level: K1 on the M(w)^{-1} tables factored
     for a sampled field at the level's batch (not where `solve` is false:
-    a path that only draws), K2 on the level's noise draw. Returns
-    {kernel: level-0 result dict, with max_abs_err the largest over the
-    levels}."""
+    a path that only draws), K2 on the level's noise draw (`plain_reps`
+    timed calls of the plain versions, `replays` of K2's CUDA graph).
+    Returns {kernel: level-0 result dict, with max_abs_err the largest over
+    the levels}."""
     from parelagmc_tpu_torch.ops.prng import fold_in
 
     sampler, solver = prob.sampler, prob.solver
@@ -923,14 +991,14 @@ def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: 
         lkey = fold_in(key, level)
         shape = (batch, sampler.sample_size(level))
         _, k2 = k2_check(lkey, shape, dtype, solver.device, k2_tol,
-                         f"{label} level {level} {name}")
+                         f"{label} level {level} {name}", plain_reps, replays)
         print(k2_line(f"{label} level {level} {name}: K2 noise {shape}", k2, k2_tol, gpu),
               flush=True)
         results = [("threefry_normal", k2, k2["abs_err"])]
         if solve:
             results.append(("thomas", *level_k1_check(sampler, solver, level, lkey, batch,
                                                        k1_tol, f"{label} level {level}", name,
-                                                       gpu)))
+                                                       gpu, plain_reps)))
         for k, r, err in results:
             if k in out:
                 out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
@@ -940,7 +1008,7 @@ def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: 
 
 
 def level_k1_check(sampler, solver, level: int, key, batch: int, tol: float, label: str,
-                   name: str, gpu: str):
+                   name: str, gpu: str, plain_reps: int = 5):
     """K1 against its plain version on the level's M(w)^{-1} tables factored
     for a sampled field of `batch` samples, with one and with two right-hand
     sides per table set: (result dict, max abs error of both)."""
@@ -949,10 +1017,11 @@ def level_k1_check(sampler, solver, level: int, key, batch: int, tol: float, lab
     w = sampler.eval(level, sampler.sample(level, key, batch))
     ms_ = solver.levels[level].mass_solver
     fac = ms_.factor(w)
-    k1 = k1_check(ms_, fac, random_rhs(fac, level), tol, f"{label} {name}")
+    k1 = k1_check(ms_, fac, random_rhs(fac, level), tol, f"{label} {name}", plain_reps)
     print(k1_line(f"{label} batch {batch} {name}: K1 M(w)^-1 {ms_.shape} cells", k1, tol, gpu),
           flush=True)
-    k1["rhs2"] = k1_rhs_check(ms_, fac, tol, f"{label} batch {batch} {name}", gpu, k1["ms"])
+    k1["rhs2"] = k1_rhs_check(ms_, fac, tol, f"{label} batch {batch} {name}", gpu, k1["ms"],
+                              plain_reps=min(3, plain_reps))
     del w, fac
     torch.cuda.empty_cache()
     return k1, max(k1["abs_err"], k1["rhs2"]["abs_err"])
@@ -2342,10 +2411,9 @@ def phase_unstructured_nested(device, gpu: str):
     wall_ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     conv = float(converged.float().mean())
-    share, device_ms, nkern = device_busy(lambda: step(fold_in(key, 1)), wall_ms)
-    busy = "not measured (the profiler recorded no device event)" if share is None else (
-        f"{100 * share:.1f}% ({device_ms:.1f} device ms in {wall_ms:.1f} wall ms, {nkern} "
-        f"kernels)")
+    # No profiled third step (device_busy): tracing its ~3e5 kernels took
+    # ~1 min, cut for the script's time; PERF.md keeps the earlier reading.
+    busy = "not measured here (the profiled step is cut for the script's time)"
     print(f"unstructured nested level-0 pair step: cells {cells}, Darcy dofs "
           f"{[solver.num_dofs(l) for l in range(n['levels'])]}, batch {n['batch']}, f32, "
           f"{UNSTRUCTURED['solver']} rtol {UNSTRUCTURED['rtol']:g}; host setup: mesh + hierarchy "
@@ -3242,6 +3310,457 @@ def phase_spatial_scaling(gpu: str):
     return res["runs"]
 
 
+class recording:
+    """Context: `module.<attr>` (a builder) wrapped to keep the first `keep`
+    objects it returns, each handed to `on_build` first (if given); the
+    original is back on exit."""
+
+    def __init__(self, module, attr: str, keep: int = 1, on_build=None):
+        self.module, self.attr, self.keep, self.on_build = module, attr, keep, on_build
+        self.built = []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.attr)
+
+        def wrapper(*args, **kw):
+            out = self.real(*args, **kw)
+            if self.on_build is not None:
+                self.on_build(out)
+            if len(self.built) < self.keep:
+                self.built.append(out)
+            return out
+
+        setattr(self.module, self.attr, wrapper)
+        return self.built
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+        return False
+
+
+@contextlib.contextmanager
+def replaced(module, attr: str, value):
+    """Context: `module.<attr>` is `value` inside, the original after."""
+    real = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield real
+    finally:
+        setattr(module, attr, real)
+
+
+def tpu_record(name: str):
+    """The JAX package's evidence file `name` (taken on a TPU v5e), or None."""
+    path = os.path.join(HERE, name)
+    if not os.path.isfile(path):
+        return None
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def evidence_run(name: str, argv, workdir: str, record=None, keep: int = 1, on_build=None):
+    """(return value, stdout, wall s, launches, recorded problems) of the
+    twin parelagmc_tpu_torch.examples.<name> through run_driver, with the
+    build_problem of the examples module `record` (the twin's own by
+    default; none when `record` is False) recorded."""
+    import contextlib
+    import importlib
+
+    watch = contextlib.nullcontext([])
+    if record is not False:
+        module = importlib.import_module(f"parelagmc_tpu_torch.examples.{record or name}")
+        watch = recording(module, "build_problem", keep, on_build)
+    with watch as built:
+        result = run_driver(name, argv, workdir)
+    print(f"evidence {name} {' '.join(argv)}: {result[2]:.2f} s, launches {result[3]}",
+          flush=True)
+    return (*result, built)
+
+
+def evidence_checks(tag: str, prob, batches, gpu: str, solve: bool = True):
+    """Phase 22h: K1 and K2 against their plain versions at a twin's shapes
+    (path_kernel_checks on the problem it built)."""
+    import torch
+
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+
+    wide = prob.dtype == torch.float64
+    out = path_kernel_checks(prob, batches, fold_in(PRNGKey(prob.config.seed), 97),
+                             F64_TOL_K1 if wide else F32_TOL_K1,
+                             F64_TOL_K2 if wide else F32_TOL_K2, f"evidence {tag}", gpu,
+                             solve=solve, plain_reps=EVIDENCE_PLAIN_REPS,
+                             replays=EVIDENCE_GRAPH_REPLAYS)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ms_text(sec: float) -> str:
+    """Seconds as milliseconds, three decimals."""
+    return f"{sec * 1e3:.3f}"
+
+
+def phase_evidence_performance(gpu: str, tmp: str):
+    """Phase 22a: spe10_performance --selfcheck at its defaults (the full
+    60x220x85 grid, 3 levels, synthetic permeability): the selfcheck, every
+    level's pair converged 1.0, finite fields; its rows beside the JAX
+    package's TPU rows. Then 22h at its shapes."""
+    out_json = os.path.join(tmp, "SPE10_EVIDENCE_TORCH.json")
+    ev, out, _, launches, built = evidence_run(
+        "spe10_performance", ["--selfcheck", "--out", out_json], tmp)
+    if out.count("batch1-vs-batch2[0] rel diff") != 3 or out.count(" ok\n") < 3:
+        fail(f"22a: selfcheck did not pass:\n{out[-3000:]}")
+    tpu = tpu_record("SPE10_EVIDENCE.json")
+    for row in ev["levels"]:
+        pair, se = row["mlmc_pair"], row["sample_eval"]
+        if pair["converged_fraction"] != 1.0 or not math.isfinite(se["field_mean"]):
+            fail(f"22a spe10_performance level {row['level']}: {row}")
+        line = (f"22a spe10_performance level {row['level']} ({row['darcy_dofs']} dofs, pair batch "
+                f"{row['batch']}): [{ev['device']}] Sample+Eval {ms_text(se['sec_per_sample'])} "
+                f"ms/sample, pair {ms_text(pair['sec_per_sample'])} ms/sample, iterations "
+                f"{pair['mean_iterations']:.2f}, converged {pair['converged_fraction']}, "
+                f"field mean {se['field_mean']:.6g}")
+        if tpu is not None:
+            t = tpu["levels"][row["level"]]
+            line += (f"; [TPU v5e, JAX package, SPE10_EVIDENCE.json] Sample+Eval "
+                     f"{ms_text(t['sample_eval']['sec_per_sample'])}, pair "
+                     f"{ms_text(t['mlmc_pair']['sec_per_sample'])} ms/sample, iterations "
+                     f"{t['mlmc_pair']['mean_iterations']:.2f}")
+        print(line, flush=True)
+    prob = built[0]
+    checks = {
+        "spe10_performance_f32": evidence_checks(
+            "spe10_performance pair", prob, [r["batch"] for r in ev["levels"]], gpu),
+        "spe10_performance_sample_eval_f32": evidence_checks(
+            "spe10_performance Sample+Eval", prob, [ev["config"]["batch"]] * len(ev["levels"]),
+            gpu, solve=False)}
+    return "spe10_performance", launches, checks
+
+
+def phase_evidence_sampler(gpu: str, tmp: str):
+    """Phase 22b: spe10_sampler_performance at its defaults (60x220x84,
+    batch 256, plain/matching/projection): finite moments, each embedded
+    variant's level-0 field mean within EVIDENCE_EMBED_MEAN_RTOL of the
+    plain one; peak memory and host setup per variant. Then 22h (K2: the
+    samplers draw, nothing is solved)."""
+    ev, _, _, launches, built = evidence_run(
+        "spe10_sampler_performance", ["--out", os.path.join(tmp, "sampler.json")], tmp, keep=3)
+    tpu = tpu_record("SPE10_SAMPLER_EVIDENCE.json")
+    plain_mean = ev["variants"]["plain"][0]["field_mean"]
+    for variant, rows in ev["variants"].items():
+        for row in rows:
+            if not (math.isfinite(row["field_mean"]) and math.isfinite(row["field_std"])):
+                fail(f"22b {variant} level {row['level']}: {row}")
+            line = (f"22b spe10_sampler_performance {variant} level {row['level']} "
+                    f"({row['solve_dofs']} solve / {row['field_dofs']} field cells, batch "
+                    f"{row['batch']}): [{ev['device']}] Sample+Eval "
+                    f"{ms_text(row['sample_eval']['sec_per_sample'])} ms/sample"
+                    + (f", EmbedEval {ms_text(row['embed_eval']['sec_per_sample'])}"
+                       if "embed_eval" in row else "")
+                    + (f", projector {ms_text(row['projector_apply']['sec_per_sample'])}"
+                       if "projector_apply" in row else "")
+                    + f", field mean {row['field_mean']:.6g} std {row['field_std']:.6g}")
+            if row["level"] == 0:
+                line += (f", peak {row['hbm_bytes'] / 1e9:.3f} GB, host setup "
+                         f"{row['setup_sec']:.2f} s")
+            if tpu is not None:
+                t = tpu["variants"][variant][row["level"]]
+                line += (f"; [TPU v5e, JAX package, SPE10_SAMPLER_EVIDENCE.json] Sample+Eval "
+                         f"{ms_text(t['sample_eval']['sec_per_sample'])} ms/sample")
+            print(line, flush=True)
+        if variant != "plain" and abs(rows[0]["field_mean"] - plain_mean) > \
+                EVIDENCE_EMBED_MEAN_RTOL * abs(plain_mean):
+            fail(f"22b {variant}: level-0 field mean {rows[0]['field_mean']} against the plain "
+                 f"{plain_mean}")
+    checks = {f"spe10_sampler_{p.config.embedding}_f32": evidence_checks(
+        f"spe10_sampler_performance {p.config.embedding}", p,
+        [p.config.batch_size] * p.config.nlevels, gpu, solve=False) for p in built}
+    return "spe10_sampler_performance", launches, checks
+
+
+def start_unstructured_oracle(tmp: str):
+    """22c's level-0 QoI oracle begun in a thread at the start of phase 22:
+    the twin's generated cube file written into `tmp`, its hierarchy and
+    float32 operators at its defaults (built on the CPU, with minres-bj,
+    which builds no preconditioner: the oracle reads the level's saddle
+    system alone), its oracle field, and the twin's oracle_system and
+    oracle_solve (one sparse LU on one host core, ~62 s). Returns (mesh
+    path, future of ((A, b, obs), Q, LU seconds)); 22c runs last."""
+    def solve(mesh):
+        import torch
+
+        from parelagmc_tpu_torch.examples import unstructured_performance as up
+        from parelagmc_tpu_torch.unstructured import UnstructuredDarcySolver
+
+        args = up.build_parser().parse_args(["--mesh", mesh])
+        hier, _ = up.read_hierarchy(args)
+        solver = UnstructuredDarcySolver(hier, up.problem_config(args, "minres-bj"),
+                                         torch.float32, torch.device("cpu"))
+        system = up.oracle_system(hier, solver, 0, up.oracle_field(hier, args.variance))
+        t0 = time.perf_counter()
+        return system, up.oracle_solve(*system), time.perf_counter() - t0
+
+    mesh = os.path.join(tmp, "cube_tet.mesh")
+    write_tet_mesh(mesh, *tet_box(1, 0.0, 1.0))
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(solve, mesh)
+    pool.shutdown(wait=False)
+    return mesh, future
+
+
+def phase_evidence_unstructured(gpu: str, tmp: str, ahead):
+    """Phase 22c: unstructured_performance on the generated six-tet cube
+    file, defaults otherwise (refine 4, 4 agglomerated levels, batch 128,
+    hybrid-cg, rtol 1e-5, float32) but for EVIDENCE_UNSTRUCTURED_ARGV's
+    depth: the level-0 QoI oracle within EVIDENCE_ORACLE_RTOL, converged
+    1.0 on every level. The twin's scipy_pair_baseline is replaced by one
+    that returns NaN (each level-0 round of that one-core baseline factors
+    two saddle systems, 68-100 s a round, three rounds). Its
+    scipy_qoi_oracle takes the result of start_unstructured_oracle (`ahead`)
+    when the twin's (A, b, obs) equal that one's bit for bit, and solves in
+    line otherwise. Then 22h: K2 at each level's draw (nothing of this path
+    calls K1)."""
+    import numpy as np
+    import torch
+
+    from parelagmc_tpu_torch.examples import unstructured_performance as up
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+
+    mesh, future = ahead
+    seen = {}
+
+    def oracle(hier, solver, level, w):
+        A, b, obs = up.oracle_system(hier, solver, level, w)
+        t0 = time.perf_counter()
+        (A0, b0, obs0), q, lu_s = future.result()
+        seen.update(wait_s=time.perf_counter() - t0, lu_s=lu_s)
+        seen["same"] = (level == 0 and A.shape == A0.shape and (A != A0).nnz == 0
+                        and np.array_equal(b, b0) and np.array_equal(obs, obs0))
+        return q if seen["same"] else up.oracle_solve(A, b, obs)
+
+    with replaced(up, "scipy_qoi_oracle", oracle), replaced(
+            up, "scipy_pair_baseline", lambda hier, solver, level, nmeas=3: float("nan")):
+        ev, _, _, launches, _ = evidence_run(
+            "unstructured_performance",
+            ["--mesh", mesh, "--out", os.path.join(tmp, "u.json")] + EVIDENCE_UNSTRUCTURED_ARGV,
+            tmp, record=False)
+    print(f"22c QoI oracle: its sparse LU took {seen['lu_s']:.1f} s in a thread from the start "
+          f"of phase 22; the twin waited {seen['wait_s']:.1f} s for it; the twin's system equal "
+          f"to the thread's: {seen['same']}" + ("" if seen["same"] else " (solved in line)"),
+          flush=True)
+    oracle = ev["qoi_oracle"]
+    print(f"22c unstructured_performance: cells {ev['cells']} faces {ev['faces']}, host setup "
+          f"{ev['setup_sec']}, QoI oracle device {oracle['q_device']!r} scipy "
+          f"{oracle['q_scipy']!r} rel {oracle['rel_err']:.3e} [{ev['device']}]", flush=True)
+    if not oracle["rel_err"] <= EVIDENCE_ORACLE_RTOL:
+        fail(f"22c: QoI oracle {oracle}")
+    tpu = tpu_record("UNSTRUCTURED_EVIDENCE.json")
+    for row in ev["levels"]:
+        pair = row["pair"]
+        if pair["converged_fraction"] != 1.0:
+            fail(f"22c level {row['level']}: {pair}")
+        line = (f"22c unstructured_performance level {row['level']} ({row['darcy_dofs']} dofs): "
+                f"[{ev['device']}] {ms_text(pair['sec_per_sample'])} ms/sample, iterations "
+                f"{pair['mean_iterations']:.2f}, converged 1.0 (scipy baseline not run here)")
+        if tpu is not None:
+            t = tpu["levels"][row["level"]]
+            line += (f"; [TPU v5e, JAX package, UNSTRUCTURED_EVIDENCE.json, cube_tet.mesh] "
+                     f"{ms_text(t['pair']['sec_per_sample'])} ms/sample, iterations "
+                     f"{t['pair']['mean_iterations']:.2f}")
+        print(line, flush=True)
+    print(f"22c per-iteration cost at level 0: {ev['profile_level0']} [{ev['device']}]",
+          flush=True)
+    key = fold_in(PRNGKey(0), 97)
+    k2 = None
+    for level, cells in enumerate(ev["cells"]):
+        shape = (ev["batch"], cells)
+        _, r = k2_check(fold_in(key, level), shape, torch.float32, torch.device("cuda", 0),
+                        F32_TOL_K2, f"evidence unstructured level {level}",
+                        EVIDENCE_PLAIN_REPS, EVIDENCE_GRAPH_REPLAYS)
+        print(k2_line(f"evidence unstructured level {level} float32: K2 noise {shape}", r,
+                      F32_TOL_K2, gpu), flush=True)
+        if k2 is None:
+            k2 = dict(r, max_abs_err=r["abs_err"])
+        else:
+            k2["max_abs_err"] = max(k2["max_abs_err"], r["abs_err"])
+    return "unstructured_performance", launches, {"unstructured_f32": {"threefry_normal": k2}}
+
+
+def phase_evidence_adjoint(gpu: str, tmp: str):
+    """Phase 22d: spe10_adjoint_check on the command line that
+    SPE10_ADJOINT_EVIDENCE.json records (full grid, batch 8, seed 7, plain
+    and truth at rtol 1e-6, adjoint at 1e-4): every leg converged, finite
+    Y; errors and iterations beside the recorded TPU ones. Then 22h."""
+    out_json = os.path.join(tmp, "adjoint.json")
+    _, _, _, launches, built = evidence_run(
+        "spe10_adjoint_check", EVIDENCE_ADJOINT_ARGV + ["--out", out_json], tmp)
+    with open(out_json) as fh:
+        ev = json.load(fh)
+    tpu = tpu_record("SPE10_ADJOINT_EVIDENCE.json")
+    if not math.isfinite(ev["truth"]["E_Y"]):
+        fail(f"22d: E_Y {ev['truth']}")
+    for leg in ("truth", "plain", "adjoint"):
+        r = ev[leg]
+        if r["converged"] is not True:
+            fail(f"22d {leg}: {r}")
+        errs = ("" if leg == "truth" else
+                f"max rel Y error {r['max_rel_Y_error']:.4g}, Q error {r['max_rel_Q_error']:.4g}, ")
+        if leg != "truth" and not (math.isfinite(r["max_rel_Y_error"])
+                                   and math.isfinite(r["max_rel_Q_error"])):
+            fail(f"22d {leg}: {r}")
+        line = (f"22d spe10_adjoint_check {leg}: [{ev['device']}] {errs}iterations "
+                f"{r['iterations']}, {ms_text(r['sec_per_sample'])} ms/sample, converged")
+        if tpu is not None:
+            t = tpu[leg]
+            line += (f"; [TPU v5e, JAX package, SPE10_ADJOINT_EVIDENCE.json] "
+                     + ("" if leg == "truth" else
+                        f"Y error {t['max_rel_Y_error']:.4g}, Q error {t['max_rel_Q_error']:.4g}, ")
+                     + f"iterations {t['iterations']}, {ms_text(t['sec_per_sample'])} ms/sample")
+        print(line, flush=True)
+    print(f"22d E[Y] truth {ev['truth']['E_Y']!r} [{ev['device']}]", flush=True)
+    adjoint_f64_witness(built[0], ev["config"], gpu)
+    checks = {"spe10_adjoint_f32": evidence_checks("spe10_adjoint_check", built[0], [8, 8], gpu)}
+    return "spe10_adjoint_check", launches, checks
+
+
+def adjoint_f64_witness(p0, config: dict, gpu: str):
+    """22d's truth leg again in float64 on the card, on the twin's float32
+    fields (its sample_fields of the truth problem `p0`), beside the same
+    float32 pair on the same fields: E[Y] of each, how far the float32
+    truth's Y and Q lie from the float64 one's. The float64 pair must
+    converge with finite QoIs."""
+    import numpy as np
+    import torch
+
+    from parelagmc_tpu_torch.examples import spe10_adjoint_check as adj
+
+    batch, seed, rtol = config["batch"], config["seed"], config["rtols"]["truth"]
+    s_f, s_c = adj.sample_fields(p0, seed, batch)
+    q32, qc32, it32, _, _, conv32 = adj.pair_once(p0.solver, s_f, s_c, True)
+    p64 = adj.build(tuple(config["grid"]), batch, seed, True, rtol, "float64", p0.solver.device)
+    q64, qc64, it64, segs64, dt64, conv64 = adj.pair_once(
+        p64.solver, s_f.to(torch.float64), s_c.to(torch.float64), True)
+    y32, y64 = q32 - qc32, q64 - qc64
+    if not conv64 or not (np.isfinite(q64).all() and np.isfinite(qc64).all()):
+        fail(f"22d float64 truth: converged {conv64}, Q {q64}, Qc {qc64}")
+    print(f"22d truth witness (adjoint at rtol {rtol:g}, the twin's float32 fields): E[Y] float64 "
+          f"{float(np.mean(y64))!r} ({it64} iterations, {segs64} fine segments, {dt64:.2f} s), "
+          f"float32 {float(np.mean(y32))!r} ({it32} iterations, converged {conv32}); float32 "
+          f"against float64: max |dY| {float(np.max(np.abs(y32 - y64))):.4g} (max |Y| "
+          f"{float(np.max(np.abs(y64))):.4g}), max rel Q {float(np.max(np.abs(q32 - q64) / np.abs(q64))):.3e}, "
+          f"max rel Qc {float(np.max(np.abs(qc32 - qc64) / np.abs(qc64))):.3e}; Y float64 "
+          f"{np.array2string(y64, precision=5)} float32 {np.array2string(y32, precision=5)}; Q "
+          f"float64 {np.array2string(q64, precision=6)} [{gpu}]", flush=True)
+    del p64
+    torch.cuda.empty_cache()
+
+
+def phase_evidence_beta(gpu: str, tmp: str):
+    """Phase 22e: spe10_beta_noise --samples EVIDENCE_BETA_SAMPLES on the
+    full grid (both legs through the spe10_mlmc twin): the prod leg's Y
+    finite on every level; noise fraction, correlation and mean iterations
+    per leg, a deep-leg level at or above one solve's budget marked. Then
+    22h at the prod leg's shapes."""
+    ev, _, _, launches, built = evidence_run(
+        "spe10_beta_noise", ["--samples", str(EVIDENCE_BETA_SAMPLES)], tmp, record="spe10_mlmc")
+    prob = built[0]
+    budget = int(prob.solver.solver_cfg.max_iterations) * max(
+        1, int(getattr(prob.config, "solve_segments", 1)))
+    for lv in ev["levels"]:
+        if not (math.isfinite(lv["mean_Y_prod"]) and math.isfinite(lv["var_Y_prod"])):
+            fail(f"22e level {lv['level']}: {lv}")
+        flag = (f" DEEP LEG AT OR ABOVE ONE SOLVE'S BUDGET ({budget}): unconverged noise, not a "
+                f"variance" if lv["mean_iters_deep"] >= budget else "")
+        print(f"22e spe10_beta_noise level {lv['level']} (n {lv['n']}): Var[Y] prod "
+              f"{lv['var_Y_prod']:.6g} deep {lv['var_Y_deep']:.6g}, noise fraction "
+              f"{lv['noise_fraction_of_var']:.4g}, corr {lv['corr']:.6f}, mean iterations prod "
+              f"{lv['mean_iters_prod']:.2f} deep {lv['mean_iters_deep']:.2f}{flag} "
+              f"[{ev['device']}]", flush=True)
+    if "beta_prod" in ev:
+        print(f"22e beta prod {ev['beta_prod']:.4f} deep {ev['beta_deep']:.4f} "
+              f"({EVIDENCE_BETA_SAMPLES} samples a level; SPE10_BETA_NOISE.json: 256, TPU v5e)",
+              flush=True)
+    batches = list(prob.config.batch_size_per_level or [prob.config.batch_size] * len(ev["levels"]))
+    checks = {"spe10_beta_noise_f32": evidence_checks("spe10_beta_noise", prob, batches, gpu)}
+    return "spe10_beta_noise", launches, checks
+
+
+def phase_evidence_mg_tuning(gpu: str, tmp: str):
+    """Phase 22f: spe10_mg_tuning at its defaults (30x110x42, float64, batch
+    4, fourteen variants, rtol 1e-5): every row converges; the measured
+    t_schur, t_ovh, t_apply; the rows. At rtol 1e-5 the flux QoI is only as
+    sharp as the tolerance leaves it at this contrast (the driver's own
+    warning fires), so the converged rows' Q[0] are held to
+    EVIDENCE_MG_Q0_RTOL on a second run, --quick, at EVIDENCE_MG_DEEP_RTOL.
+    Then 22h."""
+    rows, out, _, launches, built = evidence_run(
+        "spe10_mg_tuning", ["--json", os.path.join(tmp, "mg.json")], tmp)
+    print(f"22f spe10_mg_tuning components: t_schur {rows[0]['t_schur']:.4f} ms, t_ovh "
+          f"{rows[0]['t_ovh']:.4f} ms, t_apply {rows[0]['t_apply']:.4f} ms (30x110x42, batch 4, "
+          f"float64) [{gpu}]", flush=True)
+
+    def show(tag, rows_):
+        qs = [r["q0"] for r in rows_ if r["converged"]]
+        for r in rows_:
+            print(f"22f {tag} {r['label']:22s} iterations {r['iters']:4d} converged "
+                  f"{r['converged']} S/cycle {r['s_applies']} est {r['est_ms']:.1f} ms, "
+                  f"measured {r['cpu_s']:.3f} s, Q[0] {r['q0']!r}", flush=True)
+        spread = (max(qs) - min(qs)) / max(abs(q) for q in qs)
+        print(f"22f {tag}: Q[0] spread over {len(qs)} converged rows {spread:.3e}; "
+              + next((l for l in out.splitlines() if l.startswith("# best")), ""), flush=True)
+        return spread
+
+    show("rtol 1e-5", rows)
+    if len(rows) != 14 or not all(r["converged"] for r in rows):
+        fail(f"22f: rows {[(r['label'], r['converged']) for r in rows]}")
+    deep, out, _, deep_launches, _ = evidence_run(
+        "spe10_mg_tuning", ["--rtol", f"{EVIDENCE_MG_DEEP_RTOL:g}", "--quick"], tmp,
+        record=False)
+    spread = show(f"rtol {EVIDENCE_MG_DEEP_RTOL:g}", deep)
+    if not all(r["converged"] for r in deep) or not spread <= EVIDENCE_MG_Q0_RTOL:
+        fail(f"22f: at rtol {EVIDENCE_MG_DEEP_RTOL:g} converged rows' Q[0] spread {spread}")
+    launches = {k: launches[k] + deep_launches[k] for k in launches}
+    checks = {"spe10_mg_tuning_f64": evidence_checks("spe10_mg_tuning", built[0], [4], gpu)}
+    return "spe10_mg_tuning", launches, checks
+
+
+def phase_evidence_rate(gpu: str, tmp: str):
+    """Phase 22g: spe10_rate_diagnostics at its defaults (16x56x16, n 64, 3
+    levels, float64, cuda:0): every solve converged (read from each solve's
+    info). Then 22h."""
+    converged = []
+
+    def watch(prob):
+        real = prob.solver.solve_fwd
+
+        def solve_fwd(*args, **kw):
+            out = real(*args, **kw)
+            converged.append(bool(out[2].converged.all()))
+            return out
+
+        prob.solver.solve_fwd = solve_fwd
+
+    _, out, _, launches, built = evidence_run("spe10_rate_diagnostics", [], tmp, on_build=watch)
+    print("\n".join(f"22g {line}" for line in out.splitlines()), flush=True)
+    if len(converged) != 2 * 4 * 3 or not all(converged):
+        fail(f"22g: converged {converged}")
+    prob = built[0]
+    del prob.solver.solve_fwd
+    checks = {"spe10_rate_diagnostics_f64": evidence_checks(
+        "spe10_rate_diagnostics", prob, [16] * prob.config.nlevels, gpu)}
+    return "spe10_rate_diagnostics", launches, checks
+
+
+# In the order they run: 22c last, so that its oracle's LU, begun at the
+# start of phase 22, is done by then.
+EVIDENCE_PHASES = (("22a spe10_performance", phase_evidence_performance),
+                   ("22b spe10_sampler_performance", phase_evidence_sampler),
+                   ("22d spe10_adjoint_check", phase_evidence_adjoint),
+                   ("22e spe10_beta_noise", phase_evidence_beta),
+                   ("22f spe10_mg_tuning", phase_evidence_mg_tuning),
+                   ("22g spe10_rate_diagnostics", phase_evidence_rate),
+                   ("22c unstructured_performance", phase_evidence_unstructured))
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -3332,13 +3851,29 @@ def main() -> None:
     layouts_f64 = timed("21d f64", phase_spatial_anchor_layouts, anchor_prob, gpu)
     del anchor_prob
     timed("21e spatial_scaling", phase_spatial_scaling, gpu)
+    # Phase 22: the seven evidence and tuning drivers, each in process on
+    # cuda:0 in a temporary working directory, then 22h at its shapes.
+    import tempfile
+
+    evidence_runs, evidence_checks_ = {}, {}
+    t_evidence = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_evidence_") as tmp:
+        # 22c's oracle LU runs on a host core beside 22a-22b and 22d-22g.
+        ahead = start_unstructured_oracle(tmp)
+        for tag, phase in EVIDENCE_PHASES:
+            extra = (ahead,) if phase is phase_evidence_unstructured else ()
+            name, launches, twin_checks = timed(tag, phase, gpu, tmp, *extra)
+            evidence_runs[name] = launches
+            evidence_checks_.update(twin_checks)
+    print(f"evidence drivers: phase 22 {time.perf_counter() - t_evidence:.1f} s, launches "
+          f"{evidence_runs} [{gpu}]", flush=True)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
     # launches: the ratio run on the full SPE10 grid; launches_by_path
-    # lists every path, this slice's (sharded_golden_mlmc,
-    # unstructured_agglomerated_mlmc, unstructured_nested_pair_step)
-    # included, each run with the counts set to 0 just before it. The numbers of thomas and threefry_normal are at that grid's
+    # lists every path (sharded_golden_mlmc, unstructured_agglomerated_mlmc,
+    # unstructured_nested_pair_step, phase 22's evidence_<driver>, ...),
+    # each run with the counts set to 0 just before it. The numbers of thomas and threefry_normal are at that grid's
     # shapes, taken in the full-grid MLMC phase:
     # max_abs_err over its three levels; ms, plain_ms, bound_ms and
     # library_ms at level 0 (thomas: one M(w)^{-1} apply, three launches).
@@ -3359,7 +3894,8 @@ def main() -> None:
                          **{f"drivers_{name}": n[k] for name, n in drivers.items()},
                          **{f"spatial_golden_mlmc_{name}": n[k]
                             for name, n in spatial_golden.items()},
-                         f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor[k]}
+                         f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor[k],
+                         **{f"evidence_{name}": n[k] for name, n in evidence_runs.items()}}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -3391,6 +3927,10 @@ def main() -> None:
          # the full-grid level-0 shapes, float64 at the scaled anchor's.
          "spatial_layouts": {f"full grid sp{SPATIAL_SHARDS} float32": layouts_f32,
                              f"scaled anchor sp{SPATIAL_ANCHOR_SHARDS} float64": layouts_f64},
+         # M(w)^{-1} at each distinct (config, per-level batch, dtype) of
+         # phase 22's evidence drivers, level 0 (max_abs_err over the levels).
+         "evidence_drivers": {p: {k: c["thomas"][k] for k in fields}
+                              for p, c in evidence_checks_.items() if "thomas" in c},
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
@@ -3406,6 +3946,9 @@ def main() -> None:
                                   for k in fields + ("device_ms", "library_ms")},
          "drivers": {p: {k: c["threefry_normal"][k] for k in fields + ("library_ms",)}
                      for p, c in driver_checks.items()},
+         "evidence_drivers": {p: {k: c["threefry_normal"][k]
+                                  for k in fields + ("device_ms", "library_ms")}
+                              for p, c in evidence_checks_.items()},
          # The same keys at the draws of the unstructured phases (level 0).
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -46,7 +46,13 @@ MODULES = ["parelagmc_tpu_torch"] + sorted(
 EXAMPLES = ("mlmc", "slmc", "mlmc_manual", "ratio_estimator_mc", "ratio_estimator_mlmc",
             "likelihood_example", "compute_reference_obs_data", "spe10_mlmc", "spe10_ratio_mlmc",
             "darcy_test", "darcy_random_input", "sampler_test", "realization_test",
-            "sampler_performance", "spatial_scaling")
+            "sampler_performance", "spatial_scaling", *(
+                "spe10_performance", "spe10_adjoint_check", "spe10_beta_noise",
+                "spe10_mg_tuning", "spe10_rate_diagnostics", "spe10_sampler_performance",
+                "unstructured_performance"))
+# The evidence and tuning drivers among them (twins of examples/*.py whose
+# JSON files the JAX package's evidence rests on).
+EVIDENCE = EXAMPLES[-7:]
 # Program files of the port outside the package.
 SCRIPTS = ("chip_smoke.py", "profile_pair_step.py")
 
@@ -101,6 +107,37 @@ def test_spatial_modules_import_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_evidence_drivers_import_without_jax():
+    """The seven evidence and tuning drivers, imported alone in a fresh
+    interpreter, load neither jax, nor the JAX package, nor the root
+    examples package whose twins they are."""
+    code = (
+        "import importlib, sys\n"
+        f"for d in {EVIDENCE!r}:\n"
+        "    importlib.import_module('parelagmc_tpu_torch.examples.' + d)\n"
+        "print(sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'parelagmc_tpu', 'examples')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert EVIDENCE[0] == "spe10_performance" and len(set(EVIDENCE)) == 7
+
+
+def test_no_root_examples_import_in_port_sources():
+    """No `import examples` / `from examples...` (the JAX package's drivers)
+    in the package, chip_smoke.py or profile_pair_step.py."""
+    pat = re.compile(r"^\s*(import\s+examples\b|from\s+examples\b)", re.M)
+    scanned = {os.path.relpath(p, REPO) for p in _program_sources()}
+    assert {f"parelagmc_tpu_torch/examples/{d}.py" for d in EVIDENCE} <= scanned
+    for path in _program_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+    assert pat.search("from examples import spe10_mlmc") and pat.search("import examples.x")
+    assert not pat.search("from parelagmc_tpu_torch.examples import spe10_mlmc")
 
 
 def test_no_jax_import_in_package_sources():
