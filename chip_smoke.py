@@ -22,10 +22,13 @@ Phases, each printing one line (or block) before the last line:
              (float32, Darcy rtol 1e-5): dofs 17152/2240/304, |estimate -
              2.56| < 0.25, per-level consistency < 1, both kernels launched
              (launch counts reset just before the run, read just after).
-5. bench   - the golden pair step with bench.py's settings (batch 512,
-             rtol 1e-4, 50 iterations, local Schur scaling): samples/s and
-             E[Q] within 2.55 +- 0.12. (profile_pair_step.py splits this
-             step into layers and device/host time.)
+5. bench   - the bench twin, parelagmc_tpu_torch.bench.main(["--device",
+             "cuda:0"]): the golden pair step with bench.py's settings
+             (batch 512, rtol 1e-4, 50 iterations, local Schur scaling),
+             its one JSON line captured (missing, or the E[Q] canary 2.55
+             +- 0.12 tripped: the run fails), samples/s, E[Q] and
+             vs_baseline printed, K1 and K2 launched. (profile_pair_step.py
+             splits this step into layers and device/host time.)
 6. 64^3    - the pair step at refinements=4 (64^3 against 32^3), batch 64,
              rtol 1e-5 (float64, see BIG_DTYPE below): samples/s,
              iterations, converged fraction (must be 1.0), peak memory.
@@ -293,6 +296,19 @@ Phases, each printing one line (or block) before the last line:
    22h. after each: K1 and K2 against their plain versions at each distinct
        (configuration, per-level batch, dtype) it launched, on the problem
        it built (recorded through its build_problem), as phase 20 does.
+23. graft entry - the graft twin (parelagmc_tpu_torch/graft_entry.py) on
+             cuda:0: entry() and one forward step (shapes, finite), then
+             dryrun_multichip(GRAFT_DEVICES) with its own checks (sharded
+             against unsharded MLMC within 6 standard errors, the
+             split_pair_programs run to 5e-4, the (dp, sp) = (2, 4) spatial
+             solve cold and warm to 5e-3 with the warm one in <= 1
+             iteration), the launch counts set to 0 before each; then K1
+             and K2 against their plain versions at each distinct shape of
+             those runs: the entry step's (8, 512) draw and M(w)^{-1} at
+             8^3 and 4^3 (batch 8); the dry run's MLMC draws and M(w)^{-1}
+             on both levels of its 2^3 box at one shard's batch (2) and
+             unsharded (16); its unsharded spatial M(w)^{-1} (batch 4) and
+             the sharded one's slab layouts (as 21d), all float32.
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -318,7 +334,8 @@ Then one line with each phase's wall seconds, one JSON line with the
 kernels' numbers (launches of each path with
 the counts at 0 before it, the drivers' as drivers_<run>, `launches` being
 the ratio full-grid run's; phase 22's as evidence_<driver>, its checks
-under each kernel's "evidence_drivers";
+under each kernel's "evidence_drivers"; phase 5's as bench_pair_step,
+phase 23's as graft_entry_<run>, its checks under "graft_entry";
 errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
 K1 and K2, which the MLMC and the ratio run share, of sample_uniforms for
 K3), the card's
@@ -366,7 +383,7 @@ F32_TOL_K2, F64_TOL_K2 = 1e-5, 1e-12  # |a-b|/(1+|b|); CUDA erfinv vs PyTorch's
 # (refinements, batch, label) of the M(w)^{-1} tables K1 is checked on.
 K1_CASES = ((2, 512, "golden 16^3"), (4, 64, "64^3"))
 K2_SHAPE = (512, 4096)  # one golden pair batch of level-0 noise
-BENCH_BATCH, BIG_REFINEMENTS, BIG_BATCH = 512, 4, 64
+BIG_REFINEMENTS, BIG_BATCH = 4, 64
 # The 64^3 pair runs in float64 without CG restarts and with up to 2000
 # iterations: on this config the sqrt(w)-scaled exact-S(1) preconditioner
 # needs 560-1000+ iterations per solve in float64 at batch 64 (measured on
@@ -580,6 +597,10 @@ EVIDENCE_UNSTRUCTURED_ARGV = ["--samples", "256"]
 # earlier phases: five and ten): a plain draw of 256 x 1.4M normals takes
 # ~0.4 s, a replay of 200 kernel launches ~0.3 s.
 EVIDENCE_PLAIN_REPS, EVIDENCE_GRAPH_REPLAYS = 1, 2
+# Phase 23: dryrun_multichip's device count, that of __graft_entry__.py's
+# __main__ (8 virtual CPU devices there; here 8 shards and 8 slab-and-row
+# cells stacked on cuda:0).
+GRAFT_DEVICES = 8
 # Six tets around the main diagonal of the unit cube (corners numbered x
 # fastest, then y, then z): the shape and counts of the reference's
 # cube_tet.mesh, which is not in the repository.
@@ -1116,43 +1137,40 @@ def pair_problem(refinements: int, batch: int, rtol: float, maxit: int, dtype: s
     return build_problem(cfg, device=device)
 
 
-def phase_bench(device, gpu: str):
-    """bench.py's golden pair step on the port."""
-    import torch
+def phase_bench(gpu: str):
+    """Phase 5: the bench twin, parelagmc_tpu_torch.bench.main(["--device",
+    "cuda:0"]), with the launch counts set to 0 just before it. Its one JSON
+    line is captured and checked (a tripped E[Q] canary exits 1 without it);
+    samples/s, E[Q] and vs_baseline are printed beside the card. Returns
+    the launches of the run."""
+    import io
 
-    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch import bench, kernels
 
-    batch = BENCH_BATCH
-    prob = pair_problem(2, batch, 1e-4, 50, "float32", device)
-    sampler, solver = prob.sampler, prob.solver
-
-    def pair_step(key):
-        xi = sampler.sample(0, key, batch)
-        s_f = sampler.eval(0, xi)
-        s_c = sampler.eval(1, xi, xi_level=0)
-        q, qc, info_f, info_c = solver.solve_fwd_pair(0, s_f, s_c)
-        return q, q - qc, info_f, info_c
-
-    key = PRNGKey(0)
-    pair_step(key)[0].cpu()  # warm-up
-    reps, rounds = 8, 3
-    best_dt, eq, qs_all = math.inf, 0.0, None
-    for r in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = [pair_step(fold_in(key, 100 * r + i)) for i in range(reps)]
-        qs = torch.stack([o[0] for o in outs]).double().cpu()
-        dt = time.perf_counter() - t0
-        if dt < best_dt:
-            best_dt, eq, qs_all = dt, float(qs.mean()), qs
-    sps = reps * batch / best_dt
-    if not torch.isfinite(qs_all).all():
-        fail("bench pair step produced non-finite Q")
-    print(f"bench pair step (golden, batch {batch}, rtol 1e-4, 50 it, local scaling, f32): "
-          f"{sps:.1f} samples/s best of {rounds}x{reps} steps, E[Q] {eq:.4f} "
-          f"[{gpu}]", flush=True)
-    if abs(eq - 2.55) > 0.12:
-        fail(f"bench E[Q] {eq} outside 2.55 +- 0.12")
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            line, eq = bench.main(["--device", "cuda:0"])
+    except SystemExit as e:
+        fail(f"bench twin exited {e.code} (E[Q] canary tripped, no JSON line)")
+    launches = dict(kernels.launch_counts)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    printed = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    if printed != [line]:
+        fail(f"bench twin printed {printed}, not its one JSON line")
+    print(f"bench twin (python -m parelagmc_tpu_torch.bench: golden pair step, batch 512, "
+          f"rtol 1e-4, 50 it, local scaling, f32): {line['value']} samples/s, E[Q] {eq:.4f}, "
+          f"vs_baseline {line['vs_baseline']} (divisor {line['baseline_sec_per_sample']} "
+          f"s/sample, live {line['baseline_sec_per_sample_live']}), device {line['device']}, "
+          f"launches {launches} [{gpu}]", flush=True)
+    if not (math.isfinite(line["value"]) and line["value"] > 0 and abs(eq - 2.55) <= 0.12):
+        fail(f"bench twin: {line['value']} samples/s, E[Q] {eq}")
+    for k in ("thomas", "threefry_normal"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the bench twin")
+    return launches
 
 
 def phase_64(device, gpu: str):
@@ -3761,6 +3779,90 @@ EVIDENCE_PHASES = (("22a spe10_performance", phase_evidence_performance),
                    ("22c unstructured_performance", phase_evidence_unstructured))
 
 
+def phase_graft_entry(gpu: str):
+    """Phase 23: the graft twin (parelagmc_tpu_torch.graft_entry) on cuda:0:
+    entry() and one forward step, then dryrun_multichip(GRAFT_DEVICES), each
+    with the launch counts set to 0 just before it (its own checks raise);
+    then K1 and K2 against their plain versions at each distinct shape they
+    launch: the entry step's draw (8, 512) and M(w)^-1 at 8^3 and 4^3, batch
+    8; the dry run's MLMC on the 2-level 2^3 box, one shard (batch 2) and
+    unsharded (batch 16), every level's draw and M(w)^-1; its unsharded
+    spatial M(w)^-1 and the sharded M(w)^-1's slab layouts (spatial_k1_checks),
+    all float32. Returns ({path: launches}, {check: results}, {layout:
+    results})."""
+    import types
+
+    import torch
+
+    from parelagmc_tpu_torch import graft_entry, kernels
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+
+    launches = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    y, q = fn(*args)
+    torch.cuda.synchronize()
+    dt_entry = time.perf_counter() - t0
+    launches["forward_step"] = dict(kernels.launch_counts)
+    if not (tuple(q.shape) == tuple(y.shape) == (8,) and bool(torch.isfinite(q).all())
+            and bool(torch.isfinite(y).all())):
+        fail(f"graft entry: forward step gave {q} {y}")
+    print(f"graft entry: entry() + one forward step {dt_entry:.2f} s, output shapes "
+          f"{[tuple(o.shape) for o in (y, q)]}, E[q] {q.double().mean().item():.6f}, launches "
+          f"{launches['forward_step']} [{gpu}]", flush=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        r = graft_entry.dryrun_multichip(GRAFT_DEVICES)
+    except AssertionError as e:
+        fail(f"graft dryrun_multichip({GRAFT_DEVICES}): a check failed: {e}")
+    torch.cuda.synchronize()
+    dt_dry = time.perf_counter() - t0
+    launches["dryrun_multichip"] = dict(kernels.launch_counts)
+    print(f"graft dryrun_multichip({GRAFT_DEVICES}) ok in {dt_dry:.2f} s: eQ sharded "
+          f"{r['eQ'].tolist()} unsharded {r['eQ_ref'].tolist()} (6 se {(6 * r['se']).tolist()}) "
+          f"split {r['eQ_split'].tolist()}; spatial (dp, sp) = (2, {GRAFT_DEVICES // 2}) max rel Q "
+          f"{float(abs(r['q_sp'] / r['q_ref'] - 1).max()):.3e} cold (residual "
+          f"{r['residual']:.3e}), {float(abs(r['q_warm'] / r['q_ref'] - 1).max()):.3e} warm in "
+          f"{r['warm_iterations']} iterations; launches {launches['dryrun_multichip']} [{gpu}]",
+          flush=True)
+    for path, n in launches.items():
+        for k in ("thomas", "threefry_normal"):
+            if n[k] <= 0:
+                fail(f"kernel {k} was not launched by the graft twin's {path}")
+
+    checks = {}
+    key = fold_in(PRNGKey(23), 0)
+    _, sampler, solver, _ = graft_entry.build(nlevels=2, base_cells=(4, 4, 4), batch=8)
+    entry_checks = path_kernel_checks(types.SimpleNamespace(sampler=sampler, solver=solver), [8],
+                                      key, F32_TOL_K1, F32_TOL_K2, "graft entry", gpu)
+    _, err = level_k1_check(sampler, solver, 1, key, 8, F32_TOL_K1, "graft entry level 1",
+                            "float32", gpu)
+    entry_checks["thomas"]["max_abs_err"] = max(entry_checks["thomas"]["max_abs_err"], err)
+    checks["entry_batch8"] = entry_checks
+    batch = 2 * GRAFT_DEVICES
+    _, sampler, solver, _ = graft_entry.build(nlevels=2, base_cells=(2, 2, 2), batch=batch)
+    prob = types.SimpleNamespace(sampler=sampler, solver=solver)
+    for tag, b in (("dryrun_shard_batch2", batch // GRAFT_DEVICES),
+                   ("dryrun_unsharded_batch16", batch)):
+        checks[tag] = path_kernel_checks(prob, [b, b], key, F32_TOL_K1, F32_TOL_K2,
+                                         f"graft {tag}", gpu)
+    dsolver, ssolver, w = graft_entry.spatial_problem(GRAFT_DEVICES)
+    ms_ = dsolver.levels[0].mass_solver
+    fac = ms_.factor(w)
+    k1 = k1_check(ms_, fac, random_rhs(fac, 23), F32_TOL_K1, "graft spatial unsharded")
+    print(k1_line(f"graft dryrun spatial unsharded batch {w.shape[0]} float32: K1 M(w)^-1 "
+                  f"{ms_.shape} cells", k1, F32_TOL_K1, gpu), flush=True)
+    checks["dryrun_spatial_unsharded_batch4"] = {"thomas": dict(k1, max_abs_err=k1["abs_err"])}
+    sd = ssolver._spatial(0)
+    layouts = spatial_k1_checks(sd, w, F32_TOL_K1, f"graft dryrun sharded M(w)^-1 (5, "
+                                f"{2 * GRAFT_DEVICES}, 4) sp {sd.n_sp} dp {sd.n_dp} batch "
+                                f"{w.shape[0]} float32", gpu)
+    torch.cuda.empty_cache()
+    return launches, checks, layouts
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -3812,7 +3914,7 @@ def main() -> None:
     k3, k3_launches = timed("7 K3", phase_k3, device, gpu)
     golden = timed("4 MLMC", phase_mlmc, device, gpu)
     sharded, sharded_checks = timed("14 sharded golden", phase_sharded_golden, device, gpu)
-    timed("5 bench", phase_bench, device, gpu)
+    bench_launches = timed("5 bench", phase_bench, gpu)
     timed("6 64^3", phase_64, device, gpu)
     anchor, _, _ = timed("8 anchor", phase_spe10_anchor, device, gpu)
     samplers = timed("10 samplers", phase_samplers, device, gpu)
@@ -3867,6 +3969,7 @@ def main() -> None:
             evidence_checks_.update(twin_checks)
     print(f"evidence drivers: phase 22 {time.perf_counter() - t_evidence:.1f} s, launches "
           f"{evidence_runs} [{gpu}]", flush=True)
+    graft_runs, graft_checks, graft_layouts = timed("23 graft entry", phase_graft_entry, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -3878,6 +3981,8 @@ def main() -> None:
     # max_abs_err over its three levels; ms, plain_ms, bound_ms and
     # library_ms at level 0 (thomas: one M(w)^{-1} apply, three launches).
     by_path = lambda k: {"golden_mlmc": golden[k], "sharded_golden_mlmc": sharded[k],
+                         "bench_pair_step": bench_launches[k],
+                         **{f"graft_entry_{name}": n[k] for name, n in graft_runs.items()},
                          "unstructured_agglomerated_mlmc": agglomerated[k],
                          "unstructured_nested_pair_step": nested[k],
                          "hybrid_agglomerated_mlmc": hybrid_agglomerated[k],
@@ -3926,11 +4031,16 @@ def main() -> None:
          # decoupled y lines and the spike solves with R = 2, float32 at
          # the full-grid level-0 shapes, float64 at the scaled anchor's.
          "spatial_layouts": {f"full grid sp{SPATIAL_SHARDS} float32": layouts_f32,
-                             f"scaled anchor sp{SPATIAL_ANCHOR_SHARDS} float64": layouts_f64},
+                             f"scaled anchor sp{SPATIAL_ANCHOR_SHARDS} float64": layouts_f64,
+                             f"graft_entry dry run sp{GRAFT_DEVICES // 2} dp2 float32":
+                                 graft_layouts},
          # M(w)^{-1} at each distinct (config, per-level batch, dtype) of
          # phase 22's evidence drivers, level 0 (max_abs_err over the levels).
          "evidence_drivers": {p: {k: c["thomas"][k] for k in fields}
                               for p, c in evidence_checks_.items() if "thomas" in c},
+         # M(w)^{-1} at each distinct shape of phase 23's graft twin (level
+         # 0; max_abs_err over the levels).
+         "graft_entry": {p: {k: c["thomas"][k] for k in fields} for p, c in graft_checks.items()},
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
@@ -3949,6 +4059,9 @@ def main() -> None:
          "evidence_drivers": {p: {k: c["threefry_normal"][k]
                                   for k in fields + ("device_ms", "library_ms")}
                               for p, c in evidence_checks_.items()},
+         "graft_entry": {p: {k: c["threefry_normal"][k]
+                             for k in fields + ("device_ms", "library_ms")}
+                         for p, c in graft_checks.items() if "threefry_normal" in c},
          # The same keys at the draws of the unstructured phases (level 0).
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -25,8 +25,15 @@ Slices covered so far: the golden MLMC path (box mesh, SPDE sampler,
 cg-schur Darcy solver, MLMC manager), the SPE10-scale structured path
 (cg-schur-coefmg, kinv_ref, adjoint QoI), K3 (uniform noise), the other
 structured samplers and Darcy solvers, the Bayesian ratio managers, sample
-sharding (parallel/sharding.py) and MLMC on simplicial meshes, nested or
-agglomerated (unstructured.py). See ROADMAP.md for what is left.
+sharding (parallel/sharding.py), MLMC on simplicial meshes, nested or
+agglomerated (unstructured.py), the hybridized `hybrid-cg` solver
+(physics/hybrid.py), mesh files with embedded and projection samplers
+(native/, transfer_integrators.py), the command-line drivers and the
+evidence and tuning drivers (examples/), spatial sharding
+(parallel/spatial_darcy.py, parallel/spatial.py), and the root entry
+points' twins: the golden pair-step bench (bench.py) and the forward step
+with the multi-device dry run (graft_entry.py). See ROADMAP.md for what is
+left.
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,14 @@
 The port's entry points run on the card: a `device` of None means
 cuda:0, and a CUDA device that is not available raises - nothing falls
 back to the CPU. A caller that wants the CPU (the tests) asks for it.
+`device_info` is the line a JSON report names its device with: the card's
+name and power limit as `nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader` gives them, or "cpu".
 """
 
 from __future__ import annotations
 
+import subprocess
 from typing import Union
 
 import torch
@@ -38,3 +42,21 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def device_info(device: torch.device) -> str:
+    """The card's "name, power limit" line from nvidia-smi, or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -34,8 +34,8 @@ import time
 import numpy as np
 
 from parelagmc_tpu_torch.config import ProblemConfig
-from parelagmc_tpu_torch.device import resolve_device
-from parelagmc_tpu_torch.examples._evidence import device_info, host
+from parelagmc_tpu_torch.device import device_info, resolve_device
+from parelagmc_tpu_torch.examples._evidence import host
 from parelagmc_tpu_torch.examples.common import apply_solver_opt
 from parelagmc_tpu_torch.ops.prng import PRNGKey
 from parelagmc_tpu_torch.physics.spe10 import load_spe10_kinv

@@ -40,9 +40,8 @@ import sys
 
 import numpy as np
 
-from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.device import device_info, resolve_device
 from parelagmc_tpu_torch.examples import spe10_mlmc
-from parelagmc_tpu_torch.examples._evidence import device_info
 from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 
 

@@ -40,7 +40,8 @@ import time
 import numpy as np
 import torch
 
-from parelagmc_tpu_torch.examples._evidence import device_info, device_ms, host
+from parelagmc_tpu_torch.device import device_info
+from parelagmc_tpu_torch.examples._evidence import device_ms, host
 from parelagmc_tpu_torch.examples.common import parse_args
 from parelagmc_tpu_torch.examples.spe10_mlmc import take_option
 from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING

@@ -27,7 +27,8 @@ import time
 import numpy as np
 import torch
 
-from parelagmc_tpu_torch.examples._evidence import device_info, host, mean_of
+from parelagmc_tpu_torch.device import device_info
+from parelagmc_tpu_torch.examples._evidence import host, mean_of
 from parelagmc_tpu_torch.examples.common import parse_args
 from parelagmc_tpu_torch.examples.spe10_mlmc import take_flag, take_option
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in

@@ -44,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-from parelagmc_tpu_torch.examples._evidence import device_info, host, synchronize
+from parelagmc_tpu_torch.device import device_info, synchronize
+from parelagmc_tpu_torch.examples._evidence import host
 from parelagmc_tpu_torch.examples.common import parse_args
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.problems import build_problem

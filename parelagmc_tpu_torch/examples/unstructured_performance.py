@@ -46,8 +46,8 @@ import scipy.sparse.linalg as spla
 import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
-from parelagmc_tpu_torch.device import resolve_device, torch_dtype
-from parelagmc_tpu_torch.examples._evidence import device_info, host, mean_of
+from parelagmc_tpu_torch.device import device_info, resolve_device, torch_dtype
+from parelagmc_tpu_torch.examples._evidence import host, mean_of
 from parelagmc_tpu_torch.fem.agglomeration import build_agglomerated_hierarchy
 from parelagmc_tpu_torch.fem.simplicial_hierarchy import refine_simplicial
 from parelagmc_tpu_torch.mesh.mfem_io import read_mfem_mesh

@@ -126,6 +126,13 @@ class MixedLevel:
             (vals, (rows, self.m_cols.ravel())), shape=(self.n_u, self.n_u)
         )
 
+    def b_csr(self) -> sp.csr_matrix:
+        rows = np.repeat(np.arange(self.n_s), self.cell_faces.shape[1])
+        return sp.csr_matrix(
+            (self.cell_signs.ravel(), (rows, self.cell_faces.ravel())),
+            shape=(self.n_s, self.n_u),
+        )
+
     def ess_faces(self, ess_attr: np.ndarray) -> np.ndarray:
         """Bool mask of essential velocity dofs given a per-boundary-attribute
         0/1 vector (MFEM convention: ess_attr[attr-1] == 1)."""

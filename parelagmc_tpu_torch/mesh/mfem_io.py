@@ -14,8 +14,7 @@ Reads both formats the reference's bundled meshes use
   (tets/triangles/curved boundaries) are returned as GeneralMesh and flow
   into the simplicial FEM stack (fem/simplicial.py, unstructured.py).
 
-The writer (the reference's utils/io_vtk.save_mesh_mfem) is not ported
-(ROADMAP.md Queue 1, item 17).
+The writer lives in utils/io_vtk.save_mesh_mfem.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from parelagmc_tpu.mesh import structured as jstructured
 from parelagmc_tpu.utils import regression as jregression
 from parelagmc_tpu.utils import special as jspecial
 from parelagmc_tpu_torch import config as tconfig
+from parelagmc_tpu_torch import device as tdevice
 from parelagmc_tpu_torch.device import resolve_device, torch_dtype
 from parelagmc_tpu_torch.fem import assembly as tassembly
 from parelagmc_tpu_torch.fem import galerkin_mass as tgalerkin
@@ -80,7 +81,7 @@ def test_port_imports_leave_jax_out():
                  "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured",
                  "physics.hybrid", "native", "transfer_integrators", "utils.io_vtk",
                  "utils.reporting", "examples.common", "parallel.slabs", "parallel.spatial",
-                 "parallel.spatial_darcy",
+                 "parallel.spatial_darcy", "bench", "graft_entry",
                  *(f"examples.{d}" for d in EXAMPLES)):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
@@ -102,6 +103,22 @@ def test_spatial_modules_import_without_jax():
         "import parelagmc_tpu_torch.parallel.spatial_darcy, parelagmc_tpu_torch.parallel.spatial\n"
         "import parelagmc_tpu_torch.examples.spatial_scaling\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'parelagmc_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_bench_and_graft_entry_import_without_jax():
+    """The twins of bench.py and __graft_entry__.py, imported alone in a
+    fresh interpreter, load neither jax, nor the JAX package, nor the root
+    modules whose twins they are."""
+    code = (
+        "import sys\n"
+        "import parelagmc_tpu_torch.bench, parelagmc_tpu_torch.graft_entry\n"
+        "print(sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'parelagmc_tpu', 'bench', '__graft_entry__')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -224,6 +241,30 @@ def test_device_and_dtype_helpers():
                 resolve_device(dev)
 
 
+
+def test_device_report_helpers(monkeypatch):
+    """device_info names a card by nvidia-smi's "name, power limit" line for
+    that card's index (and the CPU as "cpu"); synchronize waits only on a
+    card."""
+    from types import SimpleNamespace
+
+    assert tdevice.device_info(CPU) == "cpu"
+    assert tdevice.synchronize(CPU) is None
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        rc = 0 if len(seen) == 1 else 6
+        return SimpleNamespace(returncode=rc, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n",
+                               stderr="no card")
+
+    monkeypatch.setattr(tdevice.subprocess, "run", run)
+    card = torch.device("cuda", 3)
+    assert tdevice.device_info(card) == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert seen[0][:3] == ["nvidia-smi", "--id=3", "--query-gpu=name,power.limit"]
+    with pytest.raises(RuntimeError, match="nvidia-smi failed: no card"):
+        tdevice.device_info(card)
+
 def read_mfem_mesh_inline_tri(read_mfem_mesh):
     """A 2 x 2 triangulated square through the port's MFEM reader."""
     import tempfile
@@ -274,6 +315,7 @@ def test_entry_points_default_to_the_card():
         UnstructuredProjectionSPDESampler,
         UnstructuredSPDESampler,
     )
+    from parelagmc_tpu_torch import bench, graft_entry
     from parelagmc_tpu_torch.examples.common import parse_args
 
     mesh = tfactories.make_box_mesh((2, 2, 2))
@@ -286,6 +328,12 @@ def test_entry_points_default_to_the_card():
     calls = [
         lambda: build_problem(cfg),
         lambda: parse_args([]),
+        lambda: bench.main([]),
+        lambda: bench.build(),
+        lambda: graft_entry.build(),
+        lambda: graft_entry.entry(),
+        lambda: graft_entry.dryrun_multichip(2),
+        lambda: graft_entry.spatial_problem(2),
         lambda: UnstructuredSPDESampler(shier, cfg),
         lambda: UnstructuredDarcySolver(shier, cfg),
         lambda: UnstructuredEmbeddedSPDESampler(
@@ -458,6 +506,7 @@ def test_host_copies_match_the_jax_package(kind):
         ess = np.array([0, 1, 1, 1, 1, 0])
         _assert_same(jl.ess_faces(ess), tl.ess_faces(ess), f"level {l} ess")
         _assert_same(jl.mass_csr(), tl.mass_csr(), f"level {l} mass")
+        _assert_same(jl.b_csr(), tl.b_csr(), f"level {l} divergence")
     for l in range(2):
         _assert_same(jh.parent[l], th.parent[l], f"parent {l}")
         _assert_same(jh.P_rt[l], th.P_rt[l], f"P_rt {l}")
@@ -557,6 +606,25 @@ def test_build_problem_builds_every_darcy_solver(name):
 def _host_defs(module, names):
     defs = _defs_without_docstrings(module)
     return {n: defs[n] for n in names}
+
+
+def _class_methods(module, cls):
+    """{name: ast dump} of the methods of `cls` in `module`, docstrings dropped."""
+    node = next(n for n in ast.parse(inspect.getsource(module)).body
+                if isinstance(n, ast.ClassDef) and n.name == cls)
+    tree = ast.Module(body=[m for m in node.body if isinstance(m, ast.FunctionDef)],
+                      type_ignores=[])
+    return _defs_of_tree(tree)
+
+
+def test_copied_mixed_level_methods_match_the_jax_package():
+    """Every method of the port's MixedLevel is the original's code,
+    b_csr (the bench twin's scipy baseline) among them."""
+    mine = _class_methods(tassembly, "MixedLevel")
+    ref = _class_methods(jassembly, "MixedLevel")
+    assert {"b_csr", "mass_csr", "ess_faces", "dim"} <= set(mine) <= set(ref)
+    for name in mine:
+        assert mine[name] == ref[name], f"MixedLevel.{name}"
 
 
 def test_copied_host_code_of_the_new_modules_matches_the_jax_package():
