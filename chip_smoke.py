@@ -309,6 +309,17 @@ Phases, each printing one line (or block) before the last line:
              on both levels of its 2^3 box at one shard's batch (2) and
              unsharded (16); its unsharded spatial M(w)^{-1} (batch 4) and
              the sharded one's slab layouts (as 21d), all float32.
+24. probes - the six SPE10 layer probes (parelagmc_tpu_torch/examples/
+             spe10_{level0_breakdown,struct_profile,vcycle_profile,
+             iter_cost,level1_cost,layout_probe}) through main(argv) at
+             their defaults on cuda:0 (layout_probe without --smoke), the
+             launch counts set to 0 just before each; the four level-0
+             probes share one build of the full grid (shared_build): every
+             number finite, iter_cost's budgets exactly lo and hi
+             iterations, every level1_cost batch converged 1.0 at the
+             production settings; one line per probe; then K1 and K2
+             against their plain versions at each distinct shape of the
+             probes (level 0 at batches 8 and 16, levels 1 and 2 at 128).
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -335,7 +346,8 @@ kernels' numbers (launches of each path with
 the counts at 0 before it, the drivers' as drivers_<run>, `launches` being
 the ratio full-grid run's; phase 22's as evidence_<driver>, its checks
 under each kernel's "evidence_drivers"; phase 5's as bench_pair_step,
-phase 23's as graft_entry_<run>, its checks under "graft_entry";
+phase 23's as graft_entry_<run>, its checks under "graft_entry"; phase
+24's as probes_<probe>, its checks as probes_<probe>_<dtype> entries;
 errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
 K1 and K2, which the MLMC and the ratio run share, of sample_uniforms for
 K3), the card's
@@ -994,28 +1006,32 @@ def k2_line(label: str, r: dict, tol: float, gpu: str) -> str:
 
 
 def path_kernel_checks(prob, batches, key, k1_tol: float, k2_tol: float, label: str, gpu: str,
-                       solve: bool = True, plain_reps: int = 5, replays: int = GRAPH_REPLAYS):
+                       solve: bool = True, plain_reps: int = 5, replays: int = GRAPH_REPLAYS,
+                       levels=None, draws=None):
     """M(w)^{-1} (K1) and K2 against their plain versions at the shapes a
-    path gives them, on every level: K1 on the M(w)^{-1} tables factored
-    for a sampled field at the level's batch (not where `solve` is false:
-    a path that only draws), K2 on the level's noise draw (`plain_reps`
-    timed calls of the plain versions, `replays` of K2's CUDA graph).
-    Returns {kernel: level-0 result dict, with max_abs_err the largest over
-    the levels}."""
+    path gives them, on every level (or on `levels`, one batch each): K1 on
+    the M(w)^{-1} tables factored for a sampled field at the level's batch
+    (not where `solve` is false: a path that only draws), K2 on the level's
+    noise draw where the path draws (every level, or those in `draws`);
+    `plain_reps` timed calls of the plain versions, `replays` of K2's CUDA
+    graph. Returns {kernel: first checked level's result dict, with
+    max_abs_err the largest over the levels}."""
     from parelagmc_tpu_torch.ops.prng import fold_in
 
     sampler, solver = prob.sampler, prob.solver
     dtype = solver.dtype
     name = str(dtype).replace("torch.", "")
     out = {}
-    for level, batch in enumerate(batches):
+    for level, batch in zip(range(len(batches)) if levels is None else levels, batches):
         lkey = fold_in(key, level)
-        shape = (batch, sampler.sample_size(level))
-        _, k2 = k2_check(lkey, shape, dtype, solver.device, k2_tol,
-                         f"{label} level {level} {name}", plain_reps, replays)
-        print(k2_line(f"{label} level {level} {name}: K2 noise {shape}", k2, k2_tol, gpu),
-              flush=True)
-        results = [("threefry_normal", k2, k2["abs_err"])]
+        results = []
+        if draws is None or level in draws:
+            shape = (batch, sampler.sample_size(level))
+            _, k2 = k2_check(lkey, shape, dtype, solver.device, k2_tol,
+                             f"{label} level {level} {name}", plain_reps, replays)
+            print(k2_line(f"{label} level {level} {name}: K2 noise {shape}", k2, k2_tol, gpu),
+                  flush=True)
+            results.append(("threefry_normal", k2, k2["abs_err"]))
         if solve:
             results.append(("thomas", *level_k1_check(sampler, solver, level, lkey, batch,
                                                        k1_tol, f"{label} level {level}", name,
@@ -1338,6 +1354,7 @@ def phase_k1_lines(prob, device, gpu: str):
     drives end to end reaches the line smoother or the bf16 kernel."""
     import torch
 
+    from parelagmc_tpu_torch.examples._evidence import masked_dinv
     from parelagmc_tpu_torch.ops import coef_multigrid_structured as cmg
     from parelagmc_tpu_torch.ops.prng import PRNGKey
     from parelagmc_tpu_torch.ops.tridiag_pallas import thomas, thomas_plain
@@ -1351,11 +1368,7 @@ def phase_k1_lines(prob, device, gpu: str):
     mg = cmg.build_struct_coef_mg(mesh, cutoff=solver.solver_cfg.coarse_dense_cutoff,
                                   line_axes=axes)
     w = sampler.eval(level, sampler.sample(level, PRNGKey(11), batch))
-    ms_ = solver.levels[level].mass_solver
-    diag = ms_.masked_diag(ms_.factor(w), w.shape[:-1])
-    dinv0 = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
-                        torch.zeros_like(diag))
-    state = cmg.struct_mg_setup(mg, dinv0)
+    state = cmg.struct_mg_setup(mg, masked_dinv(solver.levels[level], w))
     g = torch.Generator(device=device).manual_seed(12)
     for dtype, tol in ((torch.float32, F32_TOL_LINES), (torch.bfloat16, BF16_TOL_LINES)):
         name = str(dtype).replace("torch.", "")
@@ -1387,6 +1400,7 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
     import torch
 
     from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.examples._evidence import masked_dinv
     from parelagmc_tpu_torch.ops import coef_multigrid_structured as cmg
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
     from parelagmc_tpu_torch.uq import MLMCManager
@@ -1450,16 +1464,14 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
     fac = L0.mass_solver.factor(w)
     r = torch.randn(w.shape[:-1] + (L0.n_u,), device=device, dtype=w.dtype)
     minv_ms = cuda_ms(lambda: L0.mass_solver.apply_factored(fac, r), reps=10)
-    diag = L0.mass_solver.masked_diag(fac, w.shape[:-1])
-    dinv0 = torch.where(diag > 0, 1.0 / torch.where(diag > 0, diag, torch.ones_like(diag)),
-                        torch.zeros_like(diag))
-    state = cmg.cast_state(cmg.struct_mg_setup(L0.coef_mg, dinv0), torch.bfloat16)
+    state = cmg.cast_state(cmg.struct_mg_setup(L0.coef_mg, masked_dinv(L0, w, fac)),
+                           torch.bfloat16)
     b = torch.randn(w.shape, device=device, dtype=w.dtype)
     vc_ms = cuda_ms(lambda: cmg.struct_v_cycle(L0.coef_mg, state, b.to(torch.bfloat16)), reps=10)
     print(f"SPE10 full grid level 0 batch {mgr.level_batch[0]}: M(w)^-1 apply {minv_ms:.3f} ms, "
           f"coefMG V-cycle (cheb3, bf16 state, {len(L0.coef_mg.levels)} MG levels) "
           f"{vc_ms:.3f} ms (CUDA events); peak memory {peak_gb:.2f} GB [{gpu}]", flush=True)
-    del w, fac, r, diag, dinv0, state, b
+    del w, fac, r, state, b
     checks = path_kernel_checks(prob, mgr.level_batch, fold_in(key, 8), F32_TOL_K1,
                                 F32_TOL_K2, "SPE10 full grid kernels vs plain", gpu)
     return launches, checks
@@ -3395,9 +3407,10 @@ def evidence_run(name: str, argv, workdir: str, record=None, keep: int = 1, on_b
     return (*result, built)
 
 
-def evidence_checks(tag: str, prob, batches, gpu: str, solve: bool = True):
-    """Phase 22h: K1 and K2 against their plain versions at a twin's shapes
-    (path_kernel_checks on the problem it built)."""
+def evidence_checks(tag: str, prob, batches, gpu: str, solve: bool = True, **where):
+    """Phase 22h (and 24's): K1 and K2 against their plain versions at a
+    twin's shapes (path_kernel_checks on the problem it built; `where`: its
+    levels and draws)."""
     import torch
 
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
@@ -3407,7 +3420,7 @@ def evidence_checks(tag: str, prob, batches, gpu: str, solve: bool = True):
                              F64_TOL_K1 if wide else F32_TOL_K1,
                              F64_TOL_K2 if wide else F32_TOL_K2, f"evidence {tag}", gpu,
                              solve=solve, plain_reps=EVIDENCE_PLAIN_REPS,
-                             replays=EVIDENCE_GRAPH_REPLAYS)
+                             replays=EVIDENCE_GRAPH_REPLAYS, **where)
     torch.cuda.empty_cache()
     return out
 
@@ -3863,6 +3876,149 @@ def phase_graft_entry(gpu: str):
     return launches, checks, layouts
 
 
+def shared_build(real):
+    """build_problem memoized over what a build depends on: a config that
+    differs from one built before only in batch_size and in the Darcy
+    settings read at solve time (tolerance, iteration budget, preconditioner
+    state dtype) gets that problem, with its own config and a shallow copy
+    of its solver that carries its own settings (phase 24's four level-0
+    probes share one build of their grid this way)."""
+    import copy
+    import dataclasses
+
+    cache = {}
+
+    def build(cfg, kinv_ref=None, device=None):
+        ds = cfg.darcy_solver
+        key = (repr(dataclasses.replace(cfg, batch_size=0, darcy_solver=dataclasses.replace(
+            ds, relative_tolerance=0.0, max_iterations=0, coefmg_prec_dtype=""))), str(device))
+        if key not in cache:
+            cache[key] = real(cfg, kinv_ref=kinv_ref, device=device)
+        prob = cache[key]
+        solver = copy.copy(prob.solver)
+        solver.config, solver.solver_cfg = cfg, ds
+        return prob._replace(config=cfg, solver=solver)
+
+    return build
+
+
+def all_finite(x) -> bool:
+    """Every number in a nested dict or list is finite."""
+    if isinstance(x, dict):
+        return all(all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(all_finite(v) for v in x)
+    if isinstance(x, float):
+        return math.isfinite(x)
+    return True
+
+
+def probe_run(name: str, argv, tmp: str, gpu: str, build=None):
+    """A phase-24 probe through evidence_run (its build_problem replaced by
+    `build` where given): (result, launches, recorded problem); it fails on
+    a non-finite number."""
+    import importlib
+
+    module = importlib.import_module(f"parelagmc_tpu_torch.examples.{name}")
+    with (replaced(module, "build_problem", build) if build is not None
+          else contextlib.nullcontext()):
+        res, out, wall, launches, built = evidence_run(
+            name, argv, tmp, record=None if hasattr(module, "build_problem") else False)
+    if not all_finite(res) or res["device"] != gpu:
+        fail(f"24 {name}: {res}\n{out[-3000:]}")
+    return res, launches, (built[0] if built else None)
+
+
+def marginal_text(r: dict) -> str:
+    return f"{r['ms']:.4f} (wall {r['wall_ms']:.4f})"
+
+
+def phase_probes(gpu: str):
+    """Phase 24: the six SPE10 layer probes (parelagmc_tpu_torch/examples/
+    spe10_{level0_breakdown,struct_profile,vcycle_profile,iter_cost,
+    level1_cost,layout_probe}), each through main(argv) at its defaults on
+    cuda:0, the launch counts set to 0 just before each, the four level-0
+    probes on one shared build of the full grid (shared_build); every
+    number finite; iter_cost's budgets run exactly lo and hi iterations;
+    level1_cost's batches end converged 1.0. One line per probe (the JAX
+    probes wrote no file, so no TPU figure stands beside them). Then K1 and
+    K2 against their plain versions at each distinct shape the probes give
+    them: level 0 at batch 8 (K2's (8, 1 122 000) draw) and 16 (unpermuted
+    60x220x85 grid), levels 1 and 2 at batch 128 of the auto-ordered grid
+    (K2 at level 1)."""
+    import tempfile
+
+    import torch
+
+    from parelagmc_tpu_torch import problems
+
+    runs, checks = {}, {}
+    build = shared_build(problems.build_problem)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_probes_") as tmp:
+        bd, runs["spe10_level0_breakdown"], prob = probe_run(
+            "spe10_level0_breakdown", [], tmp, gpu, build)
+        print(f"24a spe10_level0_breakdown (60x220x85, batch 8, float32) [{bd['device']}]: "
+              + ", ".join(f"{k} {bd[k]['ms']:.4f} ms (wall {bd[k]['wall_ms']:.4f})"
+                          for k in ("Minv", "apply_S", "v_cycle+setup", "pcg_10"))
+              + f"; per iteration pcg {bd['per_iteration']['pcg_ms']:.4f} ms (wall "
+              f"{bd['per_iteration']['pcg_wall_ms']:.4f})", flush=True)
+        checks["probes_spe10_level0_breakdown_f32"] = evidence_checks(
+            "spe10_level0_breakdown", prob, [8], gpu)
+        probs = {}
+        for tag, name in (("24b", "spe10_struct_profile"), ("24c", "spe10_vcycle_profile")):
+            res, runs[name], probs[name] = probe_run(name, [], tmp, gpu, build)
+            print(f"{tag} {name} (60x220x85, batch 16, float32, chain marginals K {res['K']}, "
+                  f"ms by events (wall)) [{res['device']}]: "
+                  + ", ".join(f"{k} {marginal_text(v)}" for k, v in res.items()
+                              if isinstance(v, dict)), flush=True)
+        ic, runs["spe10_iter_cost"], _ = probe_run("spe10_iter_cost", [], tmp, gpu, build)
+        its = {b: r["iterations"] for b, r in ic["budgets"].items()}
+        if its != {ic["lo"]: ic["lo"], ic["hi"]: ic["hi"]}:
+            fail(f"24d spe10_iter_cost: iterations {its} at budgets {ic['lo']}/{ic['hi']}")
+        print(f"24d spe10_iter_cost (60x220x85, batch 16, float32, rtol 0) [{ic['device']}]: "
+              + ", ".join(f"{b} iterations {r['ms']:.3f} ms (wall {r['wall_ms']:.3f})"
+                          for b, r in ic["budgets"].items())
+              + f"; per iteration {ic['per_iteration_ms']:.4f} ms (wall "
+              f"{ic['per_iteration_wall_ms']:.4f}), per sample and iteration "
+              f"{ic['per_sample_iteration_ms']:.5f} ms (wall "
+              f"{ic['per_sample_iteration_wall_ms']:.5f})", flush=True)
+        # struct_profile and iter_cost give K1 the same shape: level 0, batch 16.
+        checks["probes_spe10_struct_profile_iter_cost_f32"] = evidence_checks(
+            "spe10_struct_profile/iter_cost", probs["spe10_struct_profile"], [16], gpu, draws=())
+        del prob, probs, build
+        torch.cuda.empty_cache()
+        l1, runs["spe10_level1_cost"], prob = probe_run("spe10_level1_cost", [], tmp, gpu)
+        for b, row in enumerate(l1["batches"]):
+            print(f"24e spe10_level1_cost batch {b} (level {l1['level']} pair, batch "
+                  f"{l1['batch']}, segments {l1['segments']} x {l1['max_iterations']}) "
+                  f"[{l1['device']}]: "
+                  + " | ".join(f"{st['stage']} {st['wall_s']:.3f} s it={st['iterations']} "
+                               f"conv={st['converged']:.2f}" for st in row["stages"])
+                  + f"; total {row['ms_per_sample']:.3f} ms/sample, E[Y] {row['E_Y']!r}",
+                  flush=True)
+        for row in l1["batches"]:
+            coarse = [st for st in row["stages"] if st["stage"] in ("stage1", "cont_c")][-1]
+            if coarse["converged"] != 1.0 or row["converged"] != 1.0:
+                fail(f"24e spe10_level1_cost: not converged 1.0: {row}")
+        print(f"24e spe10_level1_cost: mean {l1['mean_ms_per_sample']:.3f} ms/sample, mean "
+              f"iterations a batch {l1['mean_iterations']:.1f} [{l1['device']}]", flush=True)
+        checks["probes_spe10_level1_cost_f32"] = evidence_checks(
+            "spe10_level1_cost", prob, [l1["batch"]] * 2, gpu, levels=[1, 2], draws=(1,))
+        del prob
+        torch.cuda.empty_cache()
+        lp, runs["spe10_layout_probe"], _ = probe_run("spe10_layout_probe", [], tmp, gpu)
+        base = tuple(lp["orders"][0]["order"])
+        for row in lp["orders"]:
+            print(f"24f spe10_layout_probe order {tuple(row['order'])} (batch {lp['batch']}, "
+                  f"float32) [{lp['device']}]: s_apply {marginal_text(row['s_apply'])} ms, "
+                  f"v_cycle(2,2) {marginal_text(row['v_cycle'])} ms; speed-up against "
+                  f"{base}: s_apply {row['s_apply_speedup']:.3f}x, v_cycle "
+                  f"{row['v_cycle_speedup']:.3f}x", flush=True)
+    torch.cuda.empty_cache()
+    print(f"probes: launches {runs} [{gpu}]", flush=True)
+    return runs, checks
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -3970,6 +4126,7 @@ def main() -> None:
     print(f"evidence drivers: phase 22 {time.perf_counter() - t_evidence:.1f} s, launches "
           f"{evidence_runs} [{gpu}]", flush=True)
     graft_runs, graft_checks, graft_layouts = timed("23 graft entry", phase_graft_entry, gpu)
+    probe_runs, probe_checks = timed("24 probes", phase_probes, gpu)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -4000,7 +4157,8 @@ def main() -> None:
                          **{f"spatial_golden_mlmc_{name}": n[k]
                             for name, n in spatial_golden.items()},
                          f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor[k],
-                         **{f"evidence_{name}": n[k] for name, n in evidence_runs.items()}}
+                         **{f"evidence_{name}": n[k] for name, n in evidence_runs.items()},
+                         **{f"probes_{name}": n[k] for name, n in probe_runs.items()}}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -4041,6 +4199,9 @@ def main() -> None:
          # M(w)^{-1} at each distinct shape of phase 23's graft twin (level
          # 0; max_abs_err over the levels).
          "graft_entry": {p: {k: c["thomas"][k] for k in fields} for p, c in graft_checks.items()},
+         # M(w)^{-1} at each distinct shape of phase 24's probes (the first
+         # level checked; max_abs_err over the levels).
+         **{p: {k: c["thomas"][k] for k in fields} for p, c in probe_checks.items()},
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
@@ -4062,6 +4223,8 @@ def main() -> None:
          "graft_entry": {p: {k: c["threefry_normal"][k]
                              for k in fields + ("device_ms", "library_ms")}
                          for p, c in graft_checks.items() if "threefry_normal" in c},
+         **{p: {k: c["threefry_normal"][k] for k in fields + ("device_ms", "library_ms")}
+            for p, c in probe_checks.items() if "threefry_normal" in c},
          # The same keys at the draws of the unstructured phases (level 0).
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from parelagmc_tpu_torch.device import device_info
-from parelagmc_tpu_torch.examples._evidence import device_ms, host
+from parelagmc_tpu_torch.examples._evidence import device_ms, host, masked_dinv
 from parelagmc_tpu_torch.examples.common import parse_args
 from parelagmc_tpu_torch.examples.spe10_mlmc import take_option
 from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING
@@ -74,11 +74,7 @@ def component_ms(prob, w: torch.Tensor, sweeps: int = 2) -> dict:
     if not isinstance(mg, cms.StructCoefMG):
         raise ValueError("the cost proxy needs the structured coefMG (cg-schur-coefmg on a box)")
     fac = L.mass_solver.factor(w)
-    diag_w = L.mass_solver.masked_diag(fac, w.shape[:-1])
-    pos = diag_w > 0
-    dinv0 = torch.where(pos, 1.0 / torch.where(pos, diag_w, torch.ones_like(diag_w)),
-                        torch.zeros_like(diag_w))
-    state = cms.struct_mg_setup(mg, dinv0)
+    state = cms.struct_mg_setup(mg, masked_dinv(L, w, fac))
     r = torch.ones_like(w)
     minv = lambda x: L.mass_solver.apply_factored(fac, x)
     t = {

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from parelagmc_tpu_torch.device import device_info
-from parelagmc_tpu_torch.examples._evidence import host, mean_of
+from parelagmc_tpu_torch.examples._evidence import host, masked_dinv, mean_of
 from parelagmc_tpu_torch.examples.common import parse_args
 from parelagmc_tpu_torch.examples.spe10_mlmc import take_flag, take_option
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
@@ -60,11 +60,7 @@ def _struct_vcycle_batch_selfcheck(solver, tol=1e-4):
     def parts(ww, pp):
         # diag M(w) with essential faces 0, read off the mass tables as the
         # solver's own preconditioner does.
-        dw = L.mass_solver.masked_diag(L.mass_solver.factor(ww), ww.shape[:-1])
-        pos = dw > 0
-        d0 = torch.where(pos, 1.0 / torch.where(pos, dw, torch.ones_like(dw)),
-                         torch.zeros_like(dw))
-        st = cms.struct_mg_setup(mg, d0)
+        st = cms.struct_mg_setup(mg, masked_dinv(L, ww))
         bg = pp.reshape(pp.shape[:-1] + tuple(shape0[::-1]))
         rc = cms._restrict_cells(bg, mg.levels[1]) if len(mg.levels) > 1 else bg
         return (

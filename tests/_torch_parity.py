@@ -249,3 +249,36 @@ def darcy_dp2_sp2(rank):
     w = _spatial_fields(hier.levels[0].n_s, 4, 3)
     q, it, rel, conv, p = sd.solve_fwd(w, return_pressure=True)
     return {k: to_np(v) for k, v in dict(q=q, it=it, rel=rel, conv=conv, p=p).items()}
+
+
+# -- the example drivers against their twins ----------------------------------
+
+
+class StepClock:
+    """Stands in for a driver module's `time`: each perf_counter() call is
+    one second later than the one before."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1.0
+        return self.t
+
+
+def drivers(monkeypatch, name):
+    """(JAX driver module examples.<name>, its twin in
+    parelagmc_tpu_torch.examples), each with a StepClock."""
+    import importlib
+
+    jmod = importlib.import_module(f"examples.{name}")
+    tmod = importlib.import_module(f"parelagmc_tpu_torch.examples.{name}")
+    for mod in (jmod, tmod):
+        if hasattr(mod, "time"):
+            monkeypatch.setattr(mod, "time", StepClock())
+    return jmod, tmod
+
+
+def close_iterations(a, b):
+    """Iteration counts (or means of them) within 2 or 2 %."""
+    return abs(a - b) <= max(2.0, 0.02 * max(abs(a), abs(b)))

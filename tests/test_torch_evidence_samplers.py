@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 
 import _torch_parity  # noqa: F401  (thread count)
-from _torch_parity import general_mesh, write_general_mesh
-from test_torch_evidence_spe10 import ERR_ATOL, Q_RTOL, close_iterations, drivers
+from _torch_parity import close_iterations, drivers, general_mesh, write_general_mesh
+from test_torch_evidence_spe10 import ERR_ATOL, Q_RTOL
 
 F32_RTOL = 1e-4
 SAMPLER_ARGV = ["--grid", "8,16,8", "--refinements", "1", "--batch", "4", "--samples", "8"]

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (thread count)
+from _torch_parity import close_iterations, drivers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -44,33 +45,6 @@ TWINS = "parelagmc_tpu_torch.examples"
 NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
 Q_RTOL = 1e-8
 ERR_ATOL = 1e-8
-
-
-class StepClock:
-    """Stands in for a driver module's `time`: each perf_counter() call is
-    one second later than the one before."""
-
-    def __init__(self):
-        self.t = 0.0
-
-    def perf_counter(self):
-        self.t += 1.0
-        return self.t
-
-
-def drivers(monkeypatch, name):
-    """(JAX driver module, twin module), each with a StepClock."""
-    jmod = importlib.import_module(f"examples.{name}")
-    tmod = importlib.import_module(f"{TWINS}.{name}")
-    for mod in (jmod, tmod):
-        if hasattr(mod, "time"):
-            monkeypatch.setattr(mod, "time", StepClock())
-    return jmod, tmod
-
-
-def close_iterations(a, b):
-    """Iteration counts (or means of them) within 2 or 2 %."""
-    return abs(a - b) <= max(2.0, 0.02 * max(abs(a), abs(b)))
 
 
 def assert_close(a, b, rtol=Q_RTOL):
@@ -329,6 +303,12 @@ NO_DEVICE_ARGV = {
     "spe10_rate_diagnostics": ["--grid", "8,16,8", "--n", "16"],
     "spe10_sampler_performance": ["--grid", "8,16,8", "--refinements", "1"],
     "unstructured_performance": ["--mesh", "cube.mesh", "--refine", "1"],
+    "spe10_level0_breakdown": ["--grid", "12,44,16", "--batch", "2"],
+    "spe10_struct_profile": ["--grid", "12,44,16", "--batch", "2"],
+    "spe10_vcycle_profile": ["--batch", "2"],
+    "spe10_iter_cost": ["--batch", "2", "--lo", "2", "--hi", "4"],
+    "spe10_level1_cost": ["--batches", "1"],
+    "spe10_layout_probe": ["--smoke"],
 }
 
 

@@ -48,12 +48,15 @@ EXAMPLES = ("mlmc", "slmc", "mlmc_manual", "ratio_estimator_mc", "ratio_estimato
             "likelihood_example", "compute_reference_obs_data", "spe10_mlmc", "spe10_ratio_mlmc",
             "darcy_test", "darcy_random_input", "sampler_test", "realization_test",
             "sampler_performance", "spatial_scaling", *(
+                "spe10_level0_breakdown", "spe10_struct_profile", "spe10_vcycle_profile",
+                "spe10_iter_cost", "spe10_level1_cost", "spe10_layout_probe"), *(
                 "spe10_performance", "spe10_adjoint_check", "spe10_beta_noise",
                 "spe10_mg_tuning", "spe10_rate_diagnostics", "spe10_sampler_performance",
                 "unstructured_performance"))
 # The evidence and tuning drivers among them (twins of examples/*.py whose
-# JSON files the JAX package's evidence rests on).
+# JSON files the JAX package's evidence rests on), and the SPE10 layer probes.
 EVIDENCE = EXAMPLES[-7:]
+PROBES = EXAMPLES[-13:-7]
 # Program files of the port outside the package.
 SCRIPTS = ("chip_smoke.py", "profile_pair_step.py")
 
@@ -127,12 +130,12 @@ def test_bench_and_graft_entry_import_without_jax():
 
 
 def test_evidence_drivers_import_without_jax():
-    """The seven evidence and tuning drivers, imported alone in a fresh
-    interpreter, load neither jax, nor the JAX package, nor the root
-    examples package whose twins they are."""
+    """The seven evidence and tuning drivers and the six probes, imported
+    alone in a fresh interpreter, load neither jax, nor the JAX package,
+    nor the root examples package whose twins they are."""
     code = (
         "import importlib, sys\n"
-        f"for d in {EVIDENCE!r}:\n"
+        f"for d in {EVIDENCE + PROBES!r}:\n"
         "    importlib.import_module('parelagmc_tpu_torch.examples.' + d)\n"
         "print(sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'parelagmc_tpu', 'examples')))\n"
@@ -142,6 +145,7 @@ def test_evidence_drivers_import_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     assert EVIDENCE[0] == "spe10_performance" and len(set(EVIDENCE)) == 7
+    assert PROBES[0] == "spe10_level0_breakdown" and len(set(PROBES)) == 6
 
 
 def test_no_root_examples_import_in_port_sources():
@@ -149,7 +153,7 @@ def test_no_root_examples_import_in_port_sources():
     in the package, chip_smoke.py or profile_pair_step.py."""
     pat = re.compile(r"^\s*(import\s+examples\b|from\s+examples\b)", re.M)
     scanned = {os.path.relpath(p, REPO) for p in _program_sources()}
-    assert {f"parelagmc_tpu_torch/examples/{d}.py" for d in EVIDENCE} <= scanned
+    assert {f"parelagmc_tpu_torch/examples/{d}.py" for d in EVIDENCE + PROBES} <= scanned
     for path in _program_sources():
         with open(path) as fh:
             assert not pat.search(fh.read()), path
