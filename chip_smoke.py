@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (parelagmc_tpu_torch) on one CUDA card.
+"""Smoke run of the PyTorch port (parelagmc_tpu_torch) on one CUDA card (phase 25:
+on every card of the host, a torchrun rank a card).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -143,8 +144,9 @@ Phases, each printing one line (or block) before the last line:
              then M(w)^{-1} (K1) and K2 against their plain versions on every
              level at one shard's batch (128), float32.
              torch.cuda.device_count() is printed; the torch.distributed
-             execution (one shard per rank, all_gather) is covered by the
-             CPU test with two gloo processes only, and the line says so.
+             execution (one shard per rank, all_gather) runs in phase 25
+             under NCCL at world size torch.cuda.device_count(), and the
+             line says so.
 15. unstructured MLMC, agglomerated - the 6-tet unit cube refined 4 times
              (24 576 tets, 50 688 faces), box sides labelled, agglomerated 4
              levels deep with coarsening factor 8: cells and faces per level,
@@ -183,10 +185,11 @@ Phases, each printing one line (or block) before the last line:
              MLMCManager.init_run of two batches per level (consistency <
              0.1, K2 launched).
 18. hybrid-cg, nested (B) - phase 16's level-0 pair step under hybrid-cg:
-             samples/s, iterations, converged fraction (1.0 required), busy
-             share, kernels and device ms per PCG iteration of the Darcy pair
-             alone and its four costliest kernels, peak memory, printed
-             beside phase 16's MINRES numbers.
+             samples/s, iterations, converged fraction (1.0 required), the
+             Darcy pair's iterations and wall alone, peak memory, printed
+             beside phase 16's MINRES numbers (its profiled passes - busy
+             share, kernels per PCG iteration, costliest kernels - are cut
+             for the script's time, as phase 16's).
 19. mesh files (C) - build_problem on MFEM v1.0 files written into a
              temporary directory (MESH_FILES): the coarsest tet cube refined
              to 24 576 tets with the plain SPDE sampler; that hierarchy's
@@ -225,8 +228,9 @@ Phases, each printing one line (or block) before the last line:
              (batch 4), float32.
 21. spatial sharding (parallel/spatial_darcy.py), stacked on cuda:0 (every
              slab on the one card; torch.cuda.device_count() is printed, and
-             the torch.distributed form, one slab a rank, is covered by the
-             CPU gloo tests only):
+             the torch.distributed form, one slab a rank, runs in phase 25c
+             when there are two cards or more, else in the CPU gloo tests
+             only):
    21a. the golden MLMC (float32, cg-schur, rtol 1e-5) unsharded, with
        spatial_shards 4 and with spatial_sample_shards 2 on top: one keyed
        level-0 pair step each with the plain and the adjoint-corrected QoI
@@ -320,6 +324,35 @@ Phases, each printing one line (or block) before the last line:
              production settings; one line per probe; then K1 and K2
              against their plain versions at each distinct shape of the
              probes (level 0 at batches 8 and 16, levels 1 and 2 at 128).
+25. torchrun - the port from its own command line on every card of the
+             host: `python -m torch.distributed.run --standalone
+             --nproc-per-node N` with N = torch.cuda.device_count(), NCCL,
+             a rank a card (parallel/launch.init_from_env through the
+             drivers' parse_args); each rank is this script run as
+             `chip_smoke.py --torchrun-child KIND OUT_DIR [ARGV]`, which
+             writes its numbers to OUT_DIR; a rank that fails, or a launch
+             past TORCHRUN_DEADLINE (killed), fails the phase:
+   25a. the golden mlmc driver's main with --sample-shards -1 and the
+       walltime cost, the launch counts at 0 just before it: dofs
+       17152/2240/304, |estimate - 2.56| < 0.25, N_l, C_l and the estimate
+       equal on every rank, K1 and K2 launched on every rank (rank 0
+       prints them and the driver's wall seconds), MLMC.dat holding each
+       sample once; then a fixed-count run (init_run(TORCHRUN_FIXED)) on
+       the driver's problem whose per-level sums must equal those of the
+       in-process SampleMesh(N) run on the same keys (bit for bit, or
+       within TORCHRUN_FIXED_RTOL); then K1 and K2 against their plain
+       versions at one rank's shard batch on every level;
+   25b. in 25a's launch (each launch pays ~20 s of start-up), the graft
+       twin's main (entry(), dryrun_multichip(N), its checks raising) in
+       the distributed forms: SampleMesh(N, distributed=True)
+       and, for N >= 2, DistributedSlabs; K1 and K2 launched on every rank,
+       and held against their plain versions at one rank's shard (batch
+       2);
+   25c. for N >= 2 only (else one line says it did not run): phase 21c's
+       full-grid level-0 pair step at batch TORCHRUN_SPATIAL_BATCH with
+       --spatial-shards N a slab a rank against the stacked form in this
+       process (Q to PRODUCTION_Q_RTOL), the peak memory of each card
+       beside the stacked figures of this phase and of phase 21c.
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -348,10 +381,10 @@ the ratio full-grid run's; phase 22's as evidence_<driver>, its checks
 under each kernel's "evidence_drivers"; phase 5's as bench_pair_step,
 phase 23's as graft_entry_<run>, its checks under "graft_entry"; phase
 24's as probes_<probe>, its checks as probes_<probe>_<dtype> entries;
-errors, ms, plain_ms, bound_ms and library_ms at the full-grid shapes for
-K1 and K2, which the MLMC and the ratio run share, of sample_uniforms for
-K3), the card's
-name and power limit, and as the last line {"ok": true, "device": {...}}.
+phase 25's rank 0 as torchrun_<run>, its checks under "torchrun"; errors,
+ms, plain_ms, bound_ms and library_ms at the full-grid shapes for K1 and K2,
+which the MLMC and the ratio run share, of sample_uniforms for K3), the
+card's name and power limit, and as the last line {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line; without a CUDA card, or
 without the package beside this script, it exits non-zero and prints no
 result. It also fails if the JAX package or jax was imported.
@@ -613,6 +646,17 @@ EVIDENCE_PLAIN_REPS, EVIDENCE_GRAPH_REPLAYS = 1, 2
 # __main__ (8 virtual CPU devices there; here 8 shards and 8 slab-and-row
 # cells stacked on cuda:0).
 GRAFT_DEVICES = 8
+# Phase 25: the port on every card of the host under torchrun (NCCL, a rank
+# a card). The golden mlmc driver's command line (the walltime cost), the
+# counts of its fixed-count run (two batches a level), the tolerance of its
+# sums against the in-process SampleMesh(N) run's (bit for bit expected at
+# N = 1), the batch of 25c's full-grid step (phase 21c's level-0 batch),
+# and one launch's deadline (it is killed past it).
+TORCHRUN_GOLDEN_ARGV = ["--sample-shards", "-1"]
+TORCHRUN_FIXED = [64, 64, 64]
+TORCHRUN_FIXED_RTOL = 1e-6
+TORCHRUN_SPATIAL_BATCH = 8
+TORCHRUN_DEADLINE = 300
 # Six tets around the main diagonal of the unit cube (corners numbered x
 # fastest, then y, then z): the shape and counts of the reference's
 # cube_tet.mesh, which is not in the repository.
@@ -2157,8 +2201,8 @@ def phase_sharded_golden(device, gpu: str):
           f"consistency {cons} samples {sharded.level_nsamples.tolist()} run {dt:.2f} s "
           f"launches K1 {launches['thomas']} K2 {launches['threefry_normal']}; "
           f"torch.cuda.device_count() {torch.cuda.device_count()}: the torch.distributed "
-          f"execution (a shard per rank, all_gather) ran only in the CPU test "
-          f"(tests/test_torch_sharding.py, two gloo processes), not here [{gpu}]", flush=True)
+          f"execution (a shard per rank, all_gather) runs in phase 25 under NCCL at world "
+          f"size {torch.cuda.device_count()} [{gpu}]", flush=True)
     if not math.isfinite(est) or abs(est - 2.56) >= 0.25:
         fail(f"sharded golden estimate {est} not within 0.25 of 2.56")
     for k in ("thomas", "threefry_normal"):
@@ -2363,27 +2407,6 @@ def phase_unstructured_agglomerated(device, gpu: str):
     ctx = dict(hier=hier, sampler=sampler, solver=solver, oracle_w=w, oracle_q=q_host,
                steps=steps)
     return launches, dict(k2, max_abs_err=k2["abs_err"], shape=list(shape)), ctx
-
-
-def kernel_split(fn, top: int = 4) -> str:
-    """The `top` CUDA kernels of one call of fn by device time (profiler,
-    CUDA activity alone): name (cut to 60 characters), share of the
-    kernels' total, calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    total = sum(e.self_device_time_total for e in kern)
-    if total <= 0:
-        return "not measured (the profiler recorded no device event)"
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    return "; ".join(f"{e.key[:60]} {100 * e.self_device_time_total / total:.1f}% ({e.count})"
-                     for e in kern[:top])
 
 
 def device_busy(fn, wall_ms: float):
@@ -2633,27 +2656,22 @@ def phase_hybrid_nested(ctx, device, gpu: str):
     wall_ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     conv = float(converged.float().mean())
-    share, device_ms, nkern = device_busy(lambda: step(fold_in(key, 1)), wall_ms)
-    busy = "not measured (the profiler recorded no device event)" if share is None else (
-        f"{100 * share:.1f}% ({device_ms:.1f} device ms in {wall_ms:.1f} wall ms, {nkern} "
-        f"kernels)")
-    # The Darcy pair alone, on the step's fields: kernels and device ms per
-    # PCG iteration.
+    # The Darcy pair alone, on the step's fields. Its profiled passes (busy
+    # share, kernels per PCG iteration, top kernels: ~1e5 kernels traced
+    # three times) are cut for the script's time; PERF.md keeps the
+    # earlier reading.
     s_f, s_c = pair_fields(sampler, 0, fold_in(key, 1), n["batch"])
     t0 = time.perf_counter()
     _, _, i_f, i_c = solver.solve_fwd_pair(0, s_f, s_c)
     torch.cuda.synchronize()
     solve_ms = 1e3 * (time.perf_counter() - t0)
-    _, s_dev, s_kern = device_busy(lambda: solver.solve_fwd_pair(0, s_f, s_c), solve_ms)
     its = i_f.iterations + i_c.iterations
-    per_it = "not measured" if s_dev is None else (
-        f"{s_kern / its:.0f} kernels and {s_dev / its:.2f} device ms per PCG iteration "
-        f"({its} iterations, {solve_ms:.1f} wall ms); its kernels by device time: "
-        f"{kernel_split(lambda: solver.solve_fwd_pair(0, s_f, s_c))}")
     print(f"hybrid-cg nested level-0 pair step: levels {kinds}, setup {setup_s:.2f} s, batch "
           f"{n['batch']}, f32, rtol {UNSTRUCTURED['rtol']:g}: {1e3 * n['batch'] / wall_ms:.2f} "
           f"samples/s, iterations (fine/coarse) {iters[0]}/{iters[1]}, converged fraction "
-          f"{conv:.4f}, device busy {busy}; Darcy pair {per_it}; peak memory {peak:.2f} GB, "
+          f"{conv:.4f}, device busy not measured here (the profiled passes are cut for the "
+          f"script's time); Darcy pair {its} iterations in {solve_ms:.1f} wall ms; peak memory "
+          f"{peak:.2f} GB, "
           f"launches of one step {launches}; minres-coefmg (phase 16): {ctx['sps']:.2f} "
           f"samples/s, iterations {ctx['iters'][0]}/{ctx['iters'][1]}, busy {ctx['busy']}, peak "
           f"{ctx['peak']:.2f} GB [{gpu}]", flush=True)
@@ -3169,21 +3187,23 @@ def phase_spatial_golden(device, gpu: str):
         print(f"spatial golden level-0 step [{qoi} QoI] (dp, sp) = ({dp}, {sp}) against sp {sp} "
               f"alone: {gap} [{gpu}]", flush=True)
     print(f"spatial golden: torch.cuda.device_count() {torch.cuda.device_count()}; every run "
-          f"stacked on cuda:0; the torch.distributed form (one slab per rank) ran only in the "
-          f"CPU tests (tests/test_torch_spatial.py, 2 and 4 gloo processes), not here [{gpu}]",
+          f"stacked on cuda:0; the torch.distributed form (one slab per rank) runs on the cards "
+          f"in phase 25c only with two or more of them, else in the CPU tests "
+          f"(tests/test_torch_spatial.py, tests/test_torch_launch.py: gloo processes) [{gpu}]",
           flush=True)
     return {name: r["launches"] for name, r in res.items() if name != "unsharded"}
 
 
 def spatial_step_compare(prob, device, gpu: str, label: str, override: dict, tol: float,
-                         busy: bool = False) -> int:
+                         busy: bool = False):
     """One level-0 pair step of `prob` at its level-0 batch on a fixed key,
     replicated, with spatial_shards = SPATIAL_SHARDS and with (dp, sp) =
     (SPATIAL_DP, SPATIAL_SHARDS), each with the solver settings `override`:
     Q per sample of the sharded steps against the replicated one to `tol`,
     converged fraction 1.0, iterations, ms per step (after a first call
     that builds the SpatialDarcy and warms up), the busy share (`busy`), K1
-    launches and peak memory. Returns the K1 launches of the sharded steps."""
+    launches and peak memory. Returns (the K1 launches of the sharded steps,
+    the peak GB of the sp-only stacked step)."""
     import dataclasses
 
     import torch
@@ -3242,7 +3262,8 @@ def spatial_step_compare(prob, device, gpu: str, label: str, override: dict, tol
         f"max rel diff {((a - b).abs() / a.abs()).max().item():.3e}"
     print(f"spatial SPE10 full grid [{label}]: (dp, sp) = ({dp}, {sp}) against sp {sp} alone: "
           f"{gap} [{gpu}]", flush=True)
-    return sum(r["n_k1"] for name, r in res.items() if name != "replicated")
+    return (sum(r["n_k1"] for name, r in res.items() if name != "replicated"),
+            res[f"sp {sp}"]["peak"])
 
 
 def phase_spatial_full(prob, device, gpu: str):
@@ -3251,17 +3272,18 @@ def phase_spatial_full(prob, device, gpu: str):
     settings (Q per sample to PRODUCTION_Q_RTOL, busy share) and with a
     float32 state at rtol 1e-5 (to SPATIAL_TIGHT_SPREAD); then 21d in
     float32 at these shapes. Returns (K1 launches of the sharded steps,
-    the 21d results)."""
+    the 21d results, the stacked sp step's peak GB at the production
+    settings)."""
     import dataclasses
 
     import torch
 
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 
-    launches = spatial_step_compare(prob, device, gpu, "production", {}, PRODUCTION_Q_RTOL,
-                                    busy=True)
+    launches, stacked_peak = spatial_step_compare(prob, device, gpu, "production", {},
+                                                  PRODUCTION_Q_RTOL, busy=True)
     launches += spatial_step_compare(prob, device, gpu, "float32 state, rtol 1e-5",
-                                     TIGHT_SETTINGS, SPATIAL_TIGHT_SPREAD)
+                                     TIGHT_SETTINGS, SPATIAL_TIGHT_SPREAD)[0]
     if launches <= 0:
         fail("kernel thomas was not launched by the sharded full-grid steps")
     solver, sampler = prob.solver, prob.sampler
@@ -3276,7 +3298,7 @@ def phase_spatial_full(prob, device, gpu: str):
     del sd, w
     solver._spatial_cache.clear()
     torch.cuda.empty_cache()
-    return launches, layouts
+    return launches, layouts, stacked_peak
 
 
 def phase_spatial_full_f64(device, gpu: str) -> int:
@@ -3296,7 +3318,7 @@ def phase_spatial_full_f64(device, gpu: str) -> int:
     print(f"spatial SPE10 full grid float64: host setup {time.perf_counter() - t0:.2f} s "
           f"[{gpu}]", flush=True)
     launches = spatial_step_compare(prob, device, gpu, "float64, float64 state, rtol 1e-6", {},
-                                    TIGHT_Q_RTOL)
+                                    TIGHT_Q_RTOL)[0]
     del prob
     torch.cuda.empty_cache()
     return launches
@@ -4019,6 +4041,333 @@ def phase_probes(gpu: str):
     return runs, checks
 
 
+def _children(pid: int):
+    """The pids whose parent is `pid` (torchrun detaches its workers from
+    the agent's process group: killing the agent alone would leave them)."""
+    kids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        kids.append(int(entry))
+            except (OSError, IndexError, ValueError):
+                pass
+    return kids
+
+
+def torchrun(args, cwd: str, label: str, nproc: int) -> float:
+    """`python -m torch.distributed.run --standalone --nproc-per-node
+    nproc args` in `cwd`, this checkout first on the ranks' path; rank 0's
+    output printed under `label`. A non-zero exit fails the phase; past
+    TORCHRUN_DEADLINE the agent and its workers are killed and the phase
+    fails. Returns the launch's wall seconds."""
+    import signal
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")])}
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc-per-node={nproc}", *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=TORCHRUN_DEADLINE)
+    except subprocess.TimeoutExpired:
+        for pid in [*_children(proc.pid), proc.pid]:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        print(err[-6000:], file=sys.stderr, flush=True)
+        fail(f"{label}: torchrun killed past its deadline of {TORCHRUN_DEADLINE} s")
+    for line in out.splitlines():
+        print(f"  [{label}] {line}", flush=True)
+    if proc.returncode != 0:
+        print(err[-6000:], file=sys.stderr, flush=True)
+        fail(f"{label}: torchrun exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def rank_results(cwd: str, kind: str, n: int) -> list:
+    """The per-rank JSON results a phase-25 launch wrote."""
+    out = []
+    for r in range(n):
+        with open(os.path.join(cwd, f"{kind}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def child_golden(argv) -> dict:
+    """A rank of 25a: the golden mlmc driver's main(argv) with the launch
+    counts set to 0 just before it, then a fixed-count run
+    (init_run(TORCHRUN_FIXED)) on the driver's problem and config (no log:
+    the driver's MLMC.dat stays as it wrote it)."""
+    import dataclasses
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.examples import mlmc
+    from parelagmc_tpu_torch.parallel.launch import is_main, world_size
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    managers = []
+
+    class Recorded(MLMCManager):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            managers.append(self)
+
+    mlmc.MLMCManager = Recorded
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    est = mlmc.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    mgr = managers[0]
+    fixed = MLMCManager(mgr.solver, mgr.sampler,
+                        dataclasses.replace(mgr.config, output_filename=""))
+    fixed.init_run(TORCHRUN_FIXED)
+    if is_main():
+        print(f"rank 0 of {world_size()}: mlmc.main {wall:.2f} s (build and run), estimate "
+              f"{est:.6f} N_l {mgr.level_nsamples.tolist()}, launches K1 {launches['thomas']} "
+              f"K2 {launches['threefry_normal']}", flush=True)
+    return dict(estimate=est, nsamples=mgr.level_nsamples.tolist(), cost=mgr.cost.tolist(),
+                launches=launches, wall=wall, world=world_size(),
+                shards=mgr.sharding.n_devices, distributed=mgr.sharding.distributed,
+                dofs=mgr.M.tolist(), device=str(mgr.solver.device),
+                fixed_sums=fixed.sums.tolist(), fixed_nsamples=fixed.level_nsamples.tolist())
+
+
+def child_graft(device: str) -> dict:
+    """A rank of 25b: the graft twin's main on `device` (entry() and
+    dryrun_multichip(world)), the launch counts set to 0 just before it."""
+    from parelagmc_tpu_torch import graft_entry, kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = graft_entry.main(["--device", device])
+    return dict(wall=time.perf_counter() - t0, launches=dict(kernels.launch_counts),
+                sample_mesh=r["sample_mesh"], slabs=r["slabs"], eQ=r["eQ"].tolist(),
+                residual=r["residual"], warm_iterations=r["warm_iterations"])
+
+
+def spatial_full_step(argv):
+    """25c's full-grid problem (spe10_mlmc.build_config(argv): phase 9's
+    config with argv's --spatial-shards and --device) and one level-0 pair
+    step at TORCHRUN_SPATIAL_BATCH on a fixed key, its first call made
+    (SpatialDarcy built, warmed up). Returns (problem, step)."""
+    import torch
+
+    from parelagmc_tpu_torch.examples import spe10_mlmc
+    from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+    from parelagmc_tpu_torch.problems import build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    cfg, device, kinv, _ = spe10_mlmc.build_config(argv)
+    prob = build_problem(cfg, kinv_ref=kinv, device=device)
+    budget = MLMCManager(prob.solver, prob.sampler, cfg).pair_budget
+    step = level_step(prob.solver, prob.sampler, 0, fold_in(PRNGKey(cfg.seed), 125),
+                      TORCHRUN_SPATIAL_BATCH, budget)
+    step()
+    torch.cuda.synchronize()
+    return prob, step
+
+
+def measured_step(step, device) -> dict:
+    """One call of a level-0 pair step: Q, iterations, converged fraction,
+    wall ms, peak memory of `device` in GB and K1's launches."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    q, infos = step()
+    torch.cuda.synchronize()
+    return dict(q=q.double().cpu().tolist(), its=[int(i.iterations) for i in infos],
+                conv=float(torch.cat([i.converged.float() for i in infos]).mean()),
+                ms=1e3 * (time.perf_counter() - t0),
+                peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                launches=kernels.launch_counts["thomas"])
+
+
+def child_spatial(argv) -> dict:
+    """A rank of 25c: the full-grid level-0 pair step, a slab a rank
+    (DistributedSlabs through slab_comm)."""
+    import torch
+
+    prob, step = spatial_full_step(argv)
+    device = prob.solver.device
+    r = measured_step(step, device)
+    r["slabs"] = type(prob.solver._spatial(0).comm).__name__
+    r["device"] = str(device)
+    del prob, step
+    torch.cuda.empty_cache()
+    return r
+
+
+def child_main(argv) -> dict:
+    """A rank of 25a and then 25b, on the rank's device: they share one
+    launch, since each launch pays ~20 s of process start and CUDA and NCCL
+    initialization (25c has its own)."""
+    golden = child_golden(argv)
+    return {"golden": golden, "graft": child_graft(golden["device"])}
+
+
+TORCHRUN_CHILDREN = {"main": child_main, "spatial": child_spatial}
+
+
+def torchrun_child(kind: str, out_dir: str, argv) -> None:
+    """One rank of a phase-25 launch (`chip_smoke.py --torchrun-child KIND
+    OUT_DIR [ARGV]` under torchrun): TORCHRUN_CHILDREN[KIND](ARGV), its
+    result written to OUT_DIR/KIND_rank<r>.json. Nothing is caught: a
+    failure exits the rank non-zero, and torchrun with it."""
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from parelagmc_tpu_torch import kernels
+
+    kernels.library()
+    result = TORCHRUN_CHILDREN[kind](argv)
+    with open(os.path.join(out_dir, f"{kind}_rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_torchrun(device, gpu: str, stacked_peak_gb: float):
+    """Phase 25: the port under torchrun on every card of the host (N =
+    torch.cuda.device_count(), NCCL, a rank a card). 25a: the golden mlmc
+    driver (--sample-shards -1, walltime cost): the estimate, equal N_l on
+    every rank, K1 and K2 launched, the log written once; its fixed-count
+    sums against the in-process SampleMesh(N) run's; K1 and K2 against
+    their plain versions at one shard's batch. 25b: the graft twin,
+    dryrun_multichip(N) in the distributed forms. 25c (N >= 2): the
+    full-grid level-0 pair step a slab a rank against the stacked form,
+    peak memory per card beside `stacked_peak_gb` (phase 21c's). Returns
+    ({path: launches of rank 0}, {check: results})."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from parelagmc_tpu_torch import graft_entry
+    from parelagmc_tpu_torch.examples.common import parse_args
+    from parelagmc_tpu_torch.ops.prng import PRNGKey
+    from parelagmc_tpu_torch.problems import build_problem
+    from parelagmc_tpu_torch.uq import MLMCManager
+
+    n = torch.cuda.device_count()
+    child = [os.path.join(HERE, "chip_smoke.py"), "--torchrun-child"]
+    launches, checks = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_torchrun_") as tmp:
+        dt = torchrun([*child, "main", tmp, *TORCHRUN_GOLDEN_ARGV], tmp, "25a-b", n)
+        results = rank_results(tmp, "main", n)
+        ranks = [r["golden"] for r in results]
+        r0 = ranks[0]
+        with open(os.path.join(tmp, "MLMC.dat")) as f:
+            log_lines = sum(1 for _ in f) - 1
+        print(f"25a torchrun golden mlmc on {n} rank(s), NCCL: launch (25a and 25b) {dt:.2f} s, "
+              f"driver {r0['wall']:.2f} s on rank 0, estimate {r0['estimate']:.6f}, N_l per rank "
+              f"{[r['nsamples'] for r in ranks]}, C_l rank 0 {r0['cost']}, devices "
+              f"{[r['device'] for r in ranks]}, launches per rank K1 "
+              f"{[r['launches']['thomas'] for r in ranks]} K2 "
+              f"{[r['launches']['threefry_normal'] for r in ranks]}, log {log_lines} lines "
+              f"[{gpu}]", flush=True)
+        if r0["dofs"] != [17152, 2240, 304]:
+            fail(f"25a: golden dofs {r0['dofs']}")
+        if any(r["nsamples"] != r0["nsamples"] or r["estimate"] != r0["estimate"]
+               or r["cost"] != r0["cost"] for r in ranks):
+            fail("25a: the ranks took different decisions")
+        if not math.isfinite(r0["estimate"]) or abs(r0["estimate"] - 2.56) >= 0.25:
+            fail(f"25a: golden estimate {r0['estimate']} not within 0.25 of 2.56")
+        for r in ranks:
+            if not (r["distributed"] and r["shards"] == r["world"] == n):
+                fail(f"25a: sample mesh {r['shards']} shards, distributed {r['distributed']}, "
+                     f"world {r['world']}")
+            for k in ("thomas", "threefry_normal"):
+                if r["launches"][k] <= 0:
+                    fail(f"25a: kernel {k} was not launched by the torchrun golden run")
+        if log_lines != sum(r0["nsamples"]):
+            fail(f"25a: the log holds {log_lines} samples, the run took {sum(r0['nsamples'])}")
+        launches["golden_mlmc"] = r0["launches"]
+
+        cfg, _ = parse_args(TORCHRUN_GOLDEN_ARGV + ["--device", str(device)])
+        cfg.output_filename = ""
+        prob = build_problem(cfg, device=device)
+        local = MLMCManager(prob.solver, prob.sampler, cfg)
+        if local.sharding is None or local.sharding.distributed or local.sharding.n_devices != n:
+            fail(f"25a: the in-process run has sample mesh {local.sharding}")
+        local.init_run(TORCHRUN_FIXED)
+        got, want = np.array(r0["fixed_sums"]), local.sums
+        if any(r["fixed_sums"] != r0["fixed_sums"] for r in ranks):
+            fail("25a: the ranks' fixed-count sums differ")
+        same = bool(np.array_equal(got, want))
+        nz = want != 0
+        rel = float(np.max(np.abs(got - want)[nz] / np.abs(want[nz])))
+        print(f"25a fixed counts {TORCHRUN_FIXED} on {n} rank(s) against SampleMesh({n}) in one "
+              f"process, same keys: per-level sums "
+              f"{'bit for bit' if same else f'max rel diff {rel:.3e}'} (tol "
+              f"{TORCHRUN_FIXED_RTOL:g}), N_l {r0['fixed_nsamples']} [{gpu}]", flush=True)
+        if r0["fixed_nsamples"] != local.level_nsamples.tolist() or not (
+                same or rel <= TORCHRUN_FIXED_RTOL):
+            fail(f"25a: fixed-count sums differ from the in-process run by {rel}")
+        shard = local.level_batch[0] // n
+        checks[f"torchrun_golden_shard_batch{shard}"] = path_kernel_checks(
+            prob, [b // n for b in local.level_batch], PRNGKey(25), F32_TOL_K1, F32_TOL_K2,
+            f"25a torchrun golden, one rank's shard (batch {shard})", gpu)
+        del prob, local
+
+        ranks = [r["graft"] for r in results]
+        slabs = "DistributedSlabs" if n >= 2 else None
+        print(f"25b torchrun graft_entry (entry(), dryrun_multichip({n})) on {n} rank(s) after "
+              f"25a in its launch: main {ranks[0]['wall']:.2f} s on rank 0, sample mesh "
+              f"{ranks[0]['sample_mesh']}, spatial slabs {ranks[0]['slabs']} (one slab: the "
+              f"dry run's spatial solve is unsharded at N = 1), eQ {ranks[0]['eQ']}, launches "
+              f"per rank {[r['launches'] for r in ranks]} [{gpu}]", flush=True)
+        for r in ranks:
+            if r["sample_mesh"] != "distributed" or r["slabs"] != slabs:
+                fail(f"25b: the dry run used {r['sample_mesh']} sample mesh, slabs {r['slabs']}")
+            for k in ("thomas", "threefry_normal"):
+                if r["launches"][k] <= 0:
+                    fail(f"25b: kernel {k} was not launched by the torchrun graft twin")
+        launches["graft_entry"] = ranks[0]["launches"]
+        batch = 2 * n
+        _, sampler, solver, _ = graft_entry.build(nlevels=2, base_cells=(2, 2, 2), batch=batch,
+                                                  device=device)
+        checks["torchrun_graft_shard_batch2"] = path_kernel_checks(
+            types.SimpleNamespace(sampler=sampler, solver=solver), [2, 2], PRNGKey(26),
+            F32_TOL_K1, F32_TOL_K2, "25b torchrun graft dry run, one rank's shard (batch 2)", gpu)
+
+        if n < 2:
+            print(f"25c full-grid level-0 pair step a slab a rank (DistributedSlabs): not run, "
+                  f"torch.cuda.device_count() is {n} and NCCL takes one rank a card; phase 21c's "
+                  f"stacked step holds {stacked_peak_gb:.2f} GB on one card [{gpu}]", flush=True)
+            return launches, checks
+        argv = SPE10_FULL_ARGV + ["--spatial-shards", str(n)]
+        dt = torchrun([*child, "spatial", tmp, *argv], tmp, "25c spatial", n)
+        ranks = rank_results(tmp, "spatial", n)
+    _, step = spatial_full_step(argv + ["--device", str(device)])
+    ref = measured_step(step, device)
+    del step
+    torch.cuda.empty_cache()
+    q, q_ref = np.array(ranks[0]["q"]), np.array(ref["q"])
+    rel = float(np.max(np.abs(q - q_ref) / np.abs(q_ref)))
+    print(f"25c full-grid level-0 pair step batch {TORCHRUN_SPATIAL_BATCH} sp {n} a slab a rank "
+          f"(launch {dt:.2f} s): max rel Q diff vs stacked {rel:.3e} (tol {PRODUCTION_Q_RTOL:g}), "
+          f"iterations {[r['its'] for r in ranks]} (stacked {ref['its']}), converged "
+          f"{[r['conv'] for r in ranks]}, step ms {[round(r['ms'], 1) for r in ranks]}, peak GB "
+          f"per card {[round(r['peak_gb'], 3) for r in ranks]} against {ref['peak_gb']:.3f} "
+          f"stacked at sp {n} and {stacked_peak_gb:.3f} in phase 21c, K1 launches "
+          f"{[r['launches'] for r in ranks]} [{gpu}]", flush=True)
+    for r in ranks:
+        if r["slabs"] != "DistributedSlabs" or r["conv"] < 1.0 or r["launches"] <= 0:
+            fail(f"25c: slabs {r['slabs']}, converged {r['conv']}, K1 launches {r['launches']}")
+    if not (np.isfinite(q).all() and rel <= PRODUCTION_Q_RTOL):
+        fail(f"25c: the distributed step's Q differs from the stacked one by {rel}")
+    launches["spatial_full_grid"] = {"thomas": ranks[0]["launches"]}
+    return launches, checks
+
+
 def jax_modules_loaded():
     """Names in sys.modules of jax or of the JAX package (parelagmc_tpu)."""
     return sorted(m for m in sys.modules
@@ -4083,8 +4432,8 @@ def main() -> None:
     full, checks = timed("9b SPE10", phase_spe10_full, spe10, setup_s, device, gpu)
     ratio_full = timed("12 ratio full", phase_ratio_full, spe10, device, gpu)
     full_solvers = timed("13b solvers full", phase_solvers_full, spe10, device, gpu)
-    spatial_full, layouts_f32 = timed("21c spatial full grid + 21d f32", phase_spatial_full, spe10,
-                                      device, gpu)
+    spatial_full, layouts_f32, stacked_peak = timed("21c spatial full grid + 21d f32",
+                                                    phase_spatial_full, spe10, device, gpu)
     del spe10
     spatial_full += timed("21c spatial full grid f64", phase_spatial_full_f64, device, gpu)
     static_full, k1_static = timed("13b static MG", phase_static_mg_full, device, gpu)
@@ -4127,6 +4476,8 @@ def main() -> None:
           f"{evidence_runs} [{gpu}]", flush=True)
     graft_runs, graft_checks, graft_layouts = timed("23 graft entry", phase_graft_entry, gpu)
     probe_runs, probe_checks = timed("24 probes", phase_probes, gpu)
+    torchrun_runs, torchrun_checks = timed("25 torchrun", phase_torchrun, device, gpu,
+                                           stacked_peak)
     if jax_modules_loaded():
         fail(f"imported {jax_modules_loaded()}")
 
@@ -4158,7 +4509,9 @@ def main() -> None:
                             for name, n in spatial_golden.items()},
                          f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor[k],
                          **{f"evidence_{name}": n[k] for name, n in evidence_runs.items()},
-                         **{f"probes_{name}": n[k] for name, n in probe_runs.items()}}
+                         **{f"probes_{name}": n[k] for name, n in probe_runs.items()},
+                         **{f"torchrun_{name}": n[k] for name, n in torchrun_runs.items()
+                            if k in n}}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -4202,6 +4555,9 @@ def main() -> None:
          # M(w)^{-1} at each distinct shape of phase 24's probes (the first
          # level checked; max_abs_err over the levels).
          **{p: {k: c["thomas"][k] for k in fields} for p, c in probe_checks.items()},
+         # M(w)^{-1} at one rank's shard of phase 25's torchrun runs (level
+         # 0; max_abs_err over the levels).
+         "torchrun": {p: {k: c["thomas"][k] for k in fields} for p, c in torchrun_checks.items()},
          # PyTorch has no batched tridiagonal solve.
          "library_ms": None, "measured_on": on_path},
         {"name": "threefry_normal", "route": "cuda",
@@ -4225,6 +4581,8 @@ def main() -> None:
                          for p, c in graft_checks.items() if "threefry_normal" in c},
          **{p: {k: c["threefry_normal"][k] for k in fields + ("device_ms", "library_ms")}
             for p, c in probe_checks.items() if "threefry_normal" in c},
+         "torchrun": {p: {k: c["threefry_normal"][k] for k in fields + ("device_ms", "library_ms")}
+                      for p, c in torchrun_checks.items()},
          # The same keys at the draws of the unstructured phases (level 0).
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -4250,4 +4608,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--torchrun-child"]:
+        torchrun_child(sys.argv[2], sys.argv[3], sys.argv[4:])
+    else:
+        main()

@@ -1,8 +1,9 @@
 """Device and dtype helpers.
 
 The port's entry points run on the card: a `device` of None means
-cuda:0, and a CUDA device that is not available raises - nothing falls
-back to the CPU. A caller that wants the CPU (the tests) asks for it.
+cuda:0 (under torchrun, cuda:LOCAL_RANK: one card a rank), and a CUDA
+device that is not available raises - nothing falls back to the CPU. A
+caller that wants the CPU (the tests) asks for it.
 `device_info` is the line a JSON report names its device with: the card's
 name and power limit as `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` gives them, or "cpu".
@@ -10,8 +11,9 @@ name and power limit as `nvidia-smi --query-gpu=name,power.limit
 
 from __future__ import annotations
 
+import os
 import subprocess
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -35,10 +37,22 @@ def torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype]
 
 
+def torchrun_local_rank() -> Optional[int]:
+    """This process's LOCAL_RANK when torchrun's environment (WORLD_SIZE,
+    RANK, LOCAL_RANK) is present, else None."""
+    if all(k in os.environ for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK")):
+        return int(os.environ["LOCAL_RANK"])
+    return None
+
+
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """Normalize a device argument. None means cuda:0; a CUDA device that
+    """Normalize a device argument. None means cuda:0, and under torchrun
+    cuda:LOCAL_RANK (so is a "cuda" without an index); a CUDA device that
     is not available raises instead of silently running elsewhere."""
-    dev = torch.device("cuda:0" if device is None else device)
+    local = torchrun_local_rank()
+    dev = torch.device(("cuda:0" if local is None else "cuda") if device is None else device)
+    if dev.type == "cuda" and dev.index is None and local is not None:
+        dev = torch.device("cuda", local)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev

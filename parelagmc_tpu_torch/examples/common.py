@@ -11,6 +11,17 @@ arguments the drivers run the built-in golden parameters.
 One option more: `--device` (default: cuda:0 through `resolve_device`,
 which raises without a card; the CPU only when asked for, as the tests
 do).
+
+Under torchrun `parse_args` also joins the process group
+(parallel/launch.init_from_env: NCCL with one card a rank, cuda:LOCAL_RANK
+by default; gloo with `--device cpu`), so a driver's `--sample-shards -1`
+or `--spatial-shards n` spreads over the ranks:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \
+        -m parelagmc_tpu_torch.examples.mlmc --sample-shards -1
+
+Every rank then holds the same results; a driver prints them with `report`
+and writes its files where `is_main()`, on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ from typing import Tuple
 import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig, read_xml_parameterlist
-from parelagmc_tpu_torch.device import resolve_device
+from parelagmc_tpu_torch.parallel.launch import init_from_env, is_main
 
 
 def _attr_vec(s):
@@ -126,11 +137,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None, **defaults) -> Tuple[ProblemConfig, torch.device]:
-    """(config, device) of a command line. The device is resolved here, so
-    a driver run without a card and without --device raises before any
-    work."""
+    """(config, device) of a command line. The device is resolved here (and
+    under torchrun the process group joined), so a driver run without a
+    card and without --device raises before any work."""
     cfg, args = _parse(argv, defaults)
-    return cfg, resolve_device(args.device)
+    return cfg, init_from_env(args.device)
+
+
+def report(*args, **kwargs) -> None:
+    """print, on rank 0 alone under torchrun (every rank holds the same
+    results)."""
+    if is_main():
+        print(*args, **kwargs)
 
 
 def parse_config(argv=None, **defaults) -> ProblemConfig:

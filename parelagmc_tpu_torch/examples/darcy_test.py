@@ -12,7 +12,7 @@ Run: python -m parelagmc_tpu_torch.examples.darcy_test [--device cuda:0] [--refi
 
 import torch
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.utils.timing import TimeManager, block_until_ready
 
@@ -20,15 +20,15 @@ from parelagmc_tpu_torch.utils.timing import TimeManager, block_until_ready
 def main(argv=None):
     cfg, device = parse_args(argv)
     prob = build_problem(cfg, device=device)
-    print(f"-- DarcyTest: mesh={cfg.mesh} levels={cfg.nlevels} qoi={cfg.qoi}")
-    print("%8s %8s %12s %16s" % ("level", "iters", "dofs", "Q"))
+    report(f"-- DarcyTest: mesh={cfg.mesh} levels={cfg.nlevels} qoi={cfg.qoi}")
+    report("%8s %8s %12s %16s" % ("level", "iters", "dofs", "Q"))
     for level in range(cfg.nlevels):
         w = torch.ones((1, prob.hierarchy.levels[level].n_s), dtype=prob.dtype,
                        device=prob.device)
         with TimeManager.timed(f"Darcy: Mult -- Level {level}"):
             Q, cost, info = prob.solver.solve_fwd(level, w)
             block_until_ready(Q)
-        print(
+        report(
             "%8d %8d %12d %16.8g"
             % (level, int(info.iterations), prob.solver.num_dofs(level), float(Q[0]))
         )

@@ -10,7 +10,7 @@ parameters, examples/CMakeLists.txt:76-80).
 Run: python -m parelagmc_tpu_torch.examples.mlmc [--device cuda:0] [--xml-file f.xml] ...
 """
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.uq import MLMCManager
 from parelagmc_tpu_torch.utils.timing import TimeManager
@@ -20,10 +20,10 @@ def main(argv=None):
     cfg, device = parse_args(argv)
     prob = build_problem(cfg, device=device)
     mgr = MLMCManager(prob.solver, prob.sampler, cfg)
-    print(f"-- MLMC Run: sampler={cfg.sampler_name} embedding={cfg.embedding}")
+    report(f"-- MLMC Run: sampler={cfg.sampler_name} embedding={cfg.embedding}")
     est = mgr.run()
-    print("FINAL MLMC ERRORS")
-    print(mgr.show_me())
+    report("FINAL MLMC ERRORS")
+    report(mgr.show_me())
     TimeManager.print_table()
     mgr.close()
     return est

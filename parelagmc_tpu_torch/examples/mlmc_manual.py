@@ -8,7 +8,7 @@ original's."""
 import numpy as np
 import torch
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.ops.prng import PRNGKey, split
 from parelagmc_tpu_torch.problems import build_problem
 
@@ -42,8 +42,8 @@ def main(argv=None):
             ys.append(step(sub).detach().to("cpu", torch.float64).numpy())
         y = np.concatenate(ys)
         eY[level], vY[level] = y.mean(), y.var(ddof=1)
-        print(f"level {level}: E[Y]={eY[level]:.6g} Var[Y]={vY[level]:.6g} N={y.size}")
-    print(f"MLMC estimate: {eY.sum():.8g}")
+        report(f"level {level}: E[Y]={eY[level]:.6g} Var[Y]={vY[level]:.6g} N={y.size}")
+    report(f"MLMC estimate: {eY.sum():.8g}")
     return eY.sum()
 
 

@@ -5,7 +5,7 @@ examples/RatioEstimator_MC.cpp / RatioEstimator_MC_Manager.cpp; pass
 
 import sys
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.uq import BayesianInverseProblem, SLBayesRatioManager
 from parelagmc_tpu_torch.utils.timing import TimeManager
@@ -23,8 +23,8 @@ def main(argv=None):
     bip.generate_observational_data()
     mgr = SLBayesRatioManager(bip, cfg, splitting=splitting)
     est = mgr.run()
-    print("FINAL SL_BayesRatio_Manager ERRORS")
-    print(mgr.show_me())
+    report("FINAL SL_BayesRatio_Manager ERRORS")
+    report(mgr.show_me())
     TimeManager.print_table()
     mgr.close()
     return est

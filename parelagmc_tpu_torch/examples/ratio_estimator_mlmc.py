@@ -6,7 +6,7 @@ ML_BayesRatio_Splitting_Manager)."""
 
 import sys
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
 from parelagmc_tpu_torch.utils.timing import TimeManager
@@ -24,8 +24,8 @@ def main(argv=None):
     bip.generate_observational_data()
     mgr = BayesRatioManager(bip, cfg, splitting=splitting)
     est = mgr.run()
-    print(f"FINAL {'ML_BayesRatio_Splitting' if splitting else 'ML_BayesRatio'}_Manager ERRORS")
-    print(mgr.show_me())
+    report(f"FINAL {'ML_BayesRatio_Splitting' if splitting else 'ML_BayesRatio'}_Manager ERRORS")
+    report(mgr.show_me())
     TimeManager.print_table()
     mgr.close()
     return est

@@ -10,7 +10,7 @@ import sys
 import numpy as np
 import torch
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import is_main, parse_args, report
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.utils.io_vtk import save_field_glvis, save_mesh_mfem, save_vtk_cell_field
@@ -51,7 +51,7 @@ def main(argv=None):
             err = float(
                 np.max(np.abs(v - u_exact)) / max(np.max(np.abs(u_exact)), 1e-30)
             )
-            print(
+            report(
                 f"level {level}: velocity transfer {el.n_u} -> {ol.n_u} "
                 f"face dofs, cg iters {int(torch.as_tensor(info.iterations).max())}, "
                 f"constant-field rel error {err:.3e}"
@@ -61,10 +61,11 @@ def main(argv=None):
         xi = prob.sampler.sample(level, fold_in(key, level), 1)
         s = prob.sampler.eval(level, xi)[0].detach().cpu().numpy()
         mesh = prob.hierarchy.levels[level].mesh
-        save_vtk_cell_field(mesh, s, f"realization_L{level:02d}.vtk")
-        save_mesh_mfem(mesh, f"realization_mesh_L{level:02d}.mesh")
-        save_field_glvis(mesh, s, f"realization_L{level:02d}.gf")
-        print(
+        if is_main():
+            save_vtk_cell_field(mesh, s, f"realization_L{level:02d}.vtk")
+            save_mesh_mfem(mesh, f"realization_mesh_L{level:02d}.mesh")
+            save_field_glvis(mesh, s, f"realization_L{level:02d}.gf")
+        report(
             f"level {level}: saved realization ({s.size} cells, "
             f"min={s.min():.4g} max={s.max():.4g})"
         )

@@ -11,7 +11,7 @@ a warm-up and is not timed; the clock stops after the device has finished.
 
 import time
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.utils.timing import block_until_ready
@@ -24,11 +24,11 @@ def main(argv=None):
     nsamples = cfg.initial_samples
     batch = cfg.batch_size
     key = PRNGKey(cfg.seed)
-    print(
+    report(
         f"-- Sampler performance: {cfg.sampler_name} embedding={cfg.embedding} "
         f"mesh={cfg.mesh} batch={batch}"
     )
-    print("%8s %12s %14s %16s" % ("level", "stoch dofs", "sec/sample", "samples/sec"))
+    report("%8s %12s %14s %16s" % ("level", "stoch dofs", "sec/sample", "samples/sec"))
     for level in range(cfg.nlevels):
         def step(k, level=level):
             return sampler.eval(level, sampler.sample(level, k, batch))
@@ -42,7 +42,7 @@ def main(argv=None):
         block_until_ready(out)
         dt = time.perf_counter() - t0
         n = nb * batch
-        print(
+        report(
             "%8d %12d %14.6g %16.1f"
             % (level, sampler.sample_size(level), dt / n, n / dt)
         )

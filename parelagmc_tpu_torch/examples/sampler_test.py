@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.ops.prng import PRNGKey, split
 from parelagmc_tpu_torch.problems import build_problem
 
@@ -69,13 +69,13 @@ def main(argv=None):
     cfg, device = parse_args(argv)
     nsamples = cfg.initial_samples * 10
     key = PRNGKey(cfg.seed)
-    print(f"-- SamplerTest: {nsamples} samples, lognormal={cfg.lognormal}")
+    report(f"-- SamplerTest: {nsamples} samples, lognormal={cfg.lognormal}")
     for name, kw in VARIANTS:
         vcfg = dataclasses.replace(cfg, **kw)
         prob = build_problem(vcfg, device=device)
         errs = field_errors(prob, nsamples, key)
         for level, (ee, ev) in enumerate(errs):
-            print(
+            report(
                 "%-16s L%d  ||E[s]-exact||_L2 = %12.6g   ||Var[s]-exact||_L2 = %12.6g"
                 % (name, level, ee, ev)
             )

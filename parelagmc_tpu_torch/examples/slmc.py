@@ -2,7 +2,7 @@
 (reference analog: examples/SLMC.cpp / SLMC_ProjectionPDESampler.cpp via
 --embedding)."""
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.uq import MCManager
 from parelagmc_tpu_torch.utils.timing import TimeManager
@@ -13,8 +13,8 @@ def main(argv=None):
     prob = build_problem(cfg, device=device)
     mgr = MCManager(prob.solver, prob.sampler, cfg)
     est = mgr.run()
-    print("FINAL SLMC ERRORS")
-    print(mgr.show_me())
+    report("FINAL SLMC ERRORS")
+    report(mgr.show_me())
     TimeManager.print_table()
     mgr.close()
     return est

@@ -18,6 +18,10 @@ is not accepted.
 
 Usage: python -m parelagmc_tpu_torch.examples.spatial_scaling
        [--grid 60,110,42] [--shards 8] [--batch 2] [--device cuda:0]
+
+Under torchrun (parallel/launch.init_from_env) the sharded runs whose
+n_sp * n_dp equals the world size go one slab a rank, the others stay
+stacked on each rank; rank 0 prints and writes the table, its own peaks.
 """
 
 import argparse
@@ -28,9 +32,11 @@ import numpy as np
 import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
-from parelagmc_tpu_torch.device import resolve_device, torch_dtype
+from parelagmc_tpu_torch.device import torch_dtype
+from parelagmc_tpu_torch.examples.common import report
 from parelagmc_tpu_torch.fem.hierarchy import build_geometric_hierarchy_from_fine
 from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING, make_box_mesh
+from parelagmc_tpu_torch.parallel.launch import init_from_env, is_main
 from parelagmc_tpu_torch.parallel.spatial_darcy import SpatialDarcy
 from parelagmc_tpu_torch.physics import DarcySolver
 from parelagmc_tpu_torch.physics.spe10 import load_spe10_kinv
@@ -50,7 +56,7 @@ def main(argv=None):
                    help="torch device to run on (default cuda:0; without a card pass "
                         "--device cpu)")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    device = init_from_env(args.device)
     dt = torch_dtype(args.dtype)
 
     grid = tuple(int(x) for x in args.grid.split(","))
@@ -126,16 +132,18 @@ def main(argv=None):
         sharded("sharded-dpxsp-coefmg", sp_dpxsp)
         sharded("sharded-dpxsp-adjoint", sp_dpxsp, adjoint=True)
 
-    with open(args.out, "w") as f:
-        json.dump(results, f, indent=1)
+    if is_main():
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
     fmt = lambda v: "-" if v is None else f"{v:.1f}"
-    print(f"{'config':30s} {'iters':>6s} {'peak MB':>10s} {'execution':>12s} {'dQ/Q vs deep':>13s}")
+    report(f"{'config':30s} {'iters':>6s} {'peak MB':>10s} {'execution':>12s} "
+           f"{'dQ/Q vs deep':>13s}")
     for tag, r in results["runs"].items():
-        print(f"{tag:30s} {r['iterations']:6d} {fmt(r['peak_mb']):>10s} {r['execution']:>12s} "
-              f"{r['qoi_rel_err_vs_deep']:13.1e}")
-    print("peak MB: torch.cuda.max_memory_allocated over the solve; a stacked run holds all "
-          "slabs on one device")
-    print(f"written: {args.out}")
+        report(f"{tag:30s} {r['iterations']:6d} {fmt(r['peak_mb']):>10s} {r['execution']:>12s} "
+               f"{r['qoi_rel_err_vs_deep']:13.1e}")
+    report("peak MB: torch.cuda.max_memory_allocated over the solve; a stacked run holds all "
+           "slabs on one device")
+    report(f"written: {args.out}")
     return results
 
 

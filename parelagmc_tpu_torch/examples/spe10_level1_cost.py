@@ -32,7 +32,7 @@ import numpy as np
 
 from parelagmc_tpu_torch.device import device_info, synchronize
 from parelagmc_tpu_torch.examples._evidence import host
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.examples.spe10_mlmc import full_grid_solver_defaults, take_option
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.physics.spe10 import load_spe10_kinv
@@ -65,8 +65,8 @@ def main(argv=None):
     segments = cfg.solve_segments
     maxit = cfg.darcy_solver.max_iterations
     info = device_info(device)
-    print(f"device: {info}")
-    print(
+    report(f"device: {info}")
+    report(
         f"-- level {level} pair, batch {batch}, segments {segments}, "
         f"maxit {maxit}, rtol {cfg.darcy_solver.relative_tolerance}, adjoint "
         f"{cfg.darcy_solver.adjoint_qoi}"
@@ -77,7 +77,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             solver._meanfield_start(lvl)
             synchronize(device)
-            print(f"   mean-field start level {lvl}: {time.perf_counter() - t0:.1f}s")
+            report(f"   mean-field start level {lvl}: {time.perf_counter() - t0:.1f}s")
 
     def timed(fn, *args, **kwargs):
         t0 = time.perf_counter()
@@ -121,11 +121,11 @@ def main(argv=None):
         bt = sum(s["wall_s"] for s in stages)
         iters = float(sum(s["iterations"] for s in stages))
         e_y = float(np.mean(host(q).astype(np.float64) - host(qc).astype(np.float64)))
-        print(f"batch {b}: " + " | ".join(
+        report(f"batch {b}: " + " | ".join(
             f"{s['stage']} {s['wall_s']:6.2f}s it={s['iterations']:5.1f} "
             f"conv={s['converged']:.2f}" for s in stages))
-        print(f"   total {bt:6.2f}s = {1e3 * bt / batch:6.2f} ms/sample, "
-              f"iters {iters:.1f}, E[Y]~{e_y:.3f}")
+        report(f"   total {bt:6.2f}s = {1e3 * bt / batch:6.2f} ms/sample, "
+               f"iters {iters:.1f}, E[Y]~{e_y:.3f}")
         out["batches"].append(dict(stages=stages, total_s=bt, ms_per_sample=1e3 * bt / batch,
                                    iterations=iters, E_Y=e_y,
                                    converged=float(np.mean(host(conv)))))
@@ -133,7 +133,7 @@ def main(argv=None):
         tot_n += batch
         tot_iters += iters
     out.update(mean_ms_per_sample=1e3 * tot_t / tot_n, mean_iterations=tot_iters / nbatches)
-    print(
+    report(
         f"== mean {1e3 * tot_t / tot_n:.2f} ms/sample over {tot_n} samples, "
         f"mean iters/batch {tot_iters / nbatches:.1f}"
     )

@@ -42,7 +42,7 @@ import torch
 
 from parelagmc_tpu_torch.device import device_info
 from parelagmc_tpu_torch.examples._evidence import device_ms, host, masked_dinv
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import is_main, parse_args, report
 from parelagmc_tpu_torch.examples.spe10_mlmc import take_option
 from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING
 from parelagmc_tpu_torch.ops import coef_multigrid_structured as cms
@@ -145,8 +145,8 @@ def main(argv=None):
     s_ref = None
     comp = None
     rows = []
-    print(f"# grid {grid}  rtol {rtol:g}  batch {cfg0.batch_size}  "
-          f"dtype {cfg0.dtype}  device {device}")
+    report(f"# grid {grid}  rtol {rtol:g}  batch {cfg0.batch_size}  "
+           f"dtype {cfg0.dtype}  device {device}")
     for label, over in variants:
         cfg = dataclasses.replace(cfg0)
         cfg.darcy_solver = dataclasses.replace(cfg0.darcy_solver, **over)
@@ -155,10 +155,10 @@ def main(argv=None):
             xi = prob.sampler.sample(0, PRNGKey(cfg.seed), cfg.batch_size)
             s_ref = prob.sampler.eval(0, xi)
             comp = component_ms(prob, s_ref)
-            print(f"# measured on {device_info(device)}: t_schur {comp['t_schur']:.4f} ms, "
-                  f"t_ovh {comp['t_ovh']:.4f} ms, t_apply {comp['t_apply']:.4f} ms")
-            print(f"{'config':22s} {'iters':>6s} {'conv':>5s} {'S/cyc':>6s} "
-                  f"{'est_ms/solve':>12s} {'Q[0]':>10s}")
+            report(f"# measured on {device_info(device)}: t_schur {comp['t_schur']:.4f} ms, "
+                   f"t_ovh {comp['t_ovh']:.4f} ms, t_apply {comp['t_apply']:.4f} ms")
+            report(f"{'config':22s} {'iters':>6s} {'conv':>5s} {'S/cyc':>6s} "
+                   f"{'est_ms/solve':>12s} {'Q[0]':>10s}")
         t0 = time.perf_counter()
         q, _, info = prob.solver.solve_fwd(0, s_ref)
         q = host(q)
@@ -174,21 +174,21 @@ def main(argv=None):
                  s_applies=fine_s_applies(ch, sw) * cy, est_ms=ems,
                  q0=float(q[0]), cpu_s=dt, overrides=over, **comp)
         )
-        print(f"{label:22s} {iters:6d} {str(conv):>5s} "
-              f"{fine_s_applies(ch, sw) * cy:6d} {ems:12.1f} {q[0]:10.4f}")
+        report(f"{label:22s} {iters:6d} {str(conv):>5s} "
+               f"{fine_s_applies(ch, sw) * cy:6d} {ems:12.1f} {q[0]:10.4f}")
     converged_rows = [r for r in rows if r["converged"]]
     if converged_rows:
         best = min(converged_rows, key=lambda r: r["est_ms"])
-        print(f"# best by the measured proxy: {best['label']} "
-              f"({best['iters']} iters, est {best['est_ms']:.0f} ms/solve)")
+        report(f"# best by the measured proxy: {best['label']} "
+               f"({best['iters']} iters, est {best['est_ms']:.0f} ms/solve)")
         qs = [r["q0"] for r in converged_rows]
         if max(qs) - min(qs) > 1e-3 * max(abs(q) for q in qs):
-            print("# WARNING: converged QoIs disagree across "
-                  "preconditioners - rtol too loose for this contrast")
+            report("# WARNING: converged QoIs disagree across "
+                   "preconditioners - rtol too loose for this contrast")
     else:
-        print("# WARNING: no variant converged within the iteration cap - "
-              "loosen --rtol or raise the cap; rows still recorded")
-    if out_json:
+        report("# WARNING: no variant converged within the iteration cap - "
+               "loosen --rtol or raise the cap; rows still recorded")
+    if out_json and is_main():
         with open(out_json, "w") as f:
             json.dump({"grid": grid, "rtol": rtol, "device": device_info(device),
                        "components_ms": comp, "rows": rows}, f, indent=1)

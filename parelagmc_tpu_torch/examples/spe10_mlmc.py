@@ -15,7 +15,7 @@ SPE10 extents and the synthetic permeability instead of the 60x220x85 grid;
 import dataclasses
 import sys
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import parse_args, report
 from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING
 from parelagmc_tpu_torch.physics import spe10
 from parelagmc_tpu_torch.problems import build_problem
@@ -112,7 +112,7 @@ def main(argv=None):
         # then compute_nsamples_mse drives per-level N_l from the measured
         # V_l / C_l until ml_estimator_variance <= ratio * eps2.
         est = mgr.run()
-        print(
+        report(
             f"-- adaptive: estimate {est:.6g}, target eps2 {mgr.eps2:.6g}, "
             f"actual MSE {mgr.actual_mse:.6g} "
             f"(sampling var {mgr.ml_estimator_variance:.6g} <= "
@@ -121,7 +121,7 @@ def main(argv=None):
         )
     else:
         mgr.init_run([cfg.initial_samples] * cfg.nlevels)
-    print(mgr.show_me())
+    report(mgr.show_me())
     TimeManager.print_table()
     mgr.close()
     return mgr

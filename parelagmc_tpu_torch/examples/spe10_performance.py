@@ -29,7 +29,7 @@ import torch
 
 from parelagmc_tpu_torch.device import device_info
 from parelagmc_tpu_torch.examples._evidence import host, masked_dinv, mean_of
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import is_main, parse_args, report
 from parelagmc_tpu_torch.examples.spe10_mlmc import take_flag, take_option
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.physics.spe10 import load_spe10_kinv
@@ -47,7 +47,7 @@ def _struct_vcycle_batch_selfcheck(solver, tol=1e-4):
 
     L = solver.levels[0]
     if not isinstance(getattr(L, "coef_mg", None), cms.StructCoefMG):
-        print("-- selfcheck skipped (no structured coefMG at level 0)")
+        report("-- selfcheck skipped (no structured coefMG at level 0)")
         return
     mg = L.coef_mg
     shape0 = mg.levels[0].shape
@@ -80,7 +80,7 @@ def _struct_vcycle_batch_selfcheck(solver, tol=1e-4):
                 f"'{name}': batch-2 sample 0 deviates rel {dd:.3e} from the "
                 f"batch-1 run (ops/coef_multigrid_structured.py)"
             )
-        print(f"-- selfcheck {name}: batch1-vs-batch2[0] rel diff {dd:.1e} ok")
+        report(f"-- selfcheck {name}: batch1-vs-batch2[0] rel diff {dd:.1e} ok")
 
 
 def main(argv=None):
@@ -173,14 +173,14 @@ def main(argv=None):
         # converged fraction: an unconverged capture is not evidence.
         conv = mean_of([o[1] for o in outs]) if len(outs[0]) == 3 else None
         conv_txt = "" if conv is None else f" conv {conv * 100:.0f}%"
-        print(
+        report(
             f"  {label:28s} {dt / n * 1e3:10.3f} ms/sample "
             f"{n / dt:10.1f} samples/s  iters {iters:.0f}{conv_txt} "
             f"(compile {compile_s:.1f}s)"
         )
         if conv is not None and conv < 1.0:
-            print(f"  !! {label}: only {conv * 100:.0f}% of samples "
-                  f"converged - treat this capture as INVALID")
+            report(f"  !! {label}: only {conv * 100:.0f}% of samples "
+                   f"converged - treat this capture as INVALID")
         out = {
             "sec_per_sample": dt / n,
             "samples_per_sec": n / dt,
@@ -205,7 +205,7 @@ def main(argv=None):
         "device": device_info(device),
         "levels": [],
     }
-    print(f"-- SPE10 performance: {cfg.nlevels} levels, batch {cfg.batch_size}")
+    report(f"-- SPE10 performance: {cfg.nlevels} levels, batch {cfg.batch_size}")
     for level in range(cfg.nlevels):
         batch = level_batch(level)
         row = {
@@ -215,7 +215,7 @@ def main(argv=None):
             "darcy_nnz": int(solver.nnz(level)),
             "batch": batch,
         }
-        print(
+        report(
             f"level {level}: sampler dofs {row['stoch_dofs']}, "
             f"darcy dofs {row['darcy_dofs']}, nnz {row['darcy_nnz']}, "
             f"batch {batch}"
@@ -268,9 +268,10 @@ def main(argv=None):
             row["mlmc_pair"], _ = timed(single, "coarsest Q (Darcy)", batch)
         evidence["levels"].append(row)
 
-    with open(out_file, "w") as f:
-        json.dump(evidence, f, indent=1)
-    print(f"wrote {out_file}")
+    if is_main():
+        with open(out_file, "w") as f:
+            json.dump(evidence, f, indent=1)
+    report(f"wrote {out_file}")
     return evidence
 
 

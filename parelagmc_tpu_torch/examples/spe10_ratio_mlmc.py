@@ -25,7 +25,7 @@ import sys
 
 import torch
 
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import is_main, parse_args, report
 from parelagmc_tpu_torch.examples.spe10_mlmc import (
     SPE10_DEFAULTS,
     parse_grid,
@@ -85,7 +85,7 @@ def main(argv=None):
     cfg = prob.config  # axis permutation applied (incl. obs coords)
     bip = BayesianInverseProblem(prob.solver, prob.sampler, cfg, prob.dtype)
     bip.generate_observational_data()
-    print(f"-- observational data y = {bip.G_obs.detach().cpu().numpy()}")
+    report(f"-- observational data y = {bip.G_obs.detach().cpu().numpy()}")
 
     # Solver convergence canary on the solves the Z/R streams run (the
     # ratio steps do not surface SolveInfo; an unconverged level is not
@@ -100,9 +100,9 @@ def main(argv=None):
             "converged_fraction": float(info.converged.double().mean()),
             "mean_iterations": float(torch.as_tensor(info.iterations, dtype=torch.float64).mean()),
         })
-        print(f"-- canary L{level}: conv "
-              f"{canary[-1]['converged_fraction'] * 100:.0f}% "
-              f"iters {canary[-1]['mean_iterations']:.0f}")
+        report(f"-- canary L{level}: conv "
+               f"{canary[-1]['converged_fraction'] * 100:.0f}% "
+               f"iters {canary[-1]['mean_iterations']:.0f}")
 
     mgr = BayesRatioManager(bip, cfg, splitting=splitting)
     if adaptive:
@@ -111,9 +111,9 @@ def main(argv=None):
         mgr.init_run([cfg.initial_samples] * cfg.nlevels)
         est = mgr.estimate
     kind = "ML_BayesRatio_Splitting" if splitting else "ML_BayesRatio"
-    print(f"FINAL {kind}_Manager ERRORS")
+    report(f"FINAL {kind}_Manager ERRORS")
     dash = mgr.show_me()
-    print(dash)
+    report(dash)
     TimeManager.print_table()
 
     evidence = {
@@ -135,9 +135,10 @@ def main(argv=None):
         "solver_canary": canary,
         "show_me": dash,
     }
-    with open(opts["out"], "w") as f:
-        json.dump(evidence, f, indent=1)
-    print(f"written: {opts['out']}")
+    if is_main():
+        with open(opts["out"], "w") as f:
+            json.dump(evidence, f, indent=1)
+    report(f"written: {opts['out']}")
     mgr.close()
     return est, mgr
 

@@ -46,7 +46,7 @@ import torch
 
 from parelagmc_tpu_torch.device import device_info, synchronize
 from parelagmc_tpu_torch.examples._evidence import host
-from parelagmc_tpu_torch.examples.common import parse_args
+from parelagmc_tpu_torch.examples.common import is_main, parse_args, report
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.problems import build_problem
 
@@ -70,7 +70,7 @@ def timed(fn, key, batch, reps, label):
         d = time.perf_counter() - t0
         dt = min(dt, d)
     n = reps * batch
-    print(
+    report(
         f"  {label:26s} {dt / n * 1e3:10.4f} ms/sample "
         f"{n / dt:12.1f} samples/s (compile {compile_s:.1f}s)"
     )
@@ -137,8 +137,8 @@ def main(argv=None):
         reps = max(2, cfg.initial_samples // batch)
         key = PRNGKey(cfg.seed)
         rows = []
-        print(f"-- variant {variant}: batch {batch}, {cfg.nlevels} levels "
-              f"(host setup {setup_s:.1f}s)")
+        report(f"-- variant {variant}: batch {batch}, {cfg.nlevels} levels "
+               f"(host setup {setup_s:.1f}s)")
         for level in range(cfg.nlevels):
             row = {
                 "level": level,
@@ -160,8 +160,8 @@ def main(argv=None):
                 torch.cuda.reset_peak_memory_stats(device)
                 host(sample_eval(fold_in(key, 987653))[0])
                 row["hbm_bytes"] = int(torch.cuda.max_memory_allocated(device))
-                print(f"  level-0 peak device memory (allocator): "
-                      f"{row['hbm_bytes'] / 1e9:.2f} GB")
+                report(f"  level-0 peak device memory (allocator): "
+                       f"{row['hbm_bytes'] / 1e9:.2f} GB")
             row["sample_eval"] = timed(sample_eval, key, batch, reps, "Sample+Eval")
             # Moment check on one more draw: the mean of the normalized
             # lognormal field should sit near exp(sigma^2/2).
@@ -195,9 +195,10 @@ def main(argv=None):
         evidence["variants"][variant] = rows
 
     evidence["device"] = device_info(device)
-    with open(out_file, "w") as fjson:
-        json.dump(evidence, fjson, indent=1)
-    print(f"wrote {out_file}")
+    if is_main():
+        with open(out_file, "w") as fjson:
+            json.dump(evidence, fjson, indent=1)
+    report(f"wrote {out_file}")
     return evidence
 
 

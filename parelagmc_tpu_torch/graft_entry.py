@@ -9,30 +9,39 @@ Twin of __graft_entry__.py on the port.
 * dryrun_multichip(n) runs the estimator step sample-sharded n ways
   (parallel/sharding.SampleMesh), composed with split_pair_programs, and a
   spatially sharded (dp, sp) Darcy solve, and checks each against its
-  unsharded counterpart, as the JAX dry run does. It uses the in-process
-  forms: SampleMesh(n) runs its n shards one after the other, and the
-  (dp, sp) spatial solve keeps its slabs stacked on one device, so it runs
-  on one card or on the CPU. The JAX dry run's platform set-up (XLA_FLAGS,
-  jax_platforms, the device-count check) has no counterpart.
+  unsharded counterpart, as the JAX dry run does. Without a process group
+  it uses the in-process forms: SampleMesh(n) runs its n shards one after
+  the other, and the (dp, sp) spatial solve keeps its slabs stacked on one
+  device, so it runs on one card or on the CPU. Under a group of world size
+  n (torchrun) it uses the distributed forms: SampleMesh(n,
+  distributed=True), a shard a rank, and DistributedSlabs, a slab a rank
+  (slab_comm). The JAX dry run's platform set-up (XLA_FLAGS, jax_platforms,
+  the device-count check) has no counterpart.
 
 Both run on cuda:0 unless given another device, and raise without a card.
 
-Usage: python -m parelagmc_tpu_torch.graft_entry
+Usage: python -m parelagmc_tpu_torch.graft_entry [--device cpu]
+       (dryrun_multichip(8) in one process), or on every card of a host:
+       python -m torch.distributed.run --standalone --nproc-per-node N \
+           -m parelagmc_tpu_torch.graft_entry   (dryrun_multichip(N))
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 
 import numpy as np
 import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
-from parelagmc_tpu_torch.device import resolve_device, torch_dtype
+from parelagmc_tpu_torch.device import resolve_device, synchronize, torch_dtype
 from parelagmc_tpu_torch.fem import build_geometric_hierarchy, build_geometric_hierarchy_from_fine
 from parelagmc_tpu_torch.mesh import make_box_mesh
 from parelagmc_tpu_torch.ops.prng import PRNGKey
 from parelagmc_tpu_torch.parallel import SampleMesh
+from parelagmc_tpu_torch.parallel.launch import (distributed_ready, init_from_env, is_main,
+                                                  world_size)
 from parelagmc_tpu_torch.physics import DarcySolver
 from parelagmc_tpu_torch.samplers import SPDESampler
 from parelagmc_tpu_torch.uq import MLMCManager
@@ -43,6 +52,7 @@ SPLIT_RTOL = 5e-4  # split_pair_programs against the composed step
 SPATIAL_RESIDUAL = 1e-3  # the sharded solve's final |r| / |b|
 SPATIAL_Q_RTOL = 5e-3  # sharded against unsharded Q, cold and warm
 WARM_ITERATIONS = 1  # the warm solve from the converged pressure
+N_DEVICES = 8  # the dry run's width without a process group
 
 
 def _require(ok: bool, *what) -> None:
@@ -85,9 +95,11 @@ def spatial_problem(n_devices: int, device=None):
     solver, fields w). An SPE10-shaped (5, 2n, 4) box of spacings
     (20, 10, 2) with kinv = exp(0.5 N), cg-schur at rtol 1e-5 (500
     iterations, local scaling), float32, cut along y into sp = n / dp slabs
-    with dp = 2 sample rows (1 for odd n); w = exp(0.3 N), 2 dp samples."""
+    with dp = 2 sample rows (1 for odd n, and for n = 2, so that the y axis
+    is cut at all: the port routes a solve through the slabs only for
+    sp > 1); w = exp(0.3 N), 2 dp samples."""
     device = resolve_device(device)
-    n_dp = 2 if n_devices % 2 == 0 else 1
+    n_dp = 2 if n_devices % 2 == 0 and n_devices > 2 else 1
     n_sp = n_devices // n_dp
     ny = 2 * n_devices
     mesh = make_box_mesh((5, ny, 4), spacings=[20.0, 10.0, 2.0])
@@ -117,11 +129,18 @@ def spatial_problem(n_devices: int, device=None):
 def dryrun_multichip(n_devices: int, device=None) -> dict:
     """Run the n-way sharded MLMC step, the same composed with
     split_pair_programs, and the (dp, sp) spatial solve, each checked
-    against its unsharded counterpart (AssertionError otherwise). Returns
-    the numbers checked: per-level eQ of the sharded, unsharded and split
-    runs and the standard errors; the spatial q_sp, q_ref, q_warm, the cold
-    solve's max residual and the warm solve's iterations."""
-    sm = SampleMesh(n_devices)
+    against its unsharded counterpart (AssertionError otherwise); under a
+    process group (whose world size must be n) in the distributed forms.
+    Returns the numbers checked: per-level eQ of the sharded, unsharded and
+    split runs and the standard errors; the spatial q_sp, q_ref, q_warm,
+    the cold solve's max residual and the warm solve's iterations; and the
+    forms that ran: "sample_mesh" ("distributed" or "in-process") and
+    "slabs" (the spatial solve's communicator class, None for one slab)."""
+    distributed = distributed_ready()
+    if distributed and world_size() != n_devices:
+        raise ValueError(f"dryrun_multichip({n_devices}) under a process group of world size "
+                         f"{world_size()}")
+    sm = SampleMesh(n_devices, distributed=distributed)
     batch = 2 * n_devices
     hier, sampler, solver, cfg = build(nlevels=2, base_cells=(2, 2, 2), batch=batch,
                                         device=device)
@@ -163,15 +182,34 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     _require(int(info_w.iterations) <= WARM_ITERATIONS, info_w.iterations)
     _require(torch.allclose(q_w, q_ref, rtol=SPATIAL_Q_RTOL, atol=0), q_w, q_ref)
     host = lambda t: t.detach().cpu().double().numpy()
+    slabs = type(ssolver._spatial(0).comm).__name__ if ssolver._use_spatial(0) else None
     return dict(eQ=np.asarray(mgr.eQ), eQ_ref=np.asarray(mgr_ref.eQ),
                 eQ_split=np.asarray(mgr_split.eQ), se=se, q_sp=host(q_sp), q_ref=host(q_ref),
-                q_warm=host(q_w), residual=residual, warm_iterations=int(info_w.iterations))
+                q_warm=host(q_w), residual=residual, warm_iterations=int(info_w.iterations),
+                sample_mesh="distributed" if sm.distributed else "in-process", slabs=slabs)
+
+
+def main(argv=None) -> dict:
+    """entry()'s step once, then dryrun_multichip over the world size under
+    torchrun (N_DEVICES without it); rank 0 prints. Returns the dry run's
+    numbers."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda:0, cuda:LOCAL_RANK under torchrun; "
+                        "without a card pass --device cpu)")
+    device = init_from_env(p.parse_args(argv).device)
+    fn, args = entry(device)
+    out = fn(*args)
+    synchronize(device)
+    n = world_size() if distributed_ready() else N_DEVICES
+    if is_main():
+        print("entry ok:", [tuple(o.shape) for o in out])
+    result = dryrun_multichip(n, device)
+    if is_main():
+        print(f"dryrun_multichip({n}) ok: sample mesh {result['sample_mesh']}, spatial slabs "
+              f"{result['slabs']}")
+    return result
 
 
 if __name__ == "__main__":
-    fn, args = entry()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    print("entry ok:", [tuple(o.shape) for o in out])
-    dryrun_multichip(8)
-    print("dryrun_multichip ok")
+    main()

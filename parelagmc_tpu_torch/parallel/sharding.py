@@ -12,8 +12,10 @@ not on the hardware, so one implementation runs in two ways:
 * under torch.distributed (`SampleMesh(n, distributed=True)`, n the world
   size), each rank runs its own shard on its own device and the per-shard
   outputs are gathered with all_gather, so every rank holds the global
-  batch. The caller initializes the process group (gloo for CPU tensors,
-  NCCL for CUDA ones) and builds each rank's problem on its device.
+  batch. The process group comes from torchrun through
+  parallel/launch.init_from_env (the drivers' parse_args calls it): gloo
+  for CPU tensors, NCCL for CUDA ones with one card a rank; each rank builds
+  its problem on its own device.
 
 Both give the same per-sample values for the same n.
 """
@@ -26,10 +28,7 @@ import torch
 import torch.distributed as dist
 
 from parelagmc_tpu_torch.ops.prng import fold_in
-
-
-def _distributed() -> bool:
-    return dist.is_available() and dist.is_initialized()
+from parelagmc_tpu_torch.parallel.launch import distributed_ready
 
 
 def sample_mesh_from_config(config, device=None) -> Optional["SampleMesh"]:
@@ -44,7 +43,7 @@ def sample_mesh_from_config(config, device=None) -> Optional["SampleMesh"]:
         return None
     if n < -1:
         raise ValueError(f"config.sample_shards={n} is invalid (use -1 for all devices)")
-    if _distributed():
+    if distributed_ready():
         visible = dist.get_world_size()
     elif device is not None and torch.device(device).type == "cuda":
         visible = torch.cuda.device_count()
@@ -55,7 +54,7 @@ def sample_mesh_from_config(config, device=None) -> Optional["SampleMesh"]:
     if n > visible:
         raise ValueError(
             f"config.sample_shards={n} but only {visible} device(s) are visible")
-    return SampleMesh(n, distributed=_distributed())
+    return SampleMesh(n, distributed=distributed_ready())
 
 
 class SampleMesh:
@@ -69,7 +68,7 @@ class SampleMesh:
         self.distributed = bool(distributed)
         self.rank = 0
         if self.distributed:
-            if not _distributed():
+            if not distributed_ready():
                 raise ValueError("SampleMesh(distributed=True) needs an initialized "
                                  "torch.distributed process group")
             if n_shards != dist.get_world_size():

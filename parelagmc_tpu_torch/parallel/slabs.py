@@ -15,8 +15,9 @@ leading slab axis of `n_local` entries, the slabs this process holds:
   Halos go by isend/irecv to the neighbouring ranks of the row, `all_gather`
   and `psum` over the row's process group, and the loop flags are reduced
   over the whole world, so every rank leaves a Krylov loop on the same
-  iteration. The caller initializes the process group: gloo for CPU
-  tensors, NCCL for CUDA ones with one card a rank. This is the form that
+  iteration. The process group comes from torchrun through
+  parallel/launch.init_from_env: gloo for CPU tensors, NCCL for CUDA ones
+  with one card a rank. This is the form that
   lowers a device's share of the solve state (Krylov vectors, line tables,
   preconditioner state) to about 1/n_sp; every rank still holds the whole
   batch of coefficient fields and its solver's unsharded operators.
@@ -32,9 +33,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-
-def distributed_ready() -> bool:
-    return dist.is_available() and dist.is_initialized()
+from parelagmc_tpu_torch.parallel.launch import distributed_ready
 
 
 class StackedSlabs:

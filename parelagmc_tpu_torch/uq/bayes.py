@@ -36,6 +36,7 @@ import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.ops.prng import Key, PRNGKey, fold_in, normals_plain
+from parelagmc_tpu_torch.parallel.launch import is_main
 from parelagmc_tpu_torch.physics.darcy import DarcySolver
 from parelagmc_tpu_torch.samplers.base import MLSampler
 
@@ -129,7 +130,8 @@ class BayesianInverseProblem:
         drawn in float64 on the host whatever config.dtype is: the
         reference draws it with jax.random.normal without a dtype, which
         under its 64-bit setting (its tests and CPU runs) is float64, and
-        that is the stream the fixed-seed anchors pin."""
+        that is the stream the fixed-seed anchors pin. Under torchrun the
+        file is written by rank 0 alone."""
         cfg = self.config
         fname = cfg.bayes_ref_data_file
         if not cfg.bayes_generate_ref_data and fname and os.path.exists(fname):
@@ -146,7 +148,7 @@ class BayesianInverseProblem:
             fold_in(key, 1), (self.size_obs_data,), torch.float64, "cpu").numpy()
         data = G[0].detach().to("cpu", torch.float64).numpy() + eta
         self._set_obs(data)
-        if fname:
+        if fname and is_main():
             np.savetxt(fname, data)
         return data
 

@@ -33,6 +33,14 @@ of the shard count and each level step runs per shard (SampleMesh.shard_step:
 shard i keyed fold_in(key, i), local batch batch // n). Each step returns
 its Krylov iterations per sample (each shard's count broadcast over its
 local batch), so the iteration sums mean what the reference's do.
+
+Under a torch.distributed group of world size > 1 (torchrun, see
+parallel/launch.py) every rank drives the manager and holds the same global
+batch, but each times itself: the walltime C_l is agreed over the ranks
+(the maximum, the pace of a step whose collectives wait for the slowest
+rank) before it sets N_l, so every rank takes the same rounds and batches.
+The per-sample log and save_state are written by rank 0 alone; load_state
+and resume run on every rank.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
+from parelagmc_tpu_torch.parallel.launch import agree_max, barrier, is_main
 from parelagmc_tpu_torch.parallel.sharding import SampleMesh, sample_mesh_from_config
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager, block_until_ready
 
@@ -169,7 +178,7 @@ class MLMCManager:
         self._steps: Dict[int, Callable] = {}
         self._device_ready = False
         self._logger = None
-        if config.output_filename:
+        if config.output_filename and is_main():
             self._logger = open(config.output_filename, "w")
             self._logger.write(
                 "%13s %14s %14s %14s %14s\n" % ("%level", "Y(xi)", "Q(xi)", "Q_c(xi)", "c")
@@ -308,7 +317,7 @@ class MLMCManager:
         self._iter_sums[:] = 0.0
         self.init_run(self.init_nsamples)
         self._adaptive_loop()
-        if self.verbose:
+        if self.verbose and is_main():
             print("FINAL MLMC ERRORS")
             print(self.show_me())
         return self.estimate
@@ -406,6 +415,7 @@ class MLMCManager:
                 self.cost[l] = self._cost_ledger.cost_per_sample(
                     l, t, int(self.level_nsamples[l])
                 )
+            self.cost = agree_max(self.cost)
         else:
             self.cost = self.eC.copy()
         # Gamma is the cost GROWTH rate (cost ~ M^gamma).
@@ -422,22 +432,25 @@ class MLMCManager:
 
     # -- checkpoint / resume -----------------------------------------------------
     def save_state(self, path: str) -> None:
-        """Write the estimator state to `path` (.npz)."""
+        """Write the estimator state to `path` (.npz): rank 0 writes, every
+        rank returns once it is written."""
         cost_elapsed = np.array(
             [TimeManager.elapsed(f"MC Sample -- Level {l}") for l in range(self.nlevels)]
         )
-        np.savez(
-            path,
-            sums=self.sums,
-            level_nsamples=self.level_nsamples,
-            level_nsamples_missing=self.level_nsamples_missing,
-            counter=self._counter,
-            eps2=self.eps2,
-            seed=self.config.seed,
-            cost_elapsed=cost_elapsed,
-            iter_sums=self._iter_sums,
-            **self._cost_ledger.state(),
-        )
+        if is_main():
+            np.savez(
+                path,
+                sums=self.sums,
+                level_nsamples=self.level_nsamples,
+                level_nsamples_missing=self.level_nsamples_missing,
+                counter=self._counter,
+                eps2=self.eps2,
+                seed=self.config.seed,
+                cost_elapsed=cost_elapsed,
+                iter_sums=self._iter_sums,
+                **self._cost_ledger.state(),
+            )
+        barrier()
 
     def load_state(self, path: str) -> None:
         data = np.load(path)

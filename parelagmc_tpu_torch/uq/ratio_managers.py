@@ -32,6 +32,10 @@ batches rounded up to a multiple of the shard count, and the step run per
 shard, the shard's fold_in(key, i) taken before the step's own split into
 the Z and R keys, as the reference's sharded streams do. The coupled prior
 fields come from the sampler's eval_pair where it has one.
+
+Under a torch.distributed group of world size > 1 the walltime cost is
+agreed over the ranks, and the log and checkpoint are rank 0's, as in
+MLMCManager (uq/managers.py).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 from parelagmc_tpu_torch.config import ProblemConfig
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in, split
+from parelagmc_tpu_torch.parallel.launch import agree_max, barrier, is_main
 from parelagmc_tpu_torch.parallel.sharding import SampleMesh
 from parelagmc_tpu_torch.uq.bayes import BayesianInverseProblem
 from parelagmc_tpu_torch.uq.managers import check_sharding, eval_pair, level_batches
@@ -105,7 +110,7 @@ class BayesRatioManager:
         self._steps: Dict[int, Callable] = {}
         self._device_ready = False
         self._logger = None
-        if config.output_filename:
+        if config.output_filename and is_main():
             self._logger = open(config.output_filename, "w")
             self._logger.write(
                 "%13s %14s %14s %14s %14s %14s\n"
@@ -240,7 +245,7 @@ class BayesRatioManager:
         self.level_nsamples_missing[:] = 0
         self.init_run([self.init_nsamples] * self.nlevels)
         self._adaptive_loop()
-        if self.verbose:
+        if self.verbose and is_main():
             print(self.show_me())
         return self.estimate
 
@@ -285,6 +290,7 @@ class BayesRatioManager:
                 t = TimeManager.elapsed(f"Ratio MC Sample -- Level {l}")
                 self.cost[l] = self._cost_ledger.cost_per_sample(
                     l, t, int(self.level_nsamples[l]))
+            self.cost = agree_max(self.cost)
         else:
             self.cost = self.E[:, C].copy()
 
@@ -348,19 +354,21 @@ class BayesRatioManager:
             [TimeManager.elapsed(f"Ratio MC Sample -- Level {l}") for l in range(self.nlevels)]
         )
         obs = self.problem.G_obs
-        np.savez(
-            path,
-            sums=self.sums,
-            level_nsamples=self.level_nsamples,
-            level_nsamples_missing=self.level_nsamples_missing,
-            counter=self._counter,
-            eps2=self.eps2,
-            seed=self.config.seed,
-            splitting=self.splitting,
-            cost_elapsed=cost_elapsed,
-            g_obs=(_host64(obs) if obs is not None else np.zeros(0)),
-            **self._cost_ledger.state(),
-        )
+        if is_main():
+            np.savez(
+                path,
+                sums=self.sums,
+                level_nsamples=self.level_nsamples,
+                level_nsamples_missing=self.level_nsamples_missing,
+                counter=self._counter,
+                eps2=self.eps2,
+                seed=self.config.seed,
+                splitting=self.splitting,
+                cost_elapsed=cost_elapsed,
+                g_obs=(_host64(obs) if obs is not None else np.zeros(0)),
+                **self._cost_ledger.state(),
+            )
+        barrier()
 
     def load_state(self, path: str) -> None:
         data = np.load(path)
@@ -389,7 +397,7 @@ class BayesRatioManager:
         with the same final verbose report as an uninterrupted run()."""
         self.load_state(path)
         self._adaptive_loop()
-        if self.verbose:
+        if self.verbose and is_main():
             print(self.show_me())
         return self.estimate
 

@@ -84,7 +84,7 @@ def test_port_imports_leave_jax_out():
                  "mesh.mfem_io", "fem.simplicial", "fem.simplicial_hierarchy", "unstructured",
                  "physics.hybrid", "native", "transfer_integrators", "utils.io_vtk",
                  "utils.reporting", "examples.common", "parallel.slabs", "parallel.spatial",
-                 "parallel.spatial_darcy", "bench", "graft_entry",
+                 "parallel.spatial_darcy", "parallel.launch", "bench", "graft_entry",
                  *(f"examples.{d}" for d in EXAMPLES)):
         assert f"parelagmc_tpu_torch.{name}" in MODULES
 
@@ -99,11 +99,13 @@ def _program_sources():
 
 
 def test_spatial_modules_import_without_jax():
-    """The spatial-sharding modules and their driver twin, imported alone in
-    a fresh interpreter, load neither jax nor the JAX package."""
+    """The spatial-sharding modules, the torchrun launch layer and the
+    spatial driver twin, imported alone in a fresh interpreter, load neither
+    jax nor the JAX package."""
     code = (
         "import sys\n"
         "import parelagmc_tpu_torch.parallel.spatial_darcy, parelagmc_tpu_torch.parallel.spatial\n"
+        "import parelagmc_tpu_torch.parallel.launch\n"
         "import parelagmc_tpu_torch.examples.spatial_scaling\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'parelagmc_tpu')))\n"
     )
@@ -165,7 +167,7 @@ def test_no_jax_import_in_package_sources():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     scanned = {os.path.relpath(p, REPO) for p in _program_sources()}
     assert {"parelagmc_tpu_torch/parallel/spatial.py", "parelagmc_tpu_torch/parallel/slabs.py",
-            "parelagmc_tpu_torch/parallel/spatial_darcy.py",
+            "parelagmc_tpu_torch/parallel/spatial_darcy.py", "parelagmc_tpu_torch/parallel/launch.py",
             "parelagmc_tpu_torch/examples/spatial_scaling.py"} <= scanned
     for path in _program_sources():
         with open(path) as fh:
