@@ -18,7 +18,9 @@ Launch counts: every wrapper adds one to `launch_counts[name]` right where
 it launches its kernel, so a run can show that its main path went through
 the kernels (chip_smoke.py resets the counts before each path it drives -
 the golden MLMC run, the SPE10 anchor, the full-grid SPE10 run, the K3
-entry point - and reads them after).
+entry point - and reads them after). The dict is the tracer's `kernel`
+counter group (utils/trace.py), so a batch span records them as
+`kernel.<name>`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from parelagmc_tpu_torch.utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -45,7 +49,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-launch_counts: Dict[str, int] = {"thomas": 0, "threefry_normal": 0, "threefry_uniform": 0}
+launch_counts: Dict[str, int] = trace.counters(
+    "kernel", ("thomas", "threefry_normal", "threefry_uniform"))
 
 _LIB: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from parelagmc_tpu_torch.fem.hierarchy import derefine_axis
 from parelagmc_tpu_torch.mesh.structured import StructuredMesh
 from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
+from parelagmc_tpu_torch.utils import trace
 
 
 class StructMGLevel(NamedTuple):
@@ -354,6 +355,13 @@ def _line_smooth_grid(mg: StructCoefMG, dinv_axes, lines, b, x, reverse: bool):
 
 
 def _v_cycle_grid(mg: StructCoefMG, state, b: torch.Tensor, sweeps: int, level: int):
+    """The V-cycle from grid `level` down; each grid level is a
+    `coefmg.level` span (attribute `grid`), nested by the recursion."""
+    with trace.span("coefmg.level", grid=level):
+        return _v_cycle_level(mg, state, b, sweeps, level)
+
+
+def _v_cycle_level(mg: StructCoefMG, state, b: torch.Tensor, sweeps: int, level: int):
     dinv_axes, idiag, lines = state[level]
     cheby = mg.cheby_order > 0
     use_lines = bool(mg.line_axes) and len(lines) == len(mg.line_axes)

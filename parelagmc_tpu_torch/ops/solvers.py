@@ -11,6 +11,12 @@ one bool from the device per iteration (a host sync; replaying the loop as
 a CUDA graph is later work). PCG's restarts every `restart_every`
 iterations and MINRES's restart cycles are host-side branches, as the
 reference's lax.cond were. `SolveInfo.iterations` is batch-global.
+
+Tracing (utils/trace.py): `krylov.pcg` spans each PCG call, `krylov.iter`
+each of its iterations, with `krylov.apply` (the operator), `krylov.prec`
+(the preconditioner) and the continue test `wait.krylov_test` inside; the
+exit check is `wait.krylov_verify`. Both solvers count their loop trips
+(`krylov.iterations`) and restarts (`krylov.restarts`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from parelagmc_tpu_torch.utils import trace
+
+_KRYLOV = trace.counters("krylov")
 
 
 class SolveInfo(NamedTuple):
@@ -40,6 +50,7 @@ def pcg(
     atol: float = 1e-12,
     restart_every: int = 0,
     want_r_true: bool = False,
+    role: str = "primal",
 ):
     """Preconditioned CG for SPD systems, batched over leading dims.
 
@@ -48,12 +59,25 @@ def pcg(
     On exit a claimed convergence is verified against the TRUE residual
     (4x slack for rows that claimed). `want_r_true=True` returns
     (x, info, r_true) with r_true = b - A x computed unconditionally.
+    `role` names the system in the `krylov.pcg` span (primal, adjoint,
+    stacked).
     """
+    with trace.span("krylov.pcg", role=role) as sp:
+        out = _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true)
+        sp.note("iterations", out[1].iterations)
+    return out
+
+
+def _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true):
     if prec is None:
         prec = lambda r: r
     x = torch.zeros_like(b) if x0 is None else x0
-    r = b - apply_A(x) if x0 is not None else b
-    z = prec(r)
+    r = b
+    if x0 is not None:
+        with trace.span("krylov.apply"):
+            r = b - apply_A(x)
+    with trace.span("krylov.prec"):
+        z = prec(r)
     p = z
     rz = _vdot(r, z)
     b_norm = torch.sqrt(_vdot(b, b))
@@ -63,40 +87,50 @@ def pcg(
     one = torch.ones((), dtype=b.dtype, device=b.device)
 
     it = 0
-    while it < max_iters and bool(torch.any(rn > thresh)):
-        active = rn > thresh
-        Ap = apply_A(p)
-        pAp = _vdot(p, Ap)
-        alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, one, pAp), zero)
-        alpha = torch.where(active, alpha, zero)[..., None]
-        x = x + alpha * p
-        r = r - alpha * Ap
-        do_restart = restart_every > 0 and (it + 1) % restart_every == 0
-        if do_restart:
-            r = b - apply_A(x)
-        z = prec(r)
-        rz_new = _vdot(r, z)
-        if do_restart:
-            beta = torch.zeros_like(rz)  # steepest-descent reset
-        else:
-            beta = torch.where(rz > 0, rz_new / torch.where(rz == 0, one, rz), zero)
-        p = z + torch.where(active, beta, zero)[..., None] * p
-        rn = torch.sqrt(_vdot(r, r))
-        rz = rz_new
-        it += 1
+    go = max_iters > 0 and trace.read_bool("krylov_test", torch.any(rn > thresh))
+    while go:
+        with trace.span("krylov.iter"):
+            active = rn > thresh
+            with trace.span("krylov.apply"):
+                Ap = apply_A(p)
+            pAp = _vdot(p, Ap)
+            alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, one, pAp), zero)
+            alpha = torch.where(active, alpha, zero)[..., None]
+            x = x + alpha * p
+            r = r - alpha * Ap
+            do_restart = restart_every > 0 and (it + 1) % restart_every == 0
+            if do_restart:
+                _KRYLOV["restarts"] += 1
+                with trace.span("krylov.apply"):
+                    r = b - apply_A(x)
+            with trace.span("krylov.prec"):
+                z = prec(r)
+            rz_new = _vdot(r, z)
+            if do_restart:
+                beta = torch.zeros_like(rz)  # steepest-descent reset
+            else:
+                beta = torch.where(rz > 0, rz_new / torch.where(rz == 0, one, rz), zero)
+            p = z + torch.where(active, beta, zero)[..., None] * p
+            rn = torch.sqrt(_vdot(r, r))
+            rz = rz_new
+            it += 1
+            _KRYLOV["iterations"] += 1
+            go = it < max_iters and trace.read_bool("krylov_test", torch.any(rn > thresh))
 
     # Verify claimed convergence against the true residual (the f32 CG
     # recurrence drifts below it; see the reference's note).
     claimed = rn <= thresh
     r_true = None
     if want_r_true:
-        r_true = b - apply_A(x)
+        with trace.span("krylov.apply"):
+            r_true = b - apply_A(x)
         rn = torch.sqrt(_vdot(r_true, r_true))
         verified = True
     else:
-        verified = bool(torch.any(claimed))
+        verified = trace.read_bool("krylov_verify", torch.any(claimed))
         if verified:
-            r_t = b - apply_A(x)
+            with trace.span("krylov.apply"):
+                r_t = b - apply_A(x)
             rn = torch.sqrt(_vdot(r_t, r_t))
     rel = rn / torch.where(b_norm == 0, one, b_norm)
     slack = torch.where(claimed, 4.0 * one, one) if verified else one
@@ -163,7 +197,7 @@ def minres(
         # No previous Lanczos vector yet: per sweep, not `it > 0`, since a
         # restarted sweep carries its count over.
         first = True
-        while it < max_iters and bool(torch.any(phibar > thresh_row)):
+        while it < max_iters and trace.read_bool("krylov_test", torch.any(phibar > thresh_row)):
             active = phibar > thresh_row
             v = y * safe_div(one, beta)[..., None]
             yv = apply_A(v)
@@ -201,21 +235,24 @@ def minres(
             sn = torch.where(active, sn_new, sn)
             first = False
             it += 1
+            _KRYLOV["iterations"] += 1
         return x, it, phibar <= thresh_row
 
     it = 0
     thresh_i = thresh
     claimed = torch.zeros_like(thresh, dtype=torch.bool)
-    for _ in range(max(1, cycles)):
+    for cycle in range(max(1, cycles)):
         if it >= max_iters:
             break
+        if cycle > 0:
+            _KRYLOV["restarts"] += 1
         r_t = b - apply_A(x)
         done = torch.sqrt(_vdot(r_t, r_t)) <= thresh  # strict 2-norm check per row
         x, it, sweep_claim = lanczos_sweep(x, r_t, it, torch.where(done, big, thresh_i))
         claimed = claimed | done | sweep_claim
         # Rows that failed the check re-enter with a tighter inner target.
         thresh_i = torch.where(done, thresh_i, thresh_i * cycle_tighten)
-        if bool(done.all()):
+        if trace.read_bool("krylov_verify", done.all()):
             break
     # Rows that converged during the last sweep have not been checked in the
     # 2-norm yet: one unconditional apply_A keeps the report honest.

@@ -105,6 +105,7 @@ from parelagmc_tpu_torch.ops.mass_solve import MassTridiagSolver, build_mass_tri
 from parelagmc_tpu_torch.ops.multigrid import MGHierarchy, build_mg_hierarchy, v_cycle
 from parelagmc_tpu_torch.ops.solvers import SolveInfo, minres, pcg
 from parelagmc_tpu_torch.ops.tensorsolve import TensorEig, build_tensor_solver, tensor_solve
+from parelagmc_tpu_torch.utils import trace
 
 _SOLVERS = ("cg-schur", "cg-schur-diag", "cg-schur-exact", "cg-schur-coefmg", "minres-bj")
 _PREC_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -226,6 +227,11 @@ def _b_masks(mesh, ess: np.ndarray) -> List[np.ndarray]:
         m = (~ess[mesh.face_offsets[a]: mesh.face_offsets[a + 1]]).astype(np.float64)
         masks.append(m.reshape(tuple(fshape[::-1])))
     return masks
+
+
+def _rows(w: torch.Tensor) -> int:
+    """The systems a batch of coefficient fields (..., n_s) poses."""
+    return w.numel() // max(1, w.shape[-1])
 
 
 def _check_config(config: ProblemConfig) -> None:
@@ -504,22 +510,24 @@ class DarcySolver:
         adjoint (return_adjoint, needs config.adjoint_qoi). With
         config.meanfield_x0 the solve starts from the cached w = 1 solution.
         `max_iters` overrides config.max_iterations for this solve."""
-        if self._use_spatial(level):
-            return self._solve_spatial(level, w, return_pressure, return_adjoint=return_adjoint,
-                                       max_iters=max_iters)
-        if self.solver_cfg.name == "minres-bj":
-            if getattr(self.solver_cfg, "adjoint_qoi", False):
-                raise NotImplementedError("adjoint_qoi applies to the cg-schur solver family")
-            return self._solve_minres(self.levels[level], w, return_pressure, max_iters)
-        x0 = lam0 = None
-        if getattr(self.solver_cfg, "meanfield_x0", False):
-            p_ref, lam_ref = self._meanfield_start(level)
-            batch = w.shape[:-1]
-            x0 = p_ref.expand(batch + p_ref.shape[-1:])
-            if lam_ref is not None:
-                lam0 = lam_ref.expand(batch + lam_ref.shape[-1:])
-        return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=x0, lam0=lam0,
-                                    return_adjoint=return_adjoint, max_iters=max_iters)
+        with trace.span("darcy.solve", level=level, rows=_rows(w), start="cold") as sp:
+            if self._use_spatial(level):
+                return self._solve_spatial(level, w, return_pressure,
+                                           return_adjoint=return_adjoint, max_iters=max_iters)
+            if self.solver_cfg.name == "minres-bj":
+                if getattr(self.solver_cfg, "adjoint_qoi", False):
+                    raise NotImplementedError("adjoint_qoi applies to the cg-schur solver family")
+                return self._solve_minres(self.levels[level], w, return_pressure, max_iters)
+            x0 = lam0 = None
+            if getattr(self.solver_cfg, "meanfield_x0", False):
+                sp.note("start", "mean-field")
+                p_ref, lam_ref = self._meanfield_start(level)
+                batch = w.shape[:-1]
+                x0 = p_ref.expand(batch + p_ref.shape[-1:])
+                if lam_ref is not None:
+                    lam0 = lam_ref.expand(batch + lam_ref.shape[-1:])
+            return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=x0, lam0=lam0,
+                                        return_adjoint=return_adjoint, max_iters=max_iters)
 
     def _meanfield_start(self, level: int):
         """(p, lam) of ONE solve with w == 1 at this level (lam None without
@@ -544,13 +552,16 @@ class DarcySolver:
         solves cold."""
         if self.solver_cfg.name == "minres-bj":
             return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
-        p0 = torch.index_select(p_coarse, -1, self._parent[level])
-        lam0 = torch.index_select(lam_c, -1, self._parent[level]) if lam_c is not None else None
-        if self._use_spatial(level):
-            return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
-                                       return_adjoint=return_adjoint, max_iters=max_iters)
-        return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0, lam0=lam0,
-                                    return_adjoint=return_adjoint, max_iters=max_iters)
+        with trace.span("darcy.solve", level=level, rows=_rows(w), start="warm"):
+            p0 = torch.index_select(p_coarse, -1, self._parent[level])
+            lam0 = (torch.index_select(lam_c, -1, self._parent[level]) if lam_c is not None
+                    else None)
+            if self._use_spatial(level):
+                return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
+                                           return_adjoint=return_adjoint, max_iters=max_iters)
+            return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0,
+                                        lam0=lam0, return_adjoint=return_adjoint,
+                                        max_iters=max_iters)
 
     def solve_fwd_x0(self, level: int, w: torch.Tensor, p0: torch.Tensor,
                      return_pressure: bool = False, lam0: Optional[torch.Tensor] = None,
@@ -560,13 +571,15 @@ class DarcySolver:
         the reference's API, whose examples continue solves with it; no
         path of this package calls it (MLMCManager runs each pair solve
         composed instead). minres-bj solves cold."""
-        if self._use_spatial(level):
-            return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
-                                       return_adjoint=return_adjoint, max_iters=max_iters)
-        if self.solver_cfg.name == "minres-bj":
+        if self.solver_cfg.name == "minres-bj":  # never spatial (_use_spatial)
             return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
-        return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0, lam0=lam0,
-                                    return_adjoint=return_adjoint, max_iters=max_iters)
+        with trace.span("darcy.solve", level=level, rows=_rows(w), start="warm"):
+            if self._use_spatial(level):
+                return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
+                                           return_adjoint=return_adjoint, max_iters=max_iters)
+            return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0,
+                                        lam0=lam0, return_adjoint=return_adjoint,
+                                        max_iters=max_iters)
 
     # -- spatial domain decomposition (config spatial_shards) ------------------
     def _use_spatial(self, level: int) -> bool:
@@ -718,13 +731,19 @@ class DarcySolver:
         if return_adjoint and not adjoint:
             raise ValueError("return_adjoint requires config.adjoint_qoi")
         batch = w.shape[:-1]
-        f = L.rhs[: L.n_u].expand(batch + (L.n_u,))
-        g = L.rhs[L.n_u:].expand(batch + (L.n_s,))
-        # Factor the tridiagonal mass tables once per solve.
-        mass_fac = L.mass_solver.factor(w)
-        Minv = lambda r: L.mass_solver.apply_factored(mass_fac, r)
-        rhs_s = self._apply_B(L, Minv(f)) - g
-        prec = self._preconditioner(L, w.unsqueeze(-2) if stacked else w, mass_fac)
+        with trace.span("darcy.setup"):
+            f = L.rhs[: L.n_u].expand(batch + (L.n_u,))
+            g = L.rhs[L.n_u:].expand(batch + (L.n_s,))
+            # Factor the tridiagonal mass tables once per solve.
+            mass_fac = L.mass_solver.factor(w)
+            Minv = lambda r: L.mass_solver.apply_factored(mass_fac, r)
+            rhs_s = self._apply_B(L, Minv(f)) - g
+            prec = self._preconditioner(L, w.unsqueeze(-2) if stacked else w, mass_fac)
+            if adjoint:
+                # q_s = dQ/dp = c_p - B M(w)^{-1} c_u, the QoI reduced to
+                # pressure space.
+                cu = L.obs_func[: L.n_u].expand(batch + (L.n_u,))
+                q_s = L.obs_func[L.n_u:] - self._apply_B(L, Minv(cu))
         # apply_S and prec take (batch..., n_s) and, stacked, (batch..., 2, n_s).
         apply_S = lambda p: self._apply_B(L, Minv(self._apply_Bt(L, p)))
         krylov = dict(
@@ -734,11 +753,6 @@ class DarcySolver:
             atol=cfg.absolute_tolerance,
             restart_every=cfg.restart_every,
         )
-        if adjoint:
-            # q_s = dQ/dp = c_p - B M(w)^{-1} c_u, the QoI reduced to
-            # pressure space.
-            cu = L.obs_func[: L.n_u].expand(batch + (L.n_u,))
-            q_s = L.obs_func[L.n_u:] - self._apply_B(L, Minv(cu))
         lam = None
         if stacked:
             # S [p~, lam] = [rhs_s, q_s] as ONE PCG over a right-hand-side
@@ -751,7 +765,8 @@ class DarcySolver:
             if x0 is not None or lam0 is not None:
                 X0 = torch.stack([-x0 if x0 is not None else torch.zeros_like(rhs_s),
                                   lam0 if lam0 is not None else torch.zeros_like(q_s)], dim=-2)
-            X, info2, R_true = pcg(apply_S, bb, x0=X0, want_r_true=True, **krylov)
+            X, info2, R_true = pcg(apply_S, bb, x0=X0, want_r_true=True, role="stacked",
+                                   **krylov)
             p, lam = X[..., 0, :], X[..., 1, :]
             r_true = R_true[..., 0, :]
             # 2 x iterations: operator applications per sample, comparable
@@ -773,7 +788,7 @@ class DarcySolver:
             # Goal-oriented correction: solve S lam = q_s and add lam^T r
             # (r the primal true residual); the remaining QoI error is the
             # product of the two solves' energy errors.
-            lam, info_a = pcg(apply_S, q_s, x0=lam0, **krylov)
+            lam, info_a = pcg(apply_S, q_s, x0=lam0, role="adjoint", **krylov)
             info = SolveInfo(info.iterations + info_a.iterations,
                              torch.maximum(info.residual, info_a.residual),
                              info.converged & info_a.converged)

@@ -49,6 +49,7 @@ from parelagmc_tpu_torch.ops.tensorsolve import (
     tensor_solve,
 )
 from parelagmc_tpu_torch.samplers.base import MLSampler
+from parelagmc_tpu_torch.utils import trace
 from parelagmc_tpu_torch.utils.special import matern_spde_scaling
 
 
@@ -146,9 +147,10 @@ class _TensorSPDEBase(MLSampler):
         return self.hierarchy.levels[level].n_s
 
     def sample(self, level: int, key: Key, nsamples: int) -> torch.Tensor:
-        xi = sample_normals(key, (nsamples, self.sample_size(level)), self.dtype,
-                            self.device)
-        return self.sigma * xi
+        with trace.span("sampler.sample", level=level, rows=nsamples):
+            xi = sample_normals(key, (nsamples, self.sample_size(level)), self.dtype,
+                                self.device)
+            return self.sigma * xi
 
     def _solve_gaussian(self, level: int, xi: torch.Tensor,
                         xi_level: Optional[int] = None) -> torch.Tensor:
@@ -186,7 +188,8 @@ class SPDESampler(_TensorSPDEBase):
         return self.hierarchy.levels[level].n_s
 
     def eval(self, level: int, xi: torch.Tensor, xi_level: Optional[int] = None):
-        return self._finish(self._solve_gaussian(level, xi, xi_level))
+        with trace.span("sampler.eval", level=level, rows=xi.numel() // max(1, xi.shape[-1])):
+            return self._finish(self._solve_gaussian(level, xi, xi_level))
 
     def eval_with_flux(self, level: int, xi: torch.Tensor, xi_level: Optional[int] = None):
         """(s, u): the field and the auxiliary H(div) flux of the mixed SPDE

@@ -41,12 +41,18 @@ batch, but each times itself: the walltime C_l is agreed over the ranks
 rank) before it sets N_l, so every rank takes the same rounds and batches.
 The per-sample log and save_state are written by rank 0 alone; load_state
 and resume run on every rank.
+
+Tracing (utils/trace.py): each batch of `init_run` is an `mlmc.batch` span
+keyed (level, key counter), with the waits for the step's result
+(`wait.manager_sync`) and for its copy to the host (`wait.manager_copy`)
+inside. PARELAGMC_BATCH_TRACE=1 prints one stderr line per batch: its wall,
+iterations, and from the span its set-up, Krylov and wait milliseconds,
+host syncs and Krylov restarts.
 """
 
 from __future__ import annotations
 
 import math
-import os
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -59,18 +65,12 @@ from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
 from parelagmc_tpu_torch.parallel.launch import agree_max, barrier, is_main
 from parelagmc_tpu_torch.parallel.sharding import SampleMesh, sample_mesh_from_config
+from parelagmc_tpu_torch.utils import trace
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager, block_until_ready
 
 # Moment-sum columns (reference: MLMC_Manager.hpp:65 enum).
 Y, Y2, Y3, Y4, ABSY, Q, Q2, ABSQ, C = range(9)
 NVAR = 9
-
-
-def _batch_trace() -> bool:
-    """PARELAGMC_BATCH_TRACE=1 prints one stderr line per timed batch."""
-    return os.environ.get("PARELAGMC_BATCH_TRACE", "").strip().lower() in {
-        "1", "true", "yes", "on",
-    }
 
 
 def _device_of(solver) -> torch.device:
@@ -269,41 +269,52 @@ class MLMCManager:
                 )
             for _ in range(nbatches):
                 key = self._next_key(level)
-                with TimeManager.timed(timer_name):
-                    q, qc, iters = step(key)
-                    block_until_ready((q, qc))
-                if _batch_trace():
+                with trace.span("mlmc.batch", level=level, rows=self.level_batch[level],
+                                batch=(level, self._counter)) as sp:
+                    with TimeManager.timed(timer_name):
+                        q, qc, iters = step(key)
+                        with trace.wait("manager_sync"):
+                            block_until_ready((q, qc))
+                    with trace.wait("manager_copy"):
+                        q = q.detach().to("cpu", torch.float64).numpy()
+                        qc = qc.detach().to("cpu", torch.float64).numpy()
+                        self._iter_sums[level] += float(iters.sum())
+                        iters_max = float(iters.max()) if trace.BATCH_TRACE else 0.0
+                    self._cost_ledger.add_batch(level, TimeManager.last(timer_name), q.size)
+                    y = q - qc
+                    cost_dofs = self.M[level] + (
+                        self.M[level + 1] if level < self.nlevels - 1 else 0.0
+                    )
+                    self.sums[level, Y] += y.sum()
+                    self.sums[level, Y2] += (y ** 2).sum()
+                    self.sums[level, Y3] += (y ** 3).sum()
+                    self.sums[level, Y4] += (y ** 4).sum()
+                    self.sums[level, ABSY] += np.abs(y).sum()
+                    self.sums[level, Q] += q.sum()
+                    self.sums[level, Q2] += (q ** 2).sum()
+                    self.sums[level, ABSQ] += np.abs(q).sum()
+                    self.sums[level, C] += cost_dofs * q.size
+                    self.level_nsamples[level] += q.size
+                    if self._logger is not None:
+                        for i in range(q.size):
+                            self._logger.write(
+                                "%13d %14.6g %14.6g %14.6g %14.6g\n"
+                                % (level, y[i], q[i], qc[i], cost_dofs)
+                            )
+                if trace.BATCH_TRACE:
+                    totals = trace.batch_totals(sp)
                     print(
                         f"# batch-trace L{level} "
                         f"dt={TimeManager.last(timer_name):.3f}s "
-                        f"iters={float(iters.max()):.0f} "
-                        f"t={time.strftime('%H:%M:%S')}",
+                        f"iters={iters_max:.0f} "
+                        f"t={time.strftime('%H:%M:%S')} "
+                        f"setup_ms={totals['setup_ms']:.3f} "
+                        f"krylov_ms={totals['krylov_ms']:.3f} "
+                        f"wait_ms={totals['wait_ms']:.3f} "
+                        f"host_syncs={totals['host_syncs']} "
+                        f"restarts={totals['restarts']}",
                         file=sys.stderr,
                     )
-                q = q.detach().to("cpu", torch.float64).numpy()
-                qc = qc.detach().to("cpu", torch.float64).numpy()
-                self._iter_sums[level] += float(iters.sum())
-                self._cost_ledger.add_batch(level, TimeManager.last(timer_name), q.size)
-                y = q - qc
-                cost_dofs = self.M[level] + (
-                    self.M[level + 1] if level < self.nlevels - 1 else 0.0
-                )
-                self.sums[level, Y] += y.sum()
-                self.sums[level, Y2] += (y ** 2).sum()
-                self.sums[level, Y3] += (y ** 3).sum()
-                self.sums[level, Y4] += (y ** 4).sum()
-                self.sums[level, ABSY] += np.abs(y).sum()
-                self.sums[level, Q] += q.sum()
-                self.sums[level, Q2] += (q ** 2).sum()
-                self.sums[level, ABSQ] += np.abs(q).sum()
-                self.sums[level, C] += cost_dofs * q.size
-                self.level_nsamples[level] += q.size
-                if self._logger is not None:
-                    for i in range(q.size):
-                        self._logger.write(
-                            "%13d %14.6g %14.6g %14.6g %14.6g\n"
-                            % (level, y[i], q[i], qc[i], cost_dofs)
-                        )
         if self._logger is not None:
             self._logger.flush()
         self.compute_nsamples_mse()
