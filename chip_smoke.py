@@ -41,7 +41,9 @@ Phases, each printing one line (or block) before the last line:
              the card (16x32x8 grid, synthetic permeability, f64,
              cg-schur-coefmg, rtol 1e-8, init_run([32, 32, 32])): dofs
              17280/2272/312, |estimate - 361.882| < 0.5, E[Q] within 2e-3
-             of the pins, consistency < 0.1, both kernels launched; then
+             of the pins, consistency < 0.1, both kernels launched, the
+             coefMG cycle replayed as CUDA graphs (the f64 state, no cast:
+             `coefmg` counters printed, replays > 0); then
              M(w)^{-1} (K1) and K2 against their plain versions at the
              shapes this path gives them (every level's M(w)^{-1} tables
              and noise draw at batch 16, float64).
@@ -62,7 +64,9 @@ Phases, each printing one line (or block) before the last line:
    9b. MLMCManager.init_run([8, 128, 512]) (both kernels launched), then
        one timed batch per level: converged fraction 1.0, finite Q,
        iterations below the manager's pair budget; C_l, iterations and E[Q]
-       per level, peak memory, CUDA-event ms of one level-0 V-cycle; then
+       per level, peak memory (the coefMG cycle's CUDA graphs included:
+       `coefmg` counters printed, replays > 0), CUDA-event ms of one
+       level-0 V-cycle; then
        M(w)^{-1} (K1) and K2 against their plain versions at the shapes
        this path gives them: every level's M(w)^{-1} tables (kinv_ref
        Galerkin blocks, batches 8/128/512, float32) and noise draws ((8,
@@ -676,6 +680,16 @@ def gpu_info() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def coefmg_counts(before: dict) -> dict:
+    """The `coefmg` counters' growth since `before` (trace.counter_values()):
+    the structured coefMG cycle's graph captures, replays and eager cycles."""
+    from parelagmc_tpu_torch.utils import trace
+
+    now = trace.counter_values()
+    return {k.split(".", 1)[1]: v - before.get(k, 0) for k, v in now.items()
+            if k.startswith("coefmg.")}
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -1330,6 +1344,7 @@ def phase_spe10_anchor(device, gpu: str, spatial_shards: int = 0):
     from parelagmc_tpu_torch.physics.spe10 import SPE10_NCELLS, SPE10_SPACING, load_spe10_kinv
     from parelagmc_tpu_torch.problems import ProblemConfig, build_problem
     from parelagmc_tpu_torch.uq import MLMCManager
+    from parelagmc_tpu_torch.utils import trace
 
     grid = (16, 32, 8)
     lengths = tuple(n * h for n, h in zip(SPE10_NCELLS, SPE10_SPACING))
@@ -1345,10 +1360,12 @@ def phase_spe10_anchor(device, gpu: str, spatial_shards: int = 0):
     prob = build_problem(cfg, kinv_ref=load_spe10_kinv(None, ncells=grid), device=device)
     mgr = MLMCManager(prob.solver, prob.sampler, cfg)
     kernels.reset_launch_counts()
+    before = trace.counter_values()
     t0 = time.perf_counter()
     mgr.init_run([32, 32, 32])
     dt = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
+    graphs = coefmg_counts(before)
     dofs = [prob.solver.num_dofs(l) for l in range(3)]
     eq = [float(x) for x in mgr.eQ]
     cons = float(mgr.consistency.max())
@@ -1357,7 +1374,7 @@ def phase_spe10_anchor(device, gpu: str, spatial_shards: int = 0):
     print(f"SPE10 scaled anchor (16x32x8, f64, cg-schur-coefmg, rtol 1e-8{sharded}): estimate "
           f"{mgr.estimate:.6f} (pin {SPE10_ANCHOR['estimate']}) E[Q] {[round(x, 4) for x in eq]} "
           f"dofs {dofs} consistency {cons:.4f} iterations {mgr.solver_iterations.tolist()} "
-          f"run {dt:.2f} s launches {launches} [{gpu}]", flush=True)
+          f"run {dt:.2f} s launches {launches} coefmg {graphs} [{gpu}]", flush=True)
     if dofs != SPE10_ANCHOR["dofs"]:
         fail(f"SPE10 anchor dofs {dofs}")
     if not abs(mgr.estimate - SPE10_ANCHOR["estimate"]) < SPE10_ANCHOR["est_tol"]:
@@ -1372,6 +1389,8 @@ def phase_spe10_anchor(device, gpu: str, spatial_shards: int = 0):
             fail(f"kernel {k} was not launched by the SPE10 anchor run")
     if spatial_shards:
         return launches, None, prob
+    if graphs["graph_replays"] <= 0:
+        fail(f"SPE10 anchor: the coefMG cycle was never replayed as a graph ({graphs})")
     checks = path_kernel_checks(prob, mgr.level_batch, fold_in(PRNGKey(cfg.seed), 98),
                                 F64_TOL_K1, F64_TOL_K2, "SPE10 anchor kernels vs plain", gpu)
     return launches, checks, prob
@@ -1448,6 +1467,7 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
     from parelagmc_tpu_torch.ops import coef_multigrid_structured as cmg
     from parelagmc_tpu_torch.ops.prng import PRNGKey, fold_in
     from parelagmc_tpu_torch.uq import MLMCManager
+    from parelagmc_tpu_torch.utils import trace
 
     cfg, solver, sampler = prob.config, prob.solver, prob.sampler
     cells = [sampler.sample_size(l) for l in range(3)]
@@ -1459,6 +1479,7 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
     torch.cuda.reset_peak_memory_stats(device)
     mgr = MLMCManager(solver, sampler, cfg)
     kernels.reset_launch_counts()
+    before = trace.counter_values()
     t0 = time.perf_counter()
     mgr.init_run(list(cfg.batch_size_per_level))
     run_s = time.perf_counter() - t0
@@ -1502,6 +1523,11 @@ def phase_spe10_full(prob, setup_s: float, device, gpu: str):
         if not all(i < limit for i in its):
             fail(f"SPE10 full grid level {level}: iterations {its} at the budget {limit}")
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    graphs = coefmg_counts(before)
+    print(f"SPE10 full grid coefMG cycles, init_run and the timed batches: {graphs}, "
+          f"peak memory {peak_gb:.2f} GB [{gpu}]", flush=True)
+    if graphs["graph_replays"] <= 0:
+        fail(f"SPE10 full grid: the coefMG cycle was never replayed as a graph ({graphs})")
     # Level-0 layer times at the production batch.
     L0 = solver.levels[0]
     w = sampler.eval(0, sampler.sample(0, fold_in(key, 7), mgr.level_batch[0]))

@@ -18,8 +18,12 @@ Launch counts: every wrapper adds one to `launch_counts[name]` right where
 it launches its kernel, so a run can show that its main path went through
 the kernels (chip_smoke.py resets the counts before each path it drives -
 the golden MLMC run, the SPE10 anchor, the full-grid SPE10 run, the K3
-entry point - and reads them after). The dict is the tracer's `kernel`
-counter group (utils/trace.py), so a batch span records them as
+entry point - and reads them after). A launch recorded into a CUDA graph
+runs nothing at capture: the graphed coefMG cycle
+(ops/coef_multigrid_structured.GraphedVCycle) takes its capture's
+additions back and adds them again at every replay, so the counts stay
+the launches the device ran. The dict is the tracer's `kernel` counter
+group (utils/trace.py), so a batch span records them as
 `kernel.<name>`.
 """
 

@@ -399,3 +399,12 @@ def coef_v_cycle(mg: CoefMG, dinvs, b, sweeps: int = 2, level: int = 0, idiags=N
     for _ in range(sweeps):
         x = x + mg.omega * idiag * (b - _s_apply(lvl, dinv, x))
     return x
+
+
+def in_precision(cycle, r: torch.Tensor, pdt) -> torch.Tensor:
+    """cycle(r) with a reduced-precision preconditioner state: r cast to the
+    state's dtype `pdt` and the result back to r's (the CG's) dtype; with
+    pdt None, cycle(r) as it is."""
+    if pdt is None:
+        return cycle(r)
+    return cycle(r.to(pdt)).to(r.dtype)

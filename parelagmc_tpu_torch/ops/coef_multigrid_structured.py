@@ -29,11 +29,25 @@ right-hand side of each line solve is moved into that layout and back.
 The reference's MISCOMPILE GUARD (moveaxis forms of the transfer helpers)
 worked around XLA:TPU and is not carried over: the helpers below act on the
 axis in place.
+
+A cycle has no data-dependent host read, so on a card the Darcy
+preconditioner replays it as one CUDA graph (`GraphedVCycle`): the same
+few hundred small kernels in the same order on every call, issued by one
+launch.
+`VCycleGraphs` holds a solver's graphs by the shapes and settings they were
+captured for; the first solve of each key runs eagerly, its second captures,
+and every later one loads its state into the graph's static copy and
+replays; past MAX_GRAPHS keys the least recently used graph is dropped.
+CPU tensors, and a call made while a capture is under way, run
+eagerly. Counters `coefmg.graph_captures`, `coefmg.graph_replays`,
+`coefmg.eager_cycles`; span `coefmg.replay` around each replayed cycle.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import collections
+import itertools
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +55,18 @@ import torch.nn.functional as F
 
 from parelagmc_tpu_torch.fem.hierarchy import derefine_axis
 from parelagmc_tpu_torch.mesh.structured import StructuredMesh
+from parelagmc_tpu_torch.ops.coef_multigrid import in_precision
 from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
 from parelagmc_tpu_torch.utils import trace
+
+_COEFMG = trace.counters("coefmg")
+_KERNEL = trace.counters("kernel")
+# A key's graph is captured on its second solve: one-off shapes (the
+# mean-field start's single sample) never hold a graph's memory. A solver
+# keeps at most MAX_GRAPHS graphs (a few hundred MB each at the SPE10
+# cells' shapes) and drops the least recently used one past that.
+CAPTURE_AT_SOLVE = 2
+MAX_GRAPHS = 8
 
 
 class StructMGLevel(NamedTuple):
@@ -417,3 +441,154 @@ def struct_v_cycle(mg: StructCoefMG, state, b_flat: torch.Tensor, sweeps: int = 
     batch = b_flat.shape[:-1]
     bg = b_flat.reshape(batch + tuple(mg.levels[0].shape[::-1]))
     return _v_cycle_grid(mg, state, bg, sweeps, 0).reshape(batch + (-1,))
+
+
+def struct_cycle(mg: StructCoefMG, state, r: torch.Tensor, sweeps: int,
+                 pdt: Optional[torch.dtype]) -> torch.Tensor:
+    """The Darcy preconditioner's cycle: struct_v_cycle in the state's
+    dtype `pdt` (None: r's own), the result in r's dtype."""
+    return in_precision(lambda x: struct_v_cycle(mg, state, x, sweeps=sweeps), r, pdt)
+
+
+# -- the cycle as a CUDA graph -------------------------------------------------
+
+
+def _graphable(r: torch.Tensor) -> bool:
+    """May a cycle on r run as a graph: r on a card, and no capture under
+    way on its stream (a cycle inside someone else's capture is captured
+    there, eagerly)."""
+    return r.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+
+def _warm_up(fn: Callable[[], torch.Tensor], device: torch.device) -> None:
+    """One eager run of fn on a side stream of `device` before its
+    capture, as torch.cuda.graphs asks: lazy set-up happens outside the
+    capture."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+
+
+def _capture_graph(fn: Callable[[], torch.Tensor], device: torch.device):
+    """fn() captured into a new CUDA graph on `device`: (the graph, fn's
+    output, which every replay rewrites). The capture runs no kernel."""
+    with torch.cuda.device(device):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+    return graph, out
+
+
+def _state_tensors(state):
+    if isinstance(state, torch.Tensor):
+        yield state
+    else:
+        for s in state:
+            yield from _state_tensors(s)
+
+
+def _empty_like_state(state):
+    if isinstance(state, torch.Tensor):
+        return torch.empty_like(state)
+    return type(state)(_empty_like_state(s) for s in state)
+
+
+class GraphedVCycle:
+    """struct_cycle(mg, state, r, sweeps, pdt) as one CUDA graph, for one
+    shape and dtype of r and one of the state: static copies of the state
+    (`load` puts a solve's in them) and of r, and the graph with its
+    output. A call copies r in, replays and returns a clone of the output
+    (the caller may keep it across the next call: pcg's first p is its z).
+    K1 launches that the capture recorded are added to the `kernel`
+    counters at each replay, not at the capture, which launched nothing."""
+
+    def __init__(self, mg: StructCoefMG, state, r: torch.Tensor, sweeps: int,
+                 pdt: Optional[torch.dtype]):
+        self.state = _empty_like_state(state)
+        self.load(state)
+        self.r = torch.empty_like(r)
+        self.r.copy_(r)
+        fn = lambda: struct_cycle(mg, self.state, self.r, sweeps, pdt)
+        _warm_up(fn, r.device)
+        before = dict(_KERNEL)
+        self.graph, self.out = _capture_graph(fn, r.device)
+        self.launches = {k: v - before.get(k, 0) for k, v in _KERNEL.items()
+                         if v != before.get(k, 0)}
+        for k, n in self.launches.items():
+            _KERNEL[k] -= n
+        self.loaded_by = None  # the token of the solve whose state is loaded
+        _COEFMG["graph_captures"] += 1
+
+    def load(self, state) -> None:
+        """Copy a solve's state (struct_mg_setup's, cast) into the static one."""
+        for dst, src in zip(_state_tensors(self.state), _state_tensors(state)):
+            dst.copy_(src)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        with trace.span("coefmg.replay"):
+            self.r.copy_(r)
+            self.graph.replay()
+            for k, n in self.launches.items():
+                _KERNEL[k] += n
+            _COEFMG["graph_replays"] += 1
+            return self.out.clone()
+
+
+def cycle_key(mg: StructCoefMG, state, r: torch.Tensor, sweeps: int,
+              pdt: Optional[torch.dtype]) -> tuple:
+    """What a graphed cycle is captured for: the MG ladder and its settings,
+    the sweeps and state dtype, r's shape, dtype and device, and every
+    state tensor's shape and dtype (the stacked solve's state carries a
+    singleton right-hand-side axis that r fills with 2)."""
+    return (mg, int(sweeps), pdt, tuple(r.shape), r.dtype, r.device,
+            tuple((tuple(t.shape), t.dtype) for t in _state_tensors(state)))
+
+
+class VCycleGraphs:
+    """A solver's graphed cycles by `cycle_key`, least recently used
+    first (at most MAX_GRAPHS), and how many solves each key has seen.
+    Kept by the solver, so graphs outlive the managers."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, GraphedVCycle] = collections.OrderedDict()
+        self.solves: Dict[tuple, int] = {}
+        self._tokens = itertools.count()
+
+    def cycle(self, mg: StructCoefMG, state, sweeps: int,
+              pdt: Optional[torch.dtype]) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The cycle r -> struct_cycle(mg, state, r, sweeps, pdt) of one
+        solve: eager where `_graphable` says no and on a key's first solve;
+        the key's graph is captured on the first call of its second solve
+        and replayed after that, with this solve's state loaded once."""
+        token = next(self._tokens)
+        keys: Dict[tuple, tuple] = {}  # this solve's keys by r's shape, dtype, device
+
+        def run(r: torch.Tensor) -> torch.Tensor:
+            if not _graphable(r):
+                _COEFMG["eager_cycles"] += 1
+                return struct_cycle(mg, state, r, sweeps, pdt)
+            rk = (r.shape, r.dtype, r.device)
+            key = keys.get(rk)
+            if key is None:
+                key = keys[rk] = cycle_key(mg, state, r, sweeps, pdt)
+                self.solves[key] = self.solves.get(key, 0) + 1
+            graph = self.graphs.get(key)
+            if graph is None:
+                if self.solves[key] < CAPTURE_AT_SOLVE:
+                    _COEFMG["eager_cycles"] += 1
+                    return struct_cycle(mg, state, r, sweeps, pdt)
+                if len(self.graphs) >= MAX_GRAPHS:
+                    self.graphs.popitem(last=False)
+                graph = self.graphs[key] = GraphedVCycle(mg, state, r, sweeps, pdt)
+                graph.loaded_by = token
+            else:
+                self.graphs.move_to_end(key)
+                if graph.loaded_by != token:
+                    graph.load(state)
+                    graph.loaded_by = token
+            return graph(r)
+
+        return run

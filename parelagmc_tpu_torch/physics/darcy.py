@@ -22,7 +22,8 @@ Solvers and preconditioners, by config.darcy_solver.name:
   cell;
 * "cg-schur-coefmg": the per-sample Galerkin Schur multigrid, rebuilt from
   this sample's masked mass diagonal: the slicing form on tensor meshes
-  (ops/coef_multigrid_structured.py) or, with coefmg_impl="gather", the
+  (ops/coef_multigrid_structured.py; on a card its cycle replays as a CUDA
+  graph from a shape's second solve on) or, with coefmg_impl="gather", the
   generic gather form (ops/coef_multigrid.py); optionally with a bfloat16
   state (`coefmg_prec_dtype`), composed cycles and line smoothing on K1;
 * "minres-bj": block-diagonal preconditioned MINRES on the saddle system
@@ -85,14 +86,15 @@ from parelagmc_tpu_torch.ops.coef_multigrid import (
     coef_mg_dinvs,
     coef_mg_idiags,
     coef_v_cycle,
+    in_precision,
 )
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import (
+    VCycleGraphs,
     build_struct_coef_mg,
     cast_state,
     parse_line_axes,
     struct_mg_setup,
     struct_s_apply,
-    struct_v_cycle,
 )
 from parelagmc_tpu_torch.ops.ell import (
     CoefELL,
@@ -287,6 +289,9 @@ class DarcySolver:
         self.device = resolve_device(device)
         self.solver_cfg = config.darcy_solver
         self._mf_cache = {}  # per-level mean-field iterates (meanfield_x0)
+        # The structured coefMG's cycles as CUDA graphs, by shape: here, so
+        # they outlive the managers that solve through this solver.
+        self._vcycle_graphs = VCycleGraphs()
         d = hierarchy.levels[0].dim
         nb = 2 * d
         ess_attr = np.asarray(config.ess_attr[:nb], dtype=np.int64)
@@ -675,16 +680,18 @@ class DarcySolver:
                     dinvs = [t.to(pdt) for t in dinvs]
                     idiags = [t.to(pdt) for t in idiags]
                 v = lambda r: coef_v_cycle(mg, dinvs, r, nsw, idiags=idiags)
+                # Reduced-precision preconditioner state: the V-cycle runs
+                # in pdt, the CG in the solve dtype.
+                cycle = lambda r: in_precision(v, r, pdt)
                 s_fine = lambda z: _s_apply(mg.levels[0], dinvs[0], z)
             else:
                 state = struct_mg_setup(mg, dinv0)
                 if pdt is not None:
                     state = cast_state(state, pdt)
-                v = lambda r: struct_v_cycle(mg, state, r, sweeps=nsw)
+                # The same cycle (in pdt, back in the solve dtype), replayed
+                # as a CUDA graph on a card from the shape's second solve.
+                cycle = self._vcycle_graphs.cycle(mg, state, nsw, pdt)
                 s_fine = lambda z: struct_s_apply(mg, state, z)
-            # Reduced-precision preconditioner state: the V-cycle runs in
-            # pdt, the CG in the solve dtype.
-            cycle = v if pdt is None else (lambda r: v(r.to(pdt)).to(r.dtype))
             ncyc = max(1, int(getattr(cfg, "coefmg_cycles", 1)))
             if ncyc == 1:
                 return cycle

@@ -18,8 +18,10 @@ what the buffer holds, `reset()` empties it.
 Counters are plain integer adds, always on, in named groups of a dict
 each: `kernel` (the launches of the CUDA kernels; the dict is
 `kernels.launch_counts`), `krylov` (`iterations`, loop trips;
-`restarts`), `host_syncs` (one per entry of a `wait` site, by site) and
-`trace` (`dropped`). `counter_values()` flattens them to `group.name`.
+`restarts`), `host_syncs` (one per entry of a `wait` site, by site),
+`coefmg` (the structured V-cycle's `graph_captures`, `graph_replays`,
+`eager_cycles`; ops/coef_multigrid_structured.py) and `trace` (`dropped`).
+`counter_values()` flattens them to `group.name`.
 
 PARELAGMC_BATCH_TRACE=1 (read once, at import) also makes the manager
 print one stderr line per batch from its `mlmc.batch` span
@@ -58,6 +60,7 @@ def counter_values() -> Dict[str, int]:
 
 
 _KRYLOV = counters("krylov", ("iterations", "restarts"))
+_COEFMG = counters("coefmg", ("graph_captures", "graph_replays", "eager_cycles"))
 _SYNCS = counters("host_syncs")
 _TRACE = counters("trace", ("dropped",))
 
