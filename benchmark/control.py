@@ -13,11 +13,11 @@ Modes:
   TF32 path switched on (`torch.backends.cuda.matmul.allow_tf32`): it
   reaches the SPDE field's matmuls;
 * bf16: the control that reaches the Darcy solve, which has no matmul for
-  TF32 to change: the reference's own CG with its values in bfloat16
-  (`verify.solver_for`) stands in the program's place for the checked
-  samples;
-* stale, half, altered: the faults of benchmark/faults.py, planted where
-  the Q values are produced (altered: 5 %).
+  TF32 to change: the kind's check with `control` on, where the
+  reference's own CG with its values in bfloat16 (`verify.solver_for`)
+  stands in the program's place for the checked samples;
+* stale, half, altered: the faults of benchmark/faults.py, planted by the
+  kind where its answers are produced (altered: 5 %).
 
 Each run drives the cell's mix for S seconds at the cell's own sizes, then
 makes the check of a benchmark run, and prints one JSON line: mode, seed,
@@ -65,7 +65,6 @@ def main(argv=None) -> int:
     import drive
     import faults
     import verify
-    from reference.problem import ReferenceProblem
 
     if not torch.cuda.is_available():
         sys.exit("control: needs a CUDA card")
@@ -73,27 +72,27 @@ def main(argv=None) -> int:
     limits = harness.load_json(os.path.join(HERE, "limits", args.workload + ".json"))
     check_spec = spec["traffic"]["check"]
     dev = torch.device("cuda:0")
-    built = drive.build(spec["config"], spec["traffic"], dev)
+    kind = harness.load_kind(spec["traffic"]["kind"])
+    built = kind.build(spec["config"], spec["traffic"], dev)
     state = {"mode": "program"}
-    faults.install(built["problem"],
-                   lambda: state["mode"] if state["mode"] in faults.FAULTS else None)
-    rec = drive.Recorder(built["problem"].sampler, built["problem"].solver, False, dev)
-    ref = ReferenceProblem(spec["config"], kinv=built["kinv"])
-    bf16 = verify.solver_for(dev, storage="bfloat16")
+    kind.plant(built["problem"],
+               lambda: state["mode"] if state["mode"] in faults.FAULTS else None)
+    rec = drive.Recorder(False, dev)
+    kind.instrument(rec, built)
+    ref = kind.reference(spec["config"], built["kinv"])
     for n, (mode, seed) in enumerate(runs):
         state["mode"] = mode
         torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
         torch.backends.cudnn.allow_tf32 = mode == "tf32"
-        rec.calls.clear(), rec.keys.clear(), rec.solves.clear(), rec.fields.clear()
-        traffic = drive.Traffic(built, spec["traffic"], seed, rec)
-        rec.keep_fields = verify.field_ordinals(check_spec, seed)
+        rec.clear()
+        traffic = kind.Traffic(built, spec["traffic"], seed, rec)
+        rec.keep_fields = kind.field_ordinals(check_spec, seed)
         if n == 0:
             traffic.warm()
         drive.run_window(traffic, args.seconds)
         t0 = time.perf_counter()
-        res = verify.check(spec["config"], built["kinv"], rec, traffic, check_spec,
-                           verify.manager_sum(traffic), device=dev, ref=ref,
-                           control=bf16 if mode == "bf16" else None)
+        res = kind.check(spec["config"], built["kinv"], rec, kind.keep(traffic), check_spec,
+                         device=dev, ref=ref, control=mode == "bf16")
         correct, _ = verify.judge(res["numbers"], limits)
         print(json.dumps({"mode": mode, "seed": seed, "numbers": res["numbers"],
                           "correct": correct, "checked": res["checked"],

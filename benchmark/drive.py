@@ -1,32 +1,29 @@
-"""The one general generator: builds a configuration's problem through the
-port's own entry points and drives the managers as a traffic mix asks.
+"""What every traffic-mix kind shares: the port's problem of a
+configuration file, the `Recorder` that instruments the objects the program
+is handed, and the window that runs a kind's units.
 
-A traffic file (benchmark/traffic/<mix>.json) gives `kind` and its
-parameters:
+A mix's `kind` names a module `benchmark/kinds/<kind>.py` (loaded by
+`harness.load_kind`) that builds the problem, tells the `Recorder` which of
+the port's methods to wrap, runs the units, plants the faults and makes the
+check; see `harness.KIND_EXPORTS`. Every mix is a closed loop: the next
+unit starts when the last has returned. The window runs units until
+`seconds` have passed and ends with the last unit begun before then.
 
-* "level_steps" (`level`, `batch`): back-to-back batches of one MLMC level
-  step through `MLMCManager.init_run`, the manager keyed from the run's
-  seed; one unit is one batch.
-
-Every mix is a closed loop: the next unit starts when the last has
-returned. The window runs units until `seconds` have passed and ends with
-the last unit begun before then.
-
-`Recorder` wraps the sampler's and the solver's methods on the objects the
-manager is handed (instance attributes, no file of the port changes): it
-keeps each batch's key, Q values and solver info for the check, and in a
-traced run a synchronized span around each call (also a profiler range
-named `bench.<span>`).
+`Recorder.wrap` replaces a method on an object (an instance attribute, no
+file of the port changes): in a traced run a synchronized span around each
+call (also a profiler range named `bench.<span>`), and after each call a
+hook that keeps what the check and the metric readers need: the noise keys
+and kept fields (`wrap_sampler`), every solve's iterations (`on_solve`),
+and the top-level calls, one a batch.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import os
 import time
 from contextlib import nullcontext
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -63,32 +60,28 @@ def permeability(spec: dict) -> Optional[np.ndarray]:
     return 1.0 / mod.permeability(tuple(perm["ncells"]), int(perm["seed"]))
 
 
-def build(spec: dict, traffic: dict, device) -> dict:
-    """The port's problem for a configuration and mix: config, problem and
-    the static inverse permeability (on the original axes)."""
-    from parelagmc_tpu_torch.problems import build_problem
+def build_problem(spec: dict, device, **overrides) -> dict:
+    """The port's problem for a configuration file: `config`, `problem`
+    (the port's `build_problem` result) and `kinv`, the static inverse
+    permeability on the original axes, or None. `overrides` go to the
+    ProblemConfig."""
+    from parelagmc_tpu_torch.problems import build_problem as port_build
 
-    if traffic["kind"] != "level_steps":
-        raise ValueError(f"unknown traffic kind {traffic['kind']!r}")
-    overrides = {"batch_size": int(traffic["batch"])}
-    if spec["problem"].get("batch_size_per_level"):
-        bpl = list(spec["problem"]["batch_size_per_level"])
-        bpl[traffic["level"]] = int(traffic["batch"])
-        overrides = {"batch_size_per_level": bpl}
     cfg = problem_config(spec, **overrides)
     kinv = permeability(spec)
-    prob = build_problem(cfg, kinv_ref=kinv, device=device)
+    prob = port_build(cfg, kinv_ref=kinv, device=device)
     return {"config": prob.config, "problem": prob, "kinv": kinv}
 
 
 class Recorder:
-    """Instruments the sampler and solver objects a manager is handed."""
+    """Instruments the objects a program is handed; a kind chooses what it
+    wraps (`wrap`, `wrap_sampler`) and with which hooks."""
 
-    def __init__(self, sampler, solver, traced: bool, device="cpu"):
+    def __init__(self, traced: bool, device="cpu"):
         self.traced = traced
         self.device = device
         self.spans: List[tuple] = []  # (name, t0, t1, depth, unit)
-        self.calls: List[dict] = []  # top-level solves: level, q, qc, conv, iters
+        self.calls: List[dict] = []  # top-level calls, one a batch: unit, level, ... (the kind's)
         self.solves: List[tuple] = []  # every solve: unit, level, iterations, unconverged
         self.keys: List[tuple] = []  # (unit, level, key)
         # Fields w = exp(s) the sampler returned after the noise draws of
@@ -99,13 +92,12 @@ class Recorder:
         self.unit = -1
         self.depth = 0
         self.active = True
-        self._wrap(sampler, "sample", "sampler", self._on_sample)
-        self._wrap(sampler, "eval", "sampler", self._on_eval)
-        if hasattr(sampler, "eval_pair"):
-            self._wrap(sampler, "eval_pair", "sampler", self._on_eval_pair)
-        self._wrap(solver, "solve_fwd_pair", "darcy", self._on_pair)
-        self._wrap(solver, "solve_fwd", "solve", self._on_solve)
-        self._wrap(solver, "solve_fwd_warm", "solve", self._on_solve)
+
+    def clear(self) -> None:
+        """Forget what the last window recorded."""
+        for records in (self.spans, self.calls, self.solves, self.keys, self.fields):
+            records.clear()
+        self._noise.clear()
 
     def span(self, name: str):
         """A synchronized host span (and profiler range) when traced."""
@@ -113,14 +105,15 @@ class Recorder:
             return nullcontext()
         return _Span(self, name)
 
-    def _wrap(self, obj, method: str, span: str, hook: Optional[Callable] = None) -> None:
+    def wrap(self, obj, method: str, span: Union[str, Callable[[tuple], str]],
+             hook: Optional[Callable] = None) -> None:
+        """Replace obj.method by a call inside the span `span` (or the name
+        `span(args)` gives) that then passes (args, kwargs, output) to
+        `hook` while the recorder is active."""
         inner = getattr(obj, method)
 
         def wrapped(*args, **kwargs):
-            name = span
-            if span == "solve":  # solve.L<level>.b<batch>: the shape K1 ran at
-                w = args[1]
-                name = f"solve.L{args[0]}.b{w.numel() // w.shape[-1]}"
+            name = span if isinstance(span, str) else span(args)
             self.depth += 1
             try:
                 with self.span(name):
@@ -133,12 +126,20 @@ class Recorder:
 
         setattr(obj, method, wrapped)
 
-    def _on_sample(self, args, kwargs, out) -> None:
+    def wrap_sampler(self, sampler) -> None:
+        """The SPDE sampler's draws (keys) and evaluations (kept fields),
+        in the span `sampler`."""
+        self.wrap(sampler, "sample", "sampler", self.on_sample)
+        self.wrap(sampler, "eval", "sampler", self.on_eval)
+        if hasattr(sampler, "eval_pair"):
+            self.wrap(sampler, "eval_pair", "sampler", self.on_eval_pair)
+
+    def on_sample(self, args, kwargs, out) -> None:
         level, key = args[0], args[1]
         self._noise[id(out)] = len(self.keys)
         self.keys.append((self.unit, int(level), (int(key[0]), int(key[1]))))
 
-    def _on_eval(self, args, kwargs, out) -> None:
+    def on_eval(self, args, kwargs, out) -> None:
         ordinal = self._noise.get(id(args[1]))
         if ordinal in self.keep_fields:
             level = int(args[0])
@@ -146,27 +147,29 @@ class Recorder:
             self.fields.append((ordinal, level, level if xi_level is None else int(xi_level),
                                 out))
 
-    def _on_eval_pair(self, args, kwargs, out) -> None:
+    def on_eval_pair(self, args, kwargs, out) -> None:
         ordinal = self._noise.get(id(args[1]))
         if ordinal in self.keep_fields:
             level = int(args[0])
             self.fields.append((ordinal, level, level, out[0]))
             self.fields.append((ordinal, level + 1, level, out[1]))
 
-    def _on_pair(self, args, kwargs, out) -> None:
-        q, qc, info_f, info_c = out
-        if self.depth == 0:
-            self.calls.append(dict(unit=self.unit, level=int(args[0]), q=q, qc=qc,
-                                   conv=info_f.converged & info_c.converged,
-                                   iters=info_f.iterations + info_c.iterations))
-
-    def _on_solve(self, args, kwargs, out) -> None:
+    def on_solve(self, args, kwargs, out) -> None:
+        """A Darcy solve's (Q, cost, info, ...): its iterations, and at the
+        top level a call of its own."""
         info = out[2]
         self.solves.append((self.unit, int(args[0]), int(info.iterations),
                             int((~info.converged).sum())))
         if self.depth == 0:
             self.calls.append(dict(unit=self.unit, level=int(args[0]), q=out[0], qc=None,
                                    conv=info.converged, iters=int(info.iterations)))
+
+
+def solve_span(args) -> str:
+    """solve.L<level>.b<batch> of a solve's (level, w, ...): the shape K1
+    ran at."""
+    w = args[1]
+    return f"solve.L{args[0]}.b{w.numel() // w.shape[-1]}"
 
 
 class _Span:
@@ -193,52 +196,7 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-class Traffic:
-    """A mix's units on one problem: `warm()` runs every shape once (out of
-    band, not recorded), `unit(k)` runs the k-th unit of the window and
-    returns the samples it completed."""
-
-    def __init__(self, built: dict, traffic: dict, seed: int, rec: Recorder):
-        self.prob = built["problem"]
-        self.cfg = built["config"]
-        self.seed = int(seed)
-        self.rec = rec
-        self.level = int(traffic["level"])
-        self.batch = int(traffic["batch"])
-        self.mgr = self._manager(self.seed)
-
-    def _manager(self, seed: int):
-        from parelagmc_tpu_torch.uq import MLMCManager
-
-        return MLMCManager(self.prob.solver, self.prob.sampler,
-                           dataclasses.replace(self.cfg, seed=int(seed)))
-
-    def counts(self) -> List[int]:
-        n = [0] * self.cfg.nlevels
-        n[self.level] = self.batch
-        return n
-
-    def warm(self) -> None:
-        """Two batches of the level step (the first builds state at first
-        use), keyed out of band; the recorder is off."""
-        self.rec.active = False
-        try:
-            mgr = self._manager(self.seed + 2 ** 40)
-            for _ in range(2):
-                mgr.init_run(self.counts())
-            sync(self.prob.device)
-        finally:
-            self.rec.active = True
-
-    def unit(self, k: int) -> int:
-        """Run unit k; the samples it completed."""
-        self.rec.unit = k
-        with self.rec.span("unit"):
-            self.mgr.init_run(self.counts())
-        return self.batch
-
-
-def run_window(traffic: Traffic, seconds: float, profile_units: int = 0) -> dict:
+def run_window(traffic, seconds: float, profile_units: int = 0) -> dict:
     """Units back to back until `seconds` have passed. With profile_units
     > 0 the first that many units run under torch.profiler. Returns the
     units' (t0, t1, samples) and the profiler, if any."""

@@ -1,12 +1,13 @@
 """Faults planted in the timed path, for the harness's tests and the
-control's readings. Each wraps the solver's `solve_fwd_pair`, where a
-batch's Q values are produced:
+control's readings. A kind's `plant` names the method that produces its
+answers and which output they are; `install` wraps it so that:
 
-* "stale": every batch returns the first batch's values (a step that
+* "stale": every call returns the first call's output (a step that
   returns its state unchanged);
-* "half": the second half of each batch's Q replaced by the mean of the
-  first half (half of the batch left out, the mean taken over the rest);
-* "altered": every Q times 1 + `rel` (an answer altered where it is
+* "half": the second half of the batch's answers replaced by the mean of
+  the first half (half of the batch left out, the mean taken over the
+  rest);
+* "altered": every answer times 1 + `rel` (an answer altered where it is
   produced).
 
 One card has no exchange between chips to leave out.
@@ -19,29 +20,31 @@ from typing import Callable, Optional
 FAULTS = ("stale", "half", "altered")
 
 
-def install(problem, fault: Callable[[], Optional[str]], rel: float = 0.05) -> None:
-    """Wrap the problem's solver; `fault()` names the fault in force at
-    each call, or None."""
-    solver = problem.solver
-    inner = solver.solve_fwd_pair
+def install(obj, method: str, fault: Callable[[], Optional[str]], index: int = 0,
+            rel: float = 0.05) -> None:
+    """Wrap obj.method, whose output's item `index` holds a batch's
+    answers; `fault()` names the fault in force at each call, or None."""
+    inner = getattr(obj, method)
     first = []
 
-    def pair(*args, **kwargs):
+    def faulty(*args, **kwargs):
         out = inner(*args, **kwargs)
         name = fault()
+        if name is None:
+            return out
         if name == "stale":
             if not first:
                 first.append(out)
             return first[0]
-        q, qc, info_f, info_c = out
+        x = out[index]
         if name == "half":
-            n = q.shape[0] // 2
-            q = q.clone()
-            q[n:] = q[:n].mean()
+            n = x.shape[0] // 2
+            x = x.clone()
+            x[n:] = x[:n].mean()
         elif name == "altered":
-            q = q * (1.0 + rel)
-        elif name is not None:
+            x = x * (1.0 + rel)
+        else:
             raise ValueError(f"unknown fault {name!r}")
-        return q, qc, info_f, info_c
+        return out[:index] + (x,) + out[index + 1:]
 
-    solver.solve_fwd_pair = pair
+    setattr(obj, method, faulty)

@@ -2,9 +2,12 @@
 
 `BENCHMARK.json` (at the root of the checkout) names the cells; a cell's
 configuration is `benchmark/configs/<config>.json`, its traffic mix
-`benchmark/traffic/<traffic>.json`, and every metric a reader
-`benchmark/metrics/<metric>.py` with `read(run) -> float | None`. A later
-cell, mix or metric is a new file and a new entry; no file here changes.
+`benchmark/traffic/<traffic>.json`, its limits `benchmark/limits/<cell>.json`,
+every metric a reader `benchmark/metrics/<metric>.py` with
+`read(run) -> float | None`, and the `kind` a mix names a module
+`benchmark/kinds/<kind>.py` with the exports of `KIND_EXPORTS`. A later
+cell, mix, kind or metric is a new file and a new entry; no file here
+changes.
 """
 
 from __future__ import annotations
@@ -20,6 +23,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 # Top-level module names that may not be loaded in a run (compared whole).
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "parelagmc_tpu")
+# What the module of a traffic kind (benchmark/kinds/<kind>.py) exports:
+# build(config, mix, device) -> {"config", "problem" (the port's build_problem
+#     result), "kinv"};
+# instrument(recorder, built): the port's methods the drive.Recorder wraps;
+# Traffic(built, mix, seed, recorder): warm(), unit(k) -> samples completed;
+# field_ordinals(check, seed): the noise draws whose fields are kept;
+# keep(traffic) -> what the check needs of the program's state, taken
+#     before that state is released;
+# plant(problem, fault, rel): faults.FAULTS where the kind's answers are made;
+# reference(config, kinv): the plain reference, built once;
+# check(config, kinv, recorder, kept, check, device, ref=None, control=False)
+#     -> {"numbers", "attempted", "failed", "checked"}; with `control`, the
+#     control of benchmark/control.py stands in the program's place.
+KIND_EXPORTS = ("build", "instrument", "Traffic", "field_ordinals", "keep", "plant",
+                "reference", "check")
 
 
 def load_json(path: str) -> dict:
@@ -70,6 +88,21 @@ def load_reader(name: str, bench_dir: str = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def load_kind(name: str, bench_dir: str = HERE):
+    """The module benchmark/kinds/<name>.py of a traffic kind, checked for
+    the exports of KIND_EXPORTS."""
+    path = os.path.join(bench_dir, "kinds", name + ".py")
+    if not os.path.exists(path):
+        raise ValueError(f"unknown traffic kind {name!r}: no {path}")
+    spec = importlib.util.spec_from_file_location("kind_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [e for e in KIND_EXPORTS if not callable(getattr(mod, e, None))]
+    if missing:
+        raise ValueError(f"traffic kind {name!r} lacks {', '.join(missing)}")
+    return mod
 
 
 def forbidden_loaded(modules=None) -> List[str]:

@@ -5,11 +5,12 @@ CUDA card.
     python3 benchmark/run.py --workload NAME --seed N --seconds S --trace 0|1
 
 From the root of a checkout. The cell, its configuration and its traffic
-mix come from BENCHMARK.json and the files it names under benchmark/. The
+mix come from BENCHMARK.json and the files it names under benchmark/; the
+mix's `kind` names the module under benchmark/kinds/ that drives it. The
 run builds the problem through the port's `build_problem`, warms every
 shape the mix uses (set-up), runs the mix for S seconds, then checks a
-sample of what the window produced against the plain reference
-(benchmark/verify.py). Untraced it prints the cell's end-to-end metrics,
+sample of what the window produced against the plain reference (the
+kind's `check`). Untraced it prints the cell's end-to-end metrics,
 traced (`--trace 1`: synchronized spans, torch.profiler over the first
 units) its per-layer metrics. Standard error ends with each compared
 number beside its limit; the last line of standard output is one JSON
@@ -56,7 +57,7 @@ def device_of(torch, chips: int, need_card: bool):
 
 def main(argv=None, need_card: bool = True, patch=None) -> int:
     """One run. `need_card=False` runs on the CPU (the harness's tests);
-    `patch(problem)` may replace parts of the built program (its fault
+    `patch(kind, built)` may replace parts of the built program (its fault
     tests)."""
     args = parse(argv)
     age = harness.process_age()
@@ -74,13 +75,14 @@ def main(argv=None, need_card: bool = True, patch=None) -> int:
     import verify
 
     dev = device_of(torch, int(cell["chips"]), need_card)
-    built = drive.build(config, traffic_spec, dev)
+    kind = harness.load_kind(traffic_spec["kind"])
+    built = kind.build(config, traffic_spec, dev)
     if patch is not None:
-        patch(built["problem"])
-    rec = drive.Recorder(built["problem"].sampler, built["problem"].solver, bool(args.trace),
-                         dev)
-    traffic = drive.Traffic(built, traffic_spec, args.seed, rec)
-    rec.keep_fields = verify.field_ordinals(traffic_spec["check"], args.seed)
+        patch(kind, built)
+    rec = drive.Recorder(bool(args.trace), dev)
+    kind.instrument(rec, built)
+    traffic = kind.Traffic(built, traffic_spec, args.seed, rec)
+    rec.keep_fields = kind.field_ordinals(traffic_spec["check"], args.seed)
     traffic.warm()
     drive.sync(dev)
     setup_s = time.perf_counter() - t_proc0
@@ -120,16 +122,14 @@ def main(argv=None, need_card: bool = True, patch=None) -> int:
               file=sys.stderr)
 
     # The program's state goes before the reference runs.
-    manager_sum = verify.manager_sum(traffic)
+    kept = kind.keep(traffic)
     kinv = built["kinv"]
-    del traffic.prob, built
-    traffic.mgr = None
+    del traffic, built
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    res = verify.check(config, kinv, rec, traffic, traffic_spec["check"], manager_sum,
-                       device=dev)
+    res = kind.check(config, kinv, rec, kept, traffic_spec["check"], device=dev)
     correct, checks = verify.judge(res["numbers"], limits)
     print(f"# check: {time.perf_counter() - t_check:.1f} s, samples checked "
           f"{res['checked']}, power {harness.power_limit()}", file=sys.stderr)

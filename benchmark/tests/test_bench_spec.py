@@ -61,7 +61,10 @@ def test_names_units_and_entry_keys():
 @pytest.mark.parametrize("cell", [w["name"] for w in B["workloads"]])
 def test_every_cell_has_its_files_and_metrics(cell):
     spec = harness.cell_spec(B, cell)
-    assert spec["traffic"]["kind"] == "level_steps"
+    kind = spec["traffic"]["kind"]
+    assert os.path.exists(os.path.join(harness.HERE, "kinds", kind + ".py"))
+    mod = harness.load_kind(kind)  # raises where an export is missing
+    assert all(callable(getattr(mod, e)) for e in harness.KIND_EXPORTS)
     assert os.path.exists(os.path.join(harness.HERE, "limits", cell + ".json"))
     e2e = [m["name"] for m in harness.cell_metrics(B, cell, False)]
     assert "setup_s" in e2e and len(e2e) >= 2

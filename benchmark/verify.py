@@ -1,32 +1,25 @@
-"""The comparison that decides `correct`: what the timed path produced,
-against the plain reference (benchmark/reference/), once the window has
-closed.
+"""The comparison that decides `correct`, as far as every traffic-mix kind
+shares it: the plain reference's Darcy solve (`solver_for`), the key of
+MLMC's schedule, the picks of batches and rows, the field, Q and sum gaps,
+and the judgement against a cell's limits (benchmark/limits/<cell>.json).
+Each kind's `check` (benchmark/kinds/<kind>.py) says which numbers it
+compares, on what the timed path produced, once the window has closed:
 
-Numbers compared (each against the limit in benchmark/limits/<cell>.json):
-
-* `field_gap`: the widest relative gap |w - w_ref| / w_ref of the SPDE
-  coefficient fields w = exp(s) the sampler returned for a few noise draws
-  (fine and coarse), drawn from the seed, over `rows` rows of each, drawn
-  from the seed: the K2 noise and the field.
-* `q_mean_gap`: the mean relative gap |Q - Q_ref| / |Q_ref| over `rows`
-  rows (all, where a batch has no more) of `batches` of the window's
-  batches, fine and coarse Q of each pair: the batch that took the most
-  Krylov iterations and others drawn from the seed. The reference draws
-  the noise from its own copy of the threefry stream with the key the
-  manager's schedule gives, makes the SPDE field and solves the Darcy
-  system itself. `q_gap`, the widest of those gaps, is reported beside
-  it; a cell compares what its limits file names.
-* `key_miss`: batches whose key is not the schedule's,
-  fold_in(fold_in(PRNGKey(seed), level), counter).
-* `sum_gap`: the relative gap between what the manager formed from the
-  per-sample values (its level sum of Y = Q - Q_c) and the same formed
-  from the values the solver returned.
-* `nonfinite`: samples whose Q is not finite.
+* `field_gap` (`field_gap`): the widest relative gap |w - w_ref| / w_ref of
+  the SPDE coefficient fields w = exp(s) the sampler returned for a few
+  noise draws (`field_ordinals`), over rows drawn from the seed: the K2
+  noise and the field. The reference draws the noise from its own copy of
+  the threefry stream (reference/threefry.py) with the key of the draw.
+* Q gaps (`compare`): |Q - Q_ref| / |Q_ref| over picked rows of picked
+  batches (`choose`), the reference making the field and solving the
+  Darcy system itself.
+* `sum_gap` (`sum_gap`): what the program formed from the per-sample
+  values against the same formed from the values it returned.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -44,17 +37,9 @@ def host(x) -> np.ndarray:
 
 
 def schedule_key(seed: int, level: int, counter: int):
+    """The key of an MLMC manager's batch: fold_in(fold_in(PRNGKey(seed),
+    level), counter), the counter from 1."""
     return threefry.fold_in(threefry.fold_in(threefry.prng_key(seed), level), counter)
-
-
-def batches_of(rec, traffic) -> List[dict]:
-    """The window's batches in order: level, key, q, qc, converged, the
-    manager seed and counter the schedule gives them (one manager over the
-    whole window: one counter)."""
-    return [dict(unit=unit, level=call["level"], key=key, seed=traffic.seed, counter=i + 1,
-                 q=host(call["q"]), qc=None if call["qc"] is None else host(call["qc"]),
-                 conv=host(call["conv"]).astype(bool), iters=call["iters"])
-            for i, (call, (unit, level, key)) in enumerate(zip(rec.calls, rec.keys))]
 
 
 def choose(batches: List[dict], nbatches: int, nrows: int, rng) -> List[tuple]:
@@ -75,12 +60,13 @@ def choose(batches: List[dict], nbatches: int, nrows: int, rng) -> List[tuple]:
 def compare(ref: ReferenceProblem, batches: List[dict], picks: List[tuple], solve: Callable,
             prec: Precision, control: Optional[Callable] = None) -> tuple:
     """(widest, mean) of |Q - Q_ref| / |Q_ref| over the picked rows, fine
-    and coarse. With `control`, the reference solved by it stands in the
+    (`q`) and coarse (`qc`, or None), of batches drawn with the key
+    `schedule`. With `control`, the reference solved by it stands in the
     program's place."""
     gaps = []
     for i, rows in picks:
         b = batches[i]
-        key = schedule_key(b["seed"], b["level"], b["counter"])
+        key = b["schedule"]
         for level, got in ((b["level"], b["q"]), (b["level"] + 1, b["qc"])):
             if got is None:
                 continue
@@ -92,43 +78,11 @@ def compare(ref: ReferenceProblem, batches: List[dict], picks: List[tuple], solv
     return float(np.max(gaps)), float(np.mean(gaps))
 
 
-def sum_gap(batches: List[dict], manager_sum: float) -> float:
-    """The manager's level sum of Y against the same formed here."""
-    y = sum(float(np.sum(b["q"] - (0.0 if b["qc"] is None else b["qc"]))) for b in batches)
-    return abs(float(manager_sum) - y) / max(abs(y), 1e-300)
-
-
-def check(spec: dict, kinv: Optional[np.ndarray], rec, traffic, check_spec: dict,
-          manager_sum: float, device="cpu", ref: Optional[ReferenceProblem] = None,
-          control: Optional[Callable] = None) -> dict:
-    """The compared numbers of a run, and the counts of the result line;
-    the reference computes on `device`."""
-    batches = batches_of(rec, traffic)
-    keys_ok = [tuple(b["key"]) == schedule_key(b["seed"], b["level"], b["counter"])
-               for b in batches]
-    rng = np.random.default_rng(int(traffic.seed) % 2 ** 63)
-    picks = choose(batches, int(check_spec["batches"]), int(check_spec["rows"]), rng)
-    ref = ref or ReferenceProblem(spec, kinv=kinv)
-    prec = Precision(device=device)
-    q_gap, q_mean_gap = compare(ref, batches, picks, solver_for(device), prec, control)
-    f_gap = field_gap(rec, ref, int(check_spec["rows"]), traffic.seed, prec)
-    qs = [b["q"] for b in batches] + [b["qc"] for b in batches if b["qc"] is not None]
-    nonfinite = int(sum(np.sum(~np.isfinite(q)) for q in qs))
-    failed = int(sum(np.sum(~b["conv"] | ~np.isfinite(b["q"])) for b in batches))
-    return {
-        "numbers": {"field_gap": f_gap, "q_mean_gap": q_mean_gap, "q_gap": q_gap,
-                    "key_miss": int(len(keys_ok) - sum(keys_ok)),
-                    "sum_gap": sum_gap(batches, manager_sum),
-                    "nonfinite": nonfinite},
-        "attempted": int(sum(b["q"].size for b in batches)),
-        "failed": failed,
-        "checked": [(batches[i]["level"], len(rows)) for i, rows in picks],
-    }
-
-
-def manager_sum(traffic) -> float:
-    """What the manager formed: its level sum of Y."""
-    return float(traffic.mgr.sums[traffic.level, 0])
+def sum_gap(program_sum: float, parts: Iterable[float]) -> float:
+    """What the program formed (a sum over samples) against the same
+    formed here, the sum of `parts`, as a share of the latter."""
+    y = sum(parts)
+    return abs(float(program_sum) - y) / max(abs(y), 1e-300)
 
 
 def field_ordinals(check_spec: dict, seed: int) -> set:
