@@ -90,7 +90,8 @@ Phases, each printing one line (or block) before the last line:
              --refinements 1 --samples 8 --batch 8 --dtype float64 (the
              config from the port's twin, spe10_ratio_mlmc.build_config,
              pinned by tests/test_torch_examples.py) through
-             build_problem, BayesianInverseProblem and BayesRatioManager
+             build_problem, BayesianInverseProblem (the likelihood's
+             primal to the example's PRESSURE_RTOL) and BayesRatioManager
              on cg-schur-coefmg: ratio estimate within 2e-3 of 354.436,
              splitting estimate (the same moment table) within 2e-3 of
              350.767, 8 samples per level, E[Z] > 0.01. (The pins were taken
@@ -98,9 +99,10 @@ Phases, each printing one line (or block) before the last line:
 12. ratio  - the Bayesian ratio estimators on the full SPE10 grid, this
              slice's full width: phase 9's problem (its config carries the
              three wells of examples/spe10_ratio_mlmc.py, radius 30 ft),
-             observation data from one prior draw, the example's solver
-             canary (8 samples and one cold solve per level: converged
-             fraction 1.0 required), BayesRatioManager.init_run([8, 128,
+             observation data from one prior draw, the likelihood's
+             primal to the example's PRESSURE_RTOL, the example's solver
+             canary (8 samples and one likelihood solve per level:
+             converged fraction 1.0 required), BayesRatioManager.init_run([8, 128,
              512]) (one batch per level after a discarded warm-up batch),
              both estimates from the one moment table, show_me(), C_l,
              launches of K1 and K2, peak memory; finite estimates and
@@ -1684,7 +1686,8 @@ def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
     splitting run of the test draws the same stream), under `solver`; the
     pins were taken on "cg-schur" (phase 13a holds that run to `rtol`
     1e-3). The config is the port's twin's, spe10_ratio_mlmc.build_config,
-    whose settings tests/test_torch_examples.py pins."""
+    whose settings tests/test_torch_examples.py pins, and the likelihood's
+    pressure tolerance the example's, spe10_ratio_mlmc.PRESSURE_RTOL."""
     from parelagmc_tpu_torch import kernels
     from parelagmc_tpu_torch.examples import spe10_ratio_mlmc
     from parelagmc_tpu_torch.problems import build_problem
@@ -1694,7 +1697,8 @@ def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
     cfg, device, kinv, _ = spe10_ratio_mlmc.build_config(
         RATIO_ANCHOR_ARGV + ["--solver-opt", f"name={solver}", "--device", str(device)])
     prob = build_problem(cfg, kinv_ref=kinv, device=device)
-    bip = BayesianInverseProblem(prob.solver, prob.sampler, prob.config, prob.dtype)
+    bip = BayesianInverseProblem(prob.solver, prob.sampler, prob.config, prob.dtype,
+                                 pressure_rtol=spe10_ratio_mlmc.PRESSURE_RTOL)
     mgr = BayesRatioManager(bip, prob.config)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1704,7 +1708,8 @@ def phase_ratio_anchor(device, gpu: str, solver: str = "cg-schur-coefmg",
     launches = dict(kernels.launch_counts)
     ratio, splitting = mgr.estimate, float(mgr.E[:, YRATIO].sum())
     ez = mgr.E[:, Z].tolist()
-    print(f"SPE10 scaled ratio anchor (16x32x8, f64, {solver}, rtol 1e-6): observation "
+    print(f"SPE10 scaled ratio anchor (16x32x8, f64, {solver}, rtol 1e-6, the likelihood's "
+          f"primal to {spe10_ratio_mlmc.PRESSURE_RTOL:g}): observation "
           f"data {y.tolist()} ratio estimate {ratio:.6f} (pin {RATIO_ANCHOR['ratio']}) splitting "
           f"estimate {splitting:.6f} (pin {RATIO_ANCHOR['splitting']}) samples "
           f"{mgr.level_nsamples.tolist()} E[Z] {ez} run {dt:.2f} s launches {launches} [{gpu}]",
@@ -1727,14 +1732,17 @@ def phase_ratio_full(prob, device, gpu: str):
     import torch
 
     from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.examples import spe10_ratio_mlmc
     from parelagmc_tpu_torch.ops.prng import PRNGKey
     from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
     from parelagmc_tpu_torch.uq.ratio_managers import YRATIO, Z
+    from parelagmc_tpu_torch.utils import trace
 
     cfg = prob.config
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    bip = BayesianInverseProblem(prob.solver, prob.sampler, cfg, prob.dtype)
+    bip = BayesianInverseProblem(prob.solver, prob.sampler, cfg, prob.dtype,
+                                 pressure_rtol=spe10_ratio_mlmc.PRESSURE_RTOL)
     mgr = BayesRatioManager(bip, cfg)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1745,11 +1753,19 @@ def phase_ratio_full(prob, device, gpu: str):
           f"{[int((g > 0).sum()) for g in bip.g_obs[0]]}, observation data y = {y.tolist()} "
           f"({obs_s:.2f} s) [{gpu}]", flush=True)
     budget = mgr.solve_budget
+    extra = trace.counters("krylov")
     for level in range(cfg.nlevels):
-        conv, its, q = solver_canary(prob, level, 8, PRNGKey(99 + level), max_iters=budget)
+        # The example's canary: the likelihood's solve of 8 sampled fields.
+        xi = prob.sampler.sample(level, PRNGKey(99 + level), 8)
+        n0 = extra["extra_iterations"]
+        _, q, _, info = bip.compute_G(level, prob.sampler.eval(level, xi), max_iters=budget,
+                                      return_info=True)
+        conv, its = float(info.converged.float().mean()), int(info.iterations)
         print(f"SPE10 ratio full grid canary level {level}: converged fraction {conv} "
-              f"iterations {its} (budget {budget} each for primal and adjoint) "
-              f"E[Q] {float(q.double().mean()):.4f} [{gpu}]", flush=True)
+              f"iterations {its} (budget {budget} each for primal and adjoint; primal to "
+              f"{spe10_ratio_mlmc.PRESSURE_RTOL:g}, {extra['extra_iterations'] - n0} "
+              f"past the configuration's rtol) E[Q] {float(q.double().mean()):.4f} [{gpu}]",
+              flush=True)
         if conv < 1.0:
             fail(f"SPE10 ratio full grid canary level {level}: converged fraction {conv}")
     t0 = time.perf_counter()

@@ -9,7 +9,10 @@ Posterior setup: three "well" pressure observations at mid-depth along the
 long (y) axis of the 1200x2200x170 ft domain, local averages of radius
 30 ft (widened on scaled grids to keep a cell center in range), synthetic
 data y = G(u_ref) + N(0, noise) from one prior draw. Estimators: E[R]/E[Z]
-and, with --splitting, E[R/Z].
+and, with --splitting, E[R/Z]. The likelihood's solves run the primal to
+PRESSURE_RTOL (uq/bayes.py's `pressure_rtol`), where the configuration's
+tolerance is looser: the adjoint correction makes Q accurate, not the
+pressure G reads.
 
 Full-grid runs (default) take the production solver settings of
 spe10_mlmc. --grid nx,ny,nz runs a box with the SPE10 extents (synthetic
@@ -37,12 +40,20 @@ from parelagmc_tpu_torch.mesh.factories import SPE10_NCELLS, SPE10_SPACING
 from parelagmc_tpu_torch.ops.prng import PRNGKey
 from parelagmc_tpu_torch.problems import build_problem
 from parelagmc_tpu_torch.uq import BayesianInverseProblem, BayesRatioManager
+from parelagmc_tpu_torch.utils import trace
 from parelagmc_tpu_torch.utils.timing import TimeManager
 
 # Mid-depth "wells" along the long axis (ft); local-average radius 30 ft
 # covers a 3x6x30-cell box at the 20x10x2 ft SPE10 spacing.
 OBS_COORDS = (300.0, 550.0, 85.0, 600.0, 1100.0, 85.0, 900.0, 1650.0, 85.0)
 OBS_EPS = 30.0
+# The primal tolerance of the likelihood's solves, measured on the full
+# grid in float32: the loosest whose likelihoods sit well inside the
+# benchmark's limit. It is near float32's floor there: about 1 solve in
+# 5000 ends with its true residual above 4x it and counts as unconverged,
+# its likelihood still within 1e-4 in log
+# (benchmark/configs/spe10-bayes.json, PERF.md).
+PRESSURE_RTOL = 3e-7
 
 
 def with_wells(cfg, grid=None):
@@ -83,26 +94,33 @@ def main(argv=None):
     splitting, adaptive, grid = opts["splitting"], opts["adaptive"], opts["grid"]
     prob = build_problem(cfg, kinv_ref=kinv, device=device)
     cfg = prob.config  # axis permutation applied (incl. obs coords)
-    bip = BayesianInverseProblem(prob.solver, prob.sampler, cfg, prob.dtype)
+    bip = BayesianInverseProblem(prob.solver, prob.sampler, cfg, prob.dtype,
+                                 pressure_rtol=PRESSURE_RTOL)
     bip.generate_observational_data()
     report(f"-- observational data y = {bip.G_obs.detach().cpu().numpy()}")
 
-    # Solver convergence canary on the solves the Z/R streams run (the
-    # ratio steps do not surface SolveInfo; an unconverged level is not
-    # evidence).
+    # Solver convergence canary on the likelihood's solves, which the Z/R
+    # streams run (the ratio steps do not surface SolveInfo; an unconverged
+    # level is not evidence), with the iterations run past the
+    # configuration's tolerance (on standard error).
     canary = []
+    extra = trace.counters("krylov")
     for level in range(cfg.nlevels):
         xi = prob.sampler.sample(level, PRNGKey(99 + level), 8)
         w = prob.sampler.eval(level, xi)
-        _, _, info, _ = prob.solver.solve_fwd(level, w, return_pressure=True)
+        n0 = extra["extra_iterations"]
+        _, _, _, info = bip.compute_G(level, w, return_info=True)
         canary.append({
             "level": level,
             "converged_fraction": float(info.converged.double().mean()),
             "mean_iterations": float(torch.as_tensor(info.iterations, dtype=torch.float64).mean()),
+            "extra_iterations": extra["extra_iterations"] - n0,
         })
         report(f"-- canary L{level}: conv "
                f"{canary[-1]['converged_fraction'] * 100:.0f}% "
                f"iters {canary[-1]['mean_iterations']:.0f}")
+        report(f"-- canary L{level}: iterations past the configuration's tolerance "
+               f"{canary[-1]['extra_iterations']}", file=sys.stderr)
 
     mgr = BayesRatioManager(bip, cfg, splitting=splitting)
     if adaptive:
@@ -125,6 +143,7 @@ def main(argv=None):
             "obs_coords_ft": list(OBS_COORDS),
             "obs_eps_ft": cfg.bayes_eps,
             "noise": cfg.bayes_noise,
+            "pressure_rtol": PRESSURE_RTOL,
             "perm": "spe_perm.dat" if opts["perm_file"] else "synthetic fallback",
             "solver": cfg.darcy_solver.name,
         },

@@ -16,7 +16,10 @@ Tracing (utils/trace.py): `krylov.pcg` spans each PCG call, `krylov.iter`
 each of its iterations, with `krylov.apply` (the operator), `krylov.prec`
 (the preconditioner) and the continue test `wait.krylov_test` inside; the
 exit check is `wait.krylov_verify`. Both solvers count their loop trips
-(`krylov.iterations`) and restarts (`krylov.restarts`).
+(`krylov.iterations`) and restarts (`krylov.restarts`). PCG with a
+`loose_rtol` (a tolerance tighter than the configuration's in force, see
+uq/bayes.py's `pressure_rtol`) counts in `krylov.extra_iterations` the
+trips it ran after every row had met `loose_rtol`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ def pcg(
     restart_every: int = 0,
     want_r_true: bool = False,
     role: str = "primal",
+    loose_rtol: Optional[float] = None,
 ):
     """Preconditioned CG for SPD systems, batched over leading dims.
 
@@ -60,15 +64,29 @@ def pcg(
     (4x slack for rows that claimed). `want_r_true=True` returns
     (x, info, r_true) with r_true = b - A x computed unconditionally.
     `role` names the system in the `krylov.pcg` span (primal, adjoint,
-    stacked).
+    stacked). With `loose_rtol` the continue test also reads, in the same
+    host read, whether every row has met `loose_rtol`; each iteration run
+    after that adds one to `krylov.extra_iterations`.
     """
     with trace.span("krylov.pcg", role=role) as sp:
-        out = _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true)
+        out = _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true,
+                   loose_rtol)
         sp.note("iterations", out[1].iterations)
     return out
 
 
-def _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true):
+def _continue(rn, thresh, loose_thresh):
+    """(any row above thresh, any row above loose_thresh) in one host read;
+    the second is True without a loose_thresh."""
+    if loose_thresh is None:
+        return trace.read_bool("krylov_test", torch.any(rn > thresh)), True
+    flags = torch.stack((torch.any(rn > thresh), torch.any(rn > loose_thresh)))
+    with trace.wait("krylov_test"):
+        go, loose_open = flags.tolist()
+    return go, loose_open
+
+
+def _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true, loose_rtol):
     if prec is None:
         prec = lambda r: r
     x = torch.zeros_like(b) if x0 is None else x0
@@ -82,13 +100,16 @@ def _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true
     rz = _vdot(r, z)
     b_norm = torch.sqrt(_vdot(b, b))
     thresh = torch.clamp(rtol * b_norm, min=atol)
+    loose_thresh = None if loose_rtol is None else torch.clamp(loose_rtol * b_norm, min=atol)
     rn = torch.sqrt(_vdot(r, r))
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
 
     it = 0
-    go = max_iters > 0 and trace.read_bool("krylov_test", torch.any(rn > thresh))
+    go, loose_open = _continue(rn, thresh, loose_thresh) if max_iters > 0 else (False, True)
     while go:
+        if not loose_open:
+            _KRYLOV["extra_iterations"] += 1
         with trace.span("krylov.iter"):
             active = rn > thresh
             with trace.span("krylov.apply"):
@@ -115,7 +136,8 @@ def _pcg(apply_A, b, prec, x0, max_iters, rtol, atol, restart_every, want_r_true
             rz = rz_new
             it += 1
             _KRYLOV["iterations"] += 1
-            go = it < max_iters and trace.read_bool("krylov_test", torch.any(rn > thresh))
+            go, loose_open = (_continue(rn, thresh, loose_thresh) if it < max_iters
+                              else (False, loose_open))
 
     # Verify claimed convergence against the true residual (the f32 CG
     # recurrence drifts below it; see the reference's note).

@@ -530,9 +530,11 @@ class SpatialDarcy:
                 tz.masked_fill(g.ess[2], 0.0))
 
     # -- the sharded solve --------------------------------------------------------
-    def _run_cg(self, apply_S, prec, vdot, rhs_s, x0t, max_iters: int, want_r_true=False):
+    def _run_cg(self, apply_S, prec, vdot, rhs_s, x0t, max_iters: int, want_r_true=False,
+                rtol: Optional[float] = None):
         """PCG on the slab Schur grids with thresh = rtol ||b|| (no atol
-        clamp), true-residual restarts every restart_every iterations, a
+        clamp; `rtol` None is the solver's), true-residual restarts every
+        restart_every iterations, a
         verified exit with 4x slack; the loop flag is reduced over every
         slab and sample row, so every rank runs the same iterations.
         Returns (x, iterations, rnorm, bnorm, converged, r_true)."""
@@ -550,7 +552,7 @@ class SpatialDarcy:
         p = z
         rz = vdot(r, z)
         bn = torch.sqrt(vdot(rhs_s, rhs_s))
-        thresh = self.rtol * bn
+        thresh = (self.rtol if rtol is None else rtol) * bn
         rn = torch.sqrt(vdot(r, r))
         re_ = self.restart_every
         it = 0
@@ -594,11 +596,12 @@ class SpatialDarcy:
         slack = torch.where(claimed, 4.0 * one, one) if verified else one
         return x, it, rn, bn, rn <= thresh * slack, r_true
 
-    def _local_solve(self, w, x0t=None, lam0t=None, adjoint=False, max_iters=None):
+    def _local_solve(self, w, x0t=None, lam0t=None, adjoint=False, max_iters=None, rtol=None):
         """The slab solve of local coefficient slabs w (n_local, rows, nz, m,
         nx); x0t a warm start in the p~ = -p convention, lam0t one of the
-        adjoint, both slab-cut. Returns (Q, iterations, relres, converged,
-        p~ slabs[, lambda slabs])."""
+        adjoint, both slab-cut; `rtol` the primal's tolerance (None: the
+        solver's; the adjoint keeps the solver's). Returns (Q, iterations,
+        relres, converged, p~ slabs[, lambda slabs])."""
         g = self.grids
         comm = self.comm
         max_iters = self.max_iters if max_iters is None else int(max_iters)
@@ -620,7 +623,7 @@ class SpatialDarcy:
             sw = torch.sqrt(w)
             prec = lambda r: sw * (r / g.sdiag) * sw
         x, it, rn, bn, conv, r_true = self._run_cg(apply_S, prec, vdot, rhs_s, x0t, max_iters,
-                                                   want_r_true=adjoint)
+                                                   want_r_true=adjoint, rtol=rtol)
         bt = self._apply_bt(g, x)
         u = minv(tuple(fv - bv for fv, bv in zip(f, bt)))
         q = vdot(x, g.obs_p)
@@ -662,14 +665,16 @@ class SpatialDarcy:
 
     def solve_fwd(self, w: torch.Tensor, p0: Optional[torch.Tensor] = None,
                   return_pressure: bool = False, lam0: Optional[torch.Tensor] = None,
-                  adjoint: bool = False, max_iters: Optional[int] = None):
+                  adjoint: bool = False, max_iters: Optional[int] = None,
+                  rtol: Optional[float] = None):
         """Solve for coefficient fields w (batch..., n_s) in the unsharded
         flat cell order; returns (Q, iterations, relres, converged[, p][,
         lam]) with the iterations broadcast to the batch and p the physical
         cell pressure (flat, unsharded order) when asked for. p0 warm-starts
         CG from a physical pressure of the same level; with adjoint the QoI
         is goal-oriented-corrected and lam0 warm-starts the adjoint solve
-        (lam returned after p). `max_iters` overrides the Krylov budget.
+        (lam returned after p). `max_iters` overrides the Krylov budget,
+        `rtol` the primal's tolerance.
         In the distributed form every rank passes the whole batch and gets
         the whole batch's results."""
         if lam0 is not None and not adjoint:
@@ -684,7 +689,7 @@ class SpatialDarcy:
         x0 = None if p0 is None else self._to_slabs(flat(-p0.expand(w.shape)), 0.0, rows)
         l0 = None if lam0 is None else self._to_slabs(flat(lam0.expand(w.shape)), 0.0, rows)
         q, it, rel, conv, x, lam = self._local_solve(wg, x0, l0, adjoint=adjoint,
-                                                     max_iters=max_iters)
+                                                     max_iters=max_iters, rtol=rtol)
         gr = self.comm.gather_rows
         q, rel, conv = (gr(t).reshape(batch) for t in (q, rel, conv))
         its = torch.full(batch, it, dtype=torch.int64, device=q.device)

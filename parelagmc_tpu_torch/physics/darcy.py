@@ -509,20 +509,31 @@ class DarcySolver:
                 and self.solver_cfg.name != "minres-bj")
 
     def solve_fwd(self, level: int, w: torch.Tensor, return_pressure: bool = False,
-                  return_adjoint: bool = False, max_iters: Optional[int] = None):
+                  return_adjoint: bool = False, max_iters: Optional[int] = None,
+                  rtol: Optional[float] = None):
         """Solve for a batch of coefficient fields w (..., n_s). Returns
         (Q, cost, info[, p[, lam]]) with p the physical pressure and lam the
         adjoint (return_adjoint, needs config.adjoint_qoi). With
         config.meanfield_x0 the solve starts from the cached w = 1 solution.
-        `max_iters` overrides config.max_iterations for this solve."""
+        `max_iters` overrides config.max_iterations for this solve. `rtol`,
+        where it is below config.relative_tolerance, is the primal solve's
+        tolerance for this call (the pressure itself, not only Q, to that
+        tolerance); the adjoint keeps the configuration's, and the primal
+        iterations run past the configuration's tolerance count in
+        `krylov.extra_iterations` (ops/solvers.pcg; not on the spatially
+        sharded solve, which counts no Krylov iterations)."""
+        if rtol is not None and rtol >= self.solver_cfg.relative_tolerance:
+            rtol = None
         with trace.span("darcy.solve", level=level, rows=_rows(w), start="cold") as sp:
             if self._use_spatial(level):
                 return self._solve_spatial(level, w, return_pressure,
-                                           return_adjoint=return_adjoint, max_iters=max_iters)
+                                           return_adjoint=return_adjoint, max_iters=max_iters,
+                                           rtol=rtol)
             if self.solver_cfg.name == "minres-bj":
                 if getattr(self.solver_cfg, "adjoint_qoi", False):
                     raise NotImplementedError("adjoint_qoi applies to the cg-schur solver family")
-                return self._solve_minres(self.levels[level], w, return_pressure, max_iters)
+                return self._solve_minres(self.levels[level], w, return_pressure, max_iters,
+                                          rtol=rtol)
             x0 = lam0 = None
             if getattr(self.solver_cfg, "meanfield_x0", False):
                 sp.note("start", "mean-field")
@@ -532,7 +543,8 @@ class DarcySolver:
                 if lam_ref is not None:
                     lam0 = lam_ref.expand(batch + lam_ref.shape[-1:])
             return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=x0, lam0=lam0,
-                                        return_adjoint=return_adjoint, max_iters=max_iters)
+                                        return_adjoint=return_adjoint, max_iters=max_iters,
+                                        rtol=rtol)
 
     def _meanfield_start(self, level: int):
         """(p, lam) of ONE solve with w == 1 at this level (lam None without
@@ -620,16 +632,18 @@ class DarcySolver:
         return self._spatial_cache[key]
 
     def _solve_spatial(self, level: int, w: torch.Tensor, return_pressure: bool, p0=None,
-                       lam0=None, return_adjoint: bool = False, max_iters: Optional[int] = None):
+                       lam0=None, return_adjoint: bool = False, max_iters: Optional[int] = None,
+                       rtol: Optional[float] = None):
         """(Q, cost, info[, p[, lam]]) of the sharded solve: rel and conv from
         its verified exit; with adjoint_qoi rel is the max of the primal and
-        adjoint solves', conv their AND and the iterations their sum."""
+        adjoint solves', conv their AND and the iterations their sum. `rtol`
+        as in solve_fwd: the primal's tolerance for this call."""
         adjoint = bool(getattr(self.solver_cfg, "adjoint_qoi", False))
         if return_adjoint and not adjoint:
             raise ValueError("return_adjoint requires config.adjoint_qoi")
         out = self._spatial(level).solve_fwd(
             w, p0=p0, return_pressure=return_pressure or return_adjoint, lam0=lam0,
-            adjoint=adjoint, max_iters=max_iters)
+            adjoint=adjoint, max_iters=max_iters, rtol=rtol)
         q, it, rel, conv = out[:4]
         info = SolveInfo(int(it.max()), rel, conv)
         cost = float(self.num_dofs(level))
@@ -731,7 +745,10 @@ class DarcySolver:
 
     def _solve_cg_schur(self, L: DarcyLevel, w: torch.Tensor, return_pressure: bool,
                         x0: Optional[torch.Tensor] = None, lam0: Optional[torch.Tensor] = None,
-                        return_adjoint: bool = False, max_iters: Optional[int] = None):
+                        return_adjoint: bool = False, max_iters: Optional[int] = None,
+                        rtol: Optional[float] = None):
+        """The cg-schur family's solve; `rtol` (below the configuration's)
+        tightens the primal, or, stacked, both systems."""
         cfg = self.solver_cfg
         adjoint = bool(getattr(cfg, "adjoint_qoi", False))
         stacked = adjoint and bool(getattr(cfg, "adjoint_stacked", False))
@@ -760,6 +777,8 @@ class DarcySolver:
             atol=cfg.absolute_tolerance,
             restart_every=cfg.restart_every,
         )
+        primal = krylov if rtol is None else dict(krylov, rtol=rtol,
+                                                  loose_rtol=cfg.relative_tolerance)
         lam = None
         if stacked:
             # S [p~, lam] = [rhs_s, q_s] as ONE PCG over a right-hand-side
@@ -773,7 +792,7 @@ class DarcySolver:
                 X0 = torch.stack([-x0 if x0 is not None else torch.zeros_like(rhs_s),
                                   lam0 if lam0 is not None else torch.zeros_like(q_s)], dim=-2)
             X, info2, R_true = pcg(apply_S, bb, x0=X0, want_r_true=True, role="stacked",
-                                   **krylov)
+                                   **primal)
             p, lam = X[..., 0, :], X[..., 1, :]
             r_true = R_true[..., 0, :]
             # 2 x iterations: operator applications per sample, comparable
@@ -784,7 +803,7 @@ class DarcySolver:
             # want_r_true on the adjoint path: the correction consumes the
             # primal true residual, which pcg's exit check computes anyway.
             out = pcg(apply_S, rhs_s, x0=(-x0 if x0 is not None else None),  # p~ = -p
-                      want_r_true=adjoint, **krylov)
+                      want_r_true=adjoint, **primal)
             p, info = out[0], out[1]
             r_true = out[2] if adjoint else None
         u = Minv(f - self._apply_Bt(L, p))
@@ -836,13 +855,13 @@ class DarcySolver:
         return prec
 
     def _solve_minres(self, L: DarcyLevel, w: torch.Tensor, return_pressure: bool,
-                      max_iters: Optional[int] = None):
+                      max_iters: Optional[int] = None, rtol: Optional[float] = None):
         cfg = self.solver_cfg
         b = L.rhs.expand(w.shape[:-1] + L.rhs.shape)
         x, info = minres(
             self._apply_A(L, w), b, prec=self._prec(L, w),
             max_iters=cfg.max_iterations if max_iters is None else int(max_iters),
-            rtol=cfg.relative_tolerance, atol=cfg.absolute_tolerance)
+            rtol=cfg.relative_tolerance if rtol is None else rtol, atol=cfg.absolute_tolerance)
         Q = torch.sum(x * L.obs_func, dim=-1)
         cost = float(L.n_u + L.n_s)
         if return_pressure:

@@ -20,7 +20,18 @@ solver's device and return per-sample values. G is read off the primal
 pressure of `solve_fwd(level, w, return_pressure=True)`: a cold solve (from
 the mean-field iterate with config.meanfield_x0), whose Q carries the
 adjoint correction when config.adjoint_qoi is on while the pressure does
-not. `max_iters` passes a Krylov budget through to that solve.
+not. So the pressure, and G with it, is only as accurate as the primal's
+stopping rule: at high contrast config.relative_tolerance (which the
+adjoint correction makes enough for Q) leaves G percents off.
+`pressure_rtol` gives the likelihood's solves a tolerance of their own for
+the primal (`solve_fwd(..., rtol=)`; None keeps the configuration's, and
+one above it changes nothing). `max_iters` passes a Krylov budget through
+to that solve.
+
+Tracing (utils/trace.py): `bayes.likelihood` spans each likelihood call
+(level, rows) and `bayes.G` each read-off of G against the functionals
+(level, rows); the iterations the tighter tolerance adds count in
+`krylov.extra_iterations` (ops/solvers.pcg).
 
 Synthetic reference data y = G(u_ref) + N(0, noise) comes from one prior
 draw or from config.bayes_ref_data_file.
@@ -39,16 +50,24 @@ from parelagmc_tpu_torch.ops.prng import Key, PRNGKey, fold_in, normals_plain
 from parelagmc_tpu_torch.parallel.launch import is_main
 from parelagmc_tpu_torch.physics.darcy import DarcySolver
 from parelagmc_tpu_torch.samplers.base import MLSampler
+from parelagmc_tpu_torch.utils import trace
+
+
+def _rows(w: torch.Tensor) -> int:
+    return w.numel() // w.shape[-1]
 
 
 class BayesianInverseProblem:
     def __init__(self, solver: DarcySolver, prior: MLSampler, config: ProblemConfig,
-                 dtype: torch.dtype = torch.float32):
-        """Runs on the solver's device."""
+                 dtype: torch.dtype = torch.float32, pressure_rtol: Optional[float] = None):
+        """Runs on the solver's device. `pressure_rtol`: the relative
+        tolerance of the primal solve that G reads (None: the
+        configuration's)."""
         self.solver = solver
         self.prior = prior
         self.config = config
         self.dtype = dtype
+        self.pressure_rtol = pressure_rtol
         self.device = solver.device
         self.noise = float(config.bayes_noise)
         self.m = int(config.bayes_num_obs)
@@ -95,27 +114,36 @@ class BayesianInverseProblem:
     # -- observable / likelihood maps (batched) ---------------------------------
     def compute_G(self, level: int, w: torch.Tensor, compute_Q: bool = False,
                   max_iters: Optional[int] = None, return_info: bool = False):
-        """G(w) for a batch of coefficient fields. Returns (G, Q, cost), and
-        the solve's SolveInfo with return_info."""
+        """G(w) for a batch of coefficient fields, from a solve whose primal
+        runs to pressure_rtol. Returns (G, Q, cost), and the solve's
+        SolveInfo with return_info. Without a pressure_rtol the call is the
+        solver's plain `solve_fwd`, so every solver serves; a pressure_rtol
+        needs DarcySolver's `rtol`."""
+        tol = {} if self.pressure_rtol is None else {"rtol": self.pressure_rtol}
         Q, cost, info, p = self.solver.solve_fwd(level, w, return_pressure=True,
-                                                 max_iters=max_iters)
-        G = torch.matmul(p, self.g_obs[level].T)  # (batch, n_obs)
+                                                 max_iters=max_iters, **tol)
+        with trace.span("bayes.G", level=level, rows=_rows(w)):
+            G = torch.matmul(p, self.g_obs[level].T)  # (batch, n_obs)
         if return_info:
             return G, Q, cost, info
         return G, Q, cost
 
-    def _likelihood_of(self, G: torch.Tensor) -> torch.Tensor:
-        misfit = torch.sum((G - self.G_obs) ** 2, dim=-1)
-        return torch.exp(-misfit / (2.0 * self.noise))
+    def _likelihood_and_Q(self, level: int, w: torch.Tensor, max_iters: Optional[int]):
+        """(Pi, Q, cost) of a batch, in the span `bayes.likelihood`: the body
+        of both `likelihood` and `likelihood_and_Q`, so that neither calls
+        the other (an instrument may wrap either alone)."""
+        with trace.span("bayes.likelihood", level=level, rows=_rows(w)):
+            G, Q, cost = self.compute_G(level, w, max_iters=max_iters)
+            misfit = torch.sum((G - self.G_obs) ** 2, dim=-1)
+            return torch.exp(-misfit / (2.0 * self.noise)), Q, cost
 
     def likelihood(self, level: int, w: torch.Tensor, max_iters: Optional[int] = None):
         """Pi(w) = exp(-|G(w) - y|^2 / (2*noise)). Returns (Pi, cost)."""
-        G, _, cost = self.compute_G(level, w, max_iters=max_iters)
-        return self._likelihood_of(G), cost
+        like, _, cost = self._likelihood_and_Q(level, w, max_iters)
+        return like, cost
 
     def likelihood_and_Q(self, level: int, w: torch.Tensor, max_iters: Optional[int] = None):
-        G, Q, cost = self.compute_G(level, w, compute_Q=True, max_iters=max_iters)
-        return self._likelihood_of(G), Q, cost
+        return self._likelihood_and_Q(level, w, max_iters)
 
     def compute_R(self, level: int, w: torch.Tensor, max_iters: Optional[int] = None):
         """R(w) = Q(w) * Pi(w). Returns (R, cost)."""

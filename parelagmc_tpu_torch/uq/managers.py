@@ -257,11 +257,13 @@ class MLMCManager:
             nbatches = -(-n // self.level_batch[level])
             step = self._step(level)
             timer_name = f"MC Sample -- Level {level}"
-            if self.use_walltime_cost and nbatches == 1 and not self._cost_ledger.seen(level):
+            if (self.use_walltime_cost and nbatches == 1 and not self._cost_ledger.seen(level)
+                    and self._cost_ledger.nsamples[level] == 0):
                 # Single-batch level: run one DISCARDED warmup batch on an
                 # out-of-band key, so the real batch below is a steady-state
                 # cost sample; the main key counter and the statistics do
-                # not move (fixed-seed runs keep their streams).
+                # not move (fixed-seed runs keep their streams). A ledger
+                # that holds steady samples (a resumed run) needs none.
                 t0 = time.perf_counter()
                 block_until_ready(step(fold_in(self._key, 2 ** 31 - 1 - level))[0])
                 self._cost_ledger.add_batch(
@@ -302,17 +304,10 @@ class MLMCManager:
                                 % (level, y[i], q[i], qc[i], cost_dofs)
                             )
                 if trace.BATCH_TRACE:
-                    totals = trace.batch_totals(sp)
                     print(
                         f"# batch-trace L{level} "
                         f"dt={TimeManager.last(timer_name):.3f}s "
-                        f"iters={iters_max:.0f} "
-                        f"t={time.strftime('%H:%M:%S')} "
-                        f"setup_ms={totals['setup_ms']:.3f} "
-                        f"krylov_ms={totals['krylov_ms']:.3f} "
-                        f"wait_ms={totals['wait_ms']:.3f} "
-                        f"host_syncs={totals['host_syncs']} "
-                        f"restarts={totals['restarts']}",
+                        f"iters={iters_max:.0f} {trace.batch_line_totals(sp)}",
                         file=sys.stderr,
                     )
         if self._logger is not None:

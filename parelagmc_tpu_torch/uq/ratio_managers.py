@@ -36,11 +36,19 @@ fields come from the sampler's eval_pair where it has one.
 Under a torch.distributed group of world size > 1 the walltime cost is
 agreed over the ranks, and the log and checkpoint are rank 0's, as in
 MLMCManager (uq/managers.py).
+
+Tracing (utils/trace.py): each batch of `init_run` is an `mlmc.batch` span
+keyed (level, key counter) with attribute manager="ratio", as MLMCManager's
+are; inside it `wait.ratio_copy` spans the copies of r, rc, z and zc to
+the host (counter `host_syncs.ratio_copy`) and `ratio.moments` the 20
+moment sums. PARELAGMC_BATCH_TRACE=1 prints one `# batch-trace ratio`
+line per batch on stderr, as MLMCManager does.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -53,6 +61,7 @@ from parelagmc_tpu_torch.parallel.launch import agree_max, barrier, is_main
 from parelagmc_tpu_torch.parallel.sharding import SampleMesh
 from parelagmc_tpu_torch.uq.bayes import BayesianInverseProblem
 from parelagmc_tpu_torch.uq.managers import check_sharding, eval_pair, level_batches
+from parelagmc_tpu_torch.utils import trace
 from parelagmc_tpu_torch.utils.regression import exp_weighted_regression
 from parelagmc_tpu_torch.utils.timing import SteadyCostLedger, TimeManager, block_until_ready
 
@@ -194,50 +203,69 @@ class BayesRatioManager:
             nbatches = -(-n // self.level_batch[level])
             step = self._step(level)
             timer_name = f"Ratio MC Sample -- Level {level}"
-            if self.use_walltime_cost and nbatches == 1 and not self._cost_ledger.seen(level):
+            if (self.use_walltime_cost and nbatches == 1 and not self._cost_ledger.seen(level)
+                    and self._cost_ledger.nsamples[level] == 0):
                 # Discarded warm-up batch on an out-of-band key, so that the
                 # single real batch is a steady-state cost sample; the
-                # statistics and the key counter do not move.
+                # statistics and the key counter do not move. A ledger that
+                # holds steady samples (a resumed run) needs none.
                 t0 = time.perf_counter()
                 block_until_ready(step(fold_in(self._key, 2 ** 31 - 1 - level)))
                 self._cost_ledger.add_batch(level, time.perf_counter() - t0,
                                             self.level_batch[level])
-            coarsest = level == self.nlevels - 1
             for _ in range(nbatches):
                 key = self._next_key(level)
-                with TimeManager.timed(timer_name):
-                    out = step(key)
-                    block_until_ready(out)
-                r, rc, z, zc = (_host64(x) for x in out)
-                self._cost_ledger.add_batch(level, TimeManager.last(timer_name), r.size)
-                y_r = r - rc
-                y_z = z - zc
-                with np.errstate(divide="ignore", invalid="ignore"):
-                    rat = np.where(z != 0, r / np.where(z == 0, 1.0, z), 0.0)
-                    rat_c = np.where(zc != 0, rc / np.where(zc == 0, 1.0, zc), 0.0)
-                y_ratio = rat if coarsest else rat - rat_c
-                # Cost in dofs: 2 solves per level of the pair.
-                cdofs = 2.0 * self.M[level] + (0.0 if coarsest else 2.0 * self.M[level + 1])
-                s = self.sums[level]
-                for col, col2, col_abs, v in (
-                    (YR, YR2, ABS_YR, y_r), (YZ, YZ2, ABS_YZ, y_z), (R, R2, ABS_R, r),
-                    (Z, Z2, ABS_Z, z), (RATIO, RATIO2, ABS_RATIO, rat),
-                    (YRATIO, YRATIO2, ABS_YRATIO, y_ratio),
-                ):
-                    s[col] += v.sum()
-                    s[col2] += (v ** 2).sum()
-                    s[col_abs] += np.abs(v).sum()
-                s[C] += cdofs * r.size
-                self.level_nsamples[level] += r.size
-                if self._logger is not None:
-                    for i in range(r.size):
-                        self._logger.write(
-                            "%13d %14.6g %14.6g %14.6g %14.6g %14.6g\n"
-                            % (level, r[i], y_r[i], z[i], y_z[i], cdofs)
-                        )
+                with trace.span("mlmc.batch", level=level, rows=self.level_batch[level],
+                                batch=(level, self._counter), manager="ratio") as sp:
+                    with TimeManager.timed(timer_name):
+                        out = step(key)
+                        block_until_ready(out)
+                    with trace.wait("ratio_copy"):
+                        r, rc, z, zc = (_host64(x) for x in out)
+                    self._cost_ledger.add_batch(level, TimeManager.last(timer_name), r.size)
+                    with trace.span("ratio.moments"):
+                        self._add_moments(level, r, rc, z, zc)
+                if trace.BATCH_TRACE:
+                    extra = sp.attrs["counters"].get("krylov.extra_iterations", 0)
+                    print(
+                        f"# batch-trace ratio L{level} "
+                        f"dt={TimeManager.last(timer_name):.3f}s "
+                        f"{trace.batch_line_totals(sp)} extra_iterations={extra}",
+                        file=sys.stderr,
+                    )
         if self._logger is not None:
             self._logger.flush()
         self.compute_nsamples_mse()
+
+    def _add_moments(self, level: int, r, rc, z, zc) -> None:
+        """A batch's per-sample values (float64, host) into the level's
+        moment sums and sample count, and the log."""
+        coarsest = level == self.nlevels - 1
+        y_r = r - rc
+        y_z = z - zc
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rat = np.where(z != 0, r / np.where(z == 0, 1.0, z), 0.0)
+            rat_c = np.where(zc != 0, rc / np.where(zc == 0, 1.0, zc), 0.0)
+        y_ratio = rat if coarsest else rat - rat_c
+        # Cost in dofs: 2 solves per level of the pair.
+        cdofs = 2.0 * self.M[level] + (0.0 if coarsest else 2.0 * self.M[level + 1])
+        s = self.sums[level]
+        for col, col2, col_abs, v in (
+            (YR, YR2, ABS_YR, y_r), (YZ, YZ2, ABS_YZ, y_z), (R, R2, ABS_R, r),
+            (Z, Z2, ABS_Z, z), (RATIO, RATIO2, ABS_RATIO, rat),
+            (YRATIO, YRATIO2, ABS_YRATIO, y_ratio),
+        ):
+            s[col] += v.sum()
+            s[col2] += (v ** 2).sum()
+            s[col_abs] += np.abs(v).sum()
+        s[C] += cdofs * r.size
+        self.level_nsamples[level] += r.size
+        if self._logger is not None:
+            for i in range(r.size):
+                self._logger.write(
+                    "%13d %14.6g %14.6g %14.6g %14.6g %14.6g\n"
+                    % (level, r[i], y_r[i], z[i], y_z[i], cdofs)
+                )
 
     def run(self) -> float:
         self.sums[:] = 0.0

@@ -148,11 +148,20 @@ class SteadyCostLedger:
 
     def load(self, data) -> None:
         """Restore from a checkpoint mapping; a checkpoint without the
-        ledger keeps zeros (its cost falls back to the all-inclusive
-        timer). The levels seen by this process are not restored: a resumed
-        process pays its one-time costs again."""
-        if "cost_ss_time" in getattr(data, "files", data):
-            self.time = data["cost_ss_time"].copy()
-            self.nsamples = data["cost_ss_n"].copy()
-            self.first_time = data["cost_first_time"].copy()
-            self.first_nsamples = data["cost_first_n"].copy()
+        ledger, or whose arrays are not one entry a level, keeps zeros (its
+        cost falls back to the all-inclusive timer). The levels seen by
+        this process are not restored: a resumed process pays its one-time
+        costs again."""
+        keys = ("cost_ss_time", "cost_ss_n", "cost_first_time", "cost_first_n")
+        if not all(k in getattr(data, "files", data) for k in keys):
+            return
+        n = self.time.size
+        if any(np.shape(data[k]) != (n,) for k in keys):
+            self.time, self.first_time = np.zeros(n), np.zeros(n)
+            self.nsamples, self.first_nsamples = (np.zeros(n, dtype=np.int64),
+                                                  np.zeros(n, dtype=np.int64))
+            return
+        self.time = data["cost_ss_time"].copy()
+        self.nsamples = data["cost_ss_n"].copy()
+        self.first_time = data["cost_first_time"].copy()
+        self.first_nsamples = data["cost_first_n"].copy()

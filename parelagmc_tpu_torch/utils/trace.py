@@ -18,14 +18,15 @@ what the buffer holds, `reset()` empties it.
 Counters are plain integer adds, always on, in named groups of a dict
 each: `kernel` (the launches of the CUDA kernels; the dict is
 `kernels.launch_counts`), `krylov` (`iterations`, loop trips;
-`restarts`), `host_syncs` (one per entry of a `wait` site, by site),
+`restarts`; `extra_iterations`, the trips a PCG with a `loose_rtol` ran
+after every row had met it), `host_syncs` (one per entry of a `wait` site, by site),
 `coefmg` (the structured V-cycle's `graph_captures`, `graph_replays`,
 `eager_cycles`; ops/coef_multigrid_structured.py) and `trace` (`dropped`).
 `counter_values()` flattens them to `group.name`.
 
-PARELAGMC_BATCH_TRACE=1 (read once, at import) also makes the manager
+PARELAGMC_BATCH_TRACE=1 (read once, at import) also makes each manager
 print one stderr line per batch from its `mlmc.batch` span
-(`batch_totals`).
+(`batch_totals`, `batch_line_totals`).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def counter_values() -> Dict[str, int]:
     return {f"{g}.{k}": v for g, d in _groups.items() for k, v in d.items()}
 
 
-_KRYLOV = counters("krylov", ("iterations", "restarts"))
+_KRYLOV = counters("krylov", ("iterations", "restarts", "extra_iterations"))
 _COEFMG = counters("coefmg", ("graph_captures", "graph_replays", "eager_cycles"))
 _SYNCS = counters("host_syncs")
 _TRACE = counters("trace", ("dropped",))
@@ -199,3 +200,15 @@ def batch_totals(batch_span: Span) -> Dict[str, float]:
     out["host_syncs"] = sum(v for k, v in delta.items() if k.startswith("host_syncs."))
     out["restarts"] = delta.get("krylov.restarts", 0)
     return out
+
+
+def batch_line_totals(batch_span: Span) -> str:
+    """The shared tail of a manager's `# batch-trace` line: the wall clock
+    and `batch_totals` of a closed batch span."""
+    totals = batch_totals(batch_span)
+    return (f"t={time.strftime('%H:%M:%S')} "
+            f"setup_ms={totals['setup_ms']:.3f} "
+            f"krylov_ms={totals['krylov_ms']:.3f} "
+            f"wait_ms={totals['wait_ms']:.3f} "
+            f"host_syncs={totals['host_syncs']} "
+            f"restarts={totals['restarts']}")
