@@ -359,6 +359,21 @@ Phases, each printing one line (or block) before the last line:
        --spatial-shards N a slab a rank against the stacked form in this
        process (Q to PRODUCTION_Q_RTOL), the peak memory of each card
        beside the stacked figures of this phase and of phase 21c.
+26. coefMG stencil (run right after phase 3) - each fused pass of the
+             structured V-cycle (csrc/coefmg_stencil.cu: a Chebyshev
+             sweep's first step, with and without x, a step, the last
+             step, a Jacobi sweep, the residual with its restriction, the
+             prolongation with its add) against its plain twin on every
+             grid of the SPE10 cells' ladders (STENCIL_LADDERS: 220x60x85
+             at batch 8 down to 27x7x10, 110x30x42 at batch 128 down to
+             27x7x10), bf16 and f32: one launch each, outputs finite, f32
+             within STENCIL_F32_RTOL, bf16 within STENCIL_BF16_ULPS of the
+             twin run in f32 and STENCIL_BF16_TWIN_ULPS of the twin in
+             bf16; ms by CUDA events and by device time (a graph of
+             STENCIL_GRAPH_LAUNCHES launches) beside the bound (its
+             tensors read and written once over 3.35 TB/s), the twin's ms
+             and, at each ladder's top, its device operations; one line a
+             row.
 Beside every M(w)^{-1} check of phases 8 and 9b, K1 also solves R = 2
 right-hand sides per table set on the same tables against its plain
 version (bound: tables once, b and x twice).
@@ -452,6 +467,17 @@ SPE10_ANCHOR = dict(estimate=361.882, est_tol=0.5, eq=(330.433, 308.151, 298.182
                     eq_rtol=2e-3, dofs=[17280, 2272, 312])
 # Launches per CUDA graph and replays, for the device time of a small draw.
 GRAPH_LAUNCHES, GRAPH_REPLAYS = 200, 10
+# Phase 26, the coefMG stencil kernels: the SPE10 cells' ladders (mesh
+# shape x first, batch; every level of each ladder is checked): level 0 at
+# batch 8 with its coarser grids (level 1 and 2 at batch 8 and the
+# coarsest, 27x7x10), level 1 at batch 128 with its own. f32 to 1e-6 of the
+# largest value; bf16 within 1 ulp of the twin run in f32 and rounded, and
+# within 8 ulps of the twin in bf16, which rounds every intermediate
+# (tests/test_torch_coefmg_stencil.py). Graph timing: fewer launches than
+# K2's, since each launch keeps its outputs (3 x 36 MB at level 0, f32).
+STENCIL_LADDERS = (((220, 60, 85), 8), ((110, 30, 42), 128))
+STENCIL_F32_RTOL, STENCIL_BF16_ULPS, STENCIL_BF16_TWIN_ULPS = 1e-6, 1, 8
+STENCIL_GRAPH_LAUNCHES, STENCIL_GRAPH_REPLAYS = 20, 5
 SAMPLER_BATCH = 512
 SAMPLER_CASES = (("matching", dict(embedding="matching")),
                  ("projection", dict(embedding="projection")),
@@ -1164,6 +1190,141 @@ def phase_k2(device, gpu: str):
               flush=True)
         if not (abs(mean) < 0.01 and abs(std - 1.0) < 0.01 and abs(kurt - 3.0) < 0.05):
             fail(f"K2 normals {name}: moments off ({mean}, {std}, {kurt})")
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) of one call of fn, by
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def bf16_ulp(t) -> float:
+    """One bfloat16 ulp at t's largest magnitude."""
+    m = float(t.double().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def stencil_passes(cms, mg, state, level: int, batch: int, dtype, device, seed: int):
+    """The fused passes of one grid level as {name: call(fns, cast)}: fns
+    (first, step, jacobi, residual_restrict, prolong_add) are the kernels'
+    dispatchers or the plain twins, each tensor passes through cast; a call
+    returns the tensors it made, and the inputs it read as its second
+    value (for the bytes)."""
+    import torch
+
+    dinv_axes, idiag, _ = state[level]
+    g = torch.Generator(device=device).manual_seed(seed)
+    vec = lambda shape: torch.randn((batch,) + tuple(shape[::-1]), generator=g, device=device,
+                                    dtype=torch.float32).to(dtype)
+    shape = mg.levels[level].shape
+    b, x, r, dvec = (vec(shape) for _ in range(4))
+    a, c, w = 0.61, 0.37, 0.8
+    D = tuple(dinv_axes)
+    calls = {
+        "first": (lambda f, k: f[0](k(D), k(idiag), k(b), k(x), w), (b, x, idiag) + D),
+        "first, x zero": (lambda f, k: f[0](k(D), k(idiag), k(b), None, w)[1:], (b, idiag)),
+        "step": (lambda f, k: f[1](k(D), k(idiag), k(x), k(r), k(dvec), a, c, False),
+                 (x, r, dvec, idiag) + D),
+        "last step": (lambda f, k: (f[1](k(D), k(idiag), k(x), k(r), k(dvec), a, c, True),),
+                      (x, r, dvec, idiag) + D),
+        "jacobi": (lambda f, k: (f[2](k(D), k(idiag), k(b), k(x), w),), (b, x, idiag) + D),
+    }
+    if level + 1 < len(mg.levels):
+        nxt = mg.levels[level + 1]
+        xc = vec(nxt.shape)
+        calls["residual, restricted"] = (lambda f, k: (f[3](k(D), k(b), k(x), nxt),),
+                                         (b, x) + D)
+        calls["prolongation"] = (lambda f, k: (f[4](k(x), k(xc), nxt),), (x, xc))
+    return calls
+
+
+def phase_coefmg_stencil(device, gpu: str):
+    """Phase 26: each fused coefMG stencil kernel against its plain twin on
+    every grid of the SPE10 cells' ladders, bf16 and f32; non-finite
+    output fails. Timed by CUDA events and by device time (a graph of
+    launches), beside the bound (its tensors read and written once over
+    3.35 TB/s), the twin's time and device operations, one line a row.
+    Returns the level-0 bf16 rows by kernel."""
+    import torch
+
+    from parelagmc_tpu_torch import kernels
+    from parelagmc_tpu_torch.mesh import make_box_mesh
+    from parelagmc_tpu_torch.ops import coef_multigrid_structured as cms
+    from parelagmc_tpu_torch.utils import trace
+
+    kernel_of = {"residual, restricted": "coefmg_restrict", "prolongation": "coefmg_prolong"}
+    fused = (cms._cheb_first, cms._cheb_step, cms._jacobi, cms._residual_restrict,
+             cms._prolong_add)
+    twins = (cms._cheb_first_plain, cms._cheb_step_plain, cms._jacobi_plain,
+             cms._residual_restrict_plain, cms._prolong_add_plain)
+    same = lambda t: t
+    f32 = lambda t: tuple(f32(u) for u in t) if isinstance(t, tuple) else t.float()
+    level0 = {}
+    for shape, batch in STENCIL_LADDERS:
+        mesh = make_box_mesh(shape)
+        mg = cms.build_struct_coef_mg(mesh, cheby_order=3, cheby_lo=0.1)
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=device).manual_seed(26)
+            d = torch.exp(torch.randn(batch, mesh.num_faces, generator=gen, device=device))
+            state = cms.cast_state(cms.struct_mg_setup(mg, d), dtype)
+            for level, lvl in enumerate(mg.levels):
+                passes = stencil_passes(cms, mg, state, level, batch, dtype, device,
+                                        seed=100 * level + 7)
+                for name, (call, inputs) in passes.items():
+                    kname = kernel_of.get(name, "coefmg_smooth")
+                    kernels.reset_launch_counts()
+                    eager = trace.counter_values().get("coefmg.eager_passes", 0)
+                    got = call(fused, same)
+                    torch.cuda.synchronize()
+                    if (kernels.launch_counts[kname] != 1
+                            or trace.counter_values()["coefmg.eager_passes"] != eager):
+                        fail(f"coefMG stencil {name}: not one {kname} launch")
+                    if not all(bool(torch.isfinite(t).all()) for t in got):
+                        fail(f"coefMG stencil {name} {shape} level {level}: non-finite output")
+                    twin = call(twins, same)
+                    errs = [float((g_ - w_).double().abs().max()) for g_, w_ in zip(got, twin)]
+                    if dtype == torch.float32:
+                        rel = max(e / float(w_.abs().max()) for e, w_ in zip(errs, twin))
+                        ok, err = rel <= STENCIL_F32_RTOL, {"rel_err": rel}
+                    else:
+                        up = tuple(t.to(dtype) for t in call(twins, f32))
+                        ulps = max(float((g_ - w_).double().abs().max()) / bf16_ulp(w_)
+                                   for g_, w_ in zip(got, up))
+                        twin_ulps = max(e / bf16_ulp(w_) for e, w_ in zip(errs, twin))
+                        ok = ulps <= STENCIL_BF16_ULPS and twin_ulps <= STENCIL_BF16_TWIN_ULPS
+                        err = {"ulps_f32_twin": ulps, "ulps_bf16_twin": twin_ulps}
+                    nbytes = sum(t.numel() * t.element_size() for t in inputs + tuple(got))
+                    row = {"shape": list(lvl.shape), "batch": batch, "level": level,
+                           "dtype": str(dtype).split(".")[-1], "pass": name, "kernel": kname,
+                           **err,
+                           "ms": cuda_ms(lambda: call(fused, same), reps=20),
+                           "device_ms": graph_ms(lambda: call(fused, same),
+                                                 STENCIL_GRAPH_LAUNCHES, STENCIL_GRAPH_REPLAYS),
+                           "bound_ms": bytes_bound_ms(nbytes),
+                           "plain_ms": cuda_ms(lambda: call(twins, same), reps=3, warmup=1)}
+                    row["share"] = row["bound_ms"] / row["device_ms"]
+                    if level == 0:
+                        row["plain_ops"] = device_ops(lambda: call(twins, same))
+                    print(f"coefMG stencil {row['dtype']} {tuple(lvl.shape)} b{batch} "
+                          f"L{level} {name}: {err} ms {row['ms']:.4f} device "
+                          f"{row['device_ms']:.4f} bound {row['bound_ms']:.4f} "
+                          f"({100 * row['share']:.1f} %) plain {row['plain_ms']:.3f}"
+                          + (f" ({row['plain_ops']} device ops)" if level == 0 else "")
+                          + f" [{gpu}]", flush=True)
+                    if not ok:
+                        fail(f"coefMG stencil {name} {row['dtype']} {tuple(lvl.shape)} "
+                             f"level {level}: {err} over its tolerance")
+                    if level == 0 and batch == 8 and dtype == torch.bfloat16:
+                        level0.setdefault(kname, row)
+            del state, d
+    return level0
 
 
 def phase_mlmc(device, gpu: str):
@@ -4458,6 +4619,7 @@ def main() -> None:
 
     timed("2 K1", phase_k1, device, gpu)
     timed("3 K2", phase_k2, device, gpu)
+    stencil = timed("26 coefMG stencil", phase_coefmg_stencil, device, gpu)
     k3, k3_launches = timed("7 K3", phase_k3, device, gpu)
     golden = timed("4 MLMC", phase_mlmc, device, gpu)
     sharded, sharded_checks = timed("14 sharded golden", phase_sharded_golden, device, gpu)
@@ -4530,30 +4692,30 @@ def main() -> None:
     # shapes, taken in the full-grid MLMC phase:
     # max_abs_err over its three levels; ms, plain_ms, bound_ms and
     # library_ms at level 0 (thomas: one M(w)^{-1} apply, three launches).
-    by_path = lambda k: {"golden_mlmc": golden[k], "sharded_golden_mlmc": sharded[k],
-                         "bench_pair_step": bench_launches[k],
-                         **{f"graft_entry_{name}": n[k] for name, n in graft_runs.items()},
-                         "unstructured_agglomerated_mlmc": agglomerated[k],
-                         "unstructured_nested_pair_step": nested[k],
-                         "hybrid_agglomerated_mlmc": hybrid_agglomerated[k],
-                         "hybrid_nested_pair_step": hybrid_nested[k],
-                         **{f"mesh_file_{name}_mlmc": n[k] for name, n in mesh_files.items()},
-                         "spe10_anchor": anchor[k],
-                         "spe10_full_grid": full[k], "ratio_anchor": ratio_anchor[k],
-                         "ratio_full_grid": ratio_full[k],
-                         **{f"sampler_{name}_mlmc": n[k] for name, n in samplers.items()},
-                         "static_mg_full_grid": static_full[k],
-                         "ratio_anchor_cg_schur": ratio_cg_schur[k],
-                         "minres_and_cg_schur_64_box": minres_box[k],
-                         **{f"scaled_anchor_{name}": n[k] for name, n in scaled_solvers.items()},
-                         **{f"drivers_{name}": n[k] for name, n in drivers.items()},
-                         **{f"spatial_golden_mlmc_{name}": n[k]
-                            for name, n in spatial_golden.items()},
-                         f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor[k],
-                         **{f"evidence_{name}": n[k] for name, n in evidence_runs.items()},
-                         **{f"probes_{name}": n[k] for name, n in probe_runs.items()},
-                         **{f"torchrun_{name}": n[k] for name, n in torchrun_runs.items()
-                            if k in n}}
+    paths = {"golden_mlmc": golden, "sharded_golden_mlmc": sharded,
+             "bench_pair_step": bench_launches,
+             **{f"graft_entry_{name}": n for name, n in graft_runs.items()},
+             "unstructured_agglomerated_mlmc": agglomerated,
+             "unstructured_nested_pair_step": nested,
+             "hybrid_agglomerated_mlmc": hybrid_agglomerated,
+             "hybrid_nested_pair_step": hybrid_nested,
+             **{f"mesh_file_{name}_mlmc": n for name, n in mesh_files.items()},
+             "spe10_anchor": anchor,
+             "spe10_full_grid": full, "ratio_anchor": ratio_anchor,
+             "ratio_full_grid": ratio_full,
+             **{f"sampler_{name}_mlmc": n for name, n in samplers.items()},
+             "static_mg_full_grid": static_full,
+             "ratio_anchor_cg_schur": ratio_cg_schur,
+             "minres_and_cg_schur_64_box": minres_box,
+             **{f"scaled_anchor_{name}": n for name, n in scaled_solvers.items()},
+             **{f"drivers_{name}": n for name, n in drivers.items()},
+             **{f"spatial_golden_mlmc_{name}": n
+                for name, n in spatial_golden.items()},
+             f"spatial_spe10_anchor_sp{SPATIAL_ANCHOR_SHARDS}": spatial_anchor,
+             **{f"evidence_{name}": n for name, n in evidence_runs.items()},
+             **{f"probes_{name}": n for name, n in probe_runs.items()},
+             **{f"torchrun_{name}": n for name, n in torchrun_runs.items()}}
+    by_path = lambda k: {p: n[k] for p, n in paths.items() if k in n}
     on_path = ("the full SPE10 grid, whose MLMC and ratio runs give the kernels the same shapes: "
                "every level at its production batch, float32; times at level 0")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms")
@@ -4629,6 +4791,17 @@ def main() -> None:
          "unstructured": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                              "plain_ms", "bound_ms", "bound_by", "library_ms")}
                           for r in (k2_agglomerated, k2_nested, *k2_mesh_files)]},
+        # The coefMG stencil kernels (phase 26 at the level-0 bf16 shapes;
+        # its lines give every row). They replace no Pallas kernel: on the
+        # TPU, XLA fused these passes itself.
+        *({"name": k, "route": "cuda", "source": "parelagmc_tpu_torch/csrc/coefmg_stencil.cu",
+           "replaces": None, "launches": ratio_full[k], "launches_by_path": by_path(k),
+           **{f: stencil[k][f] for f in ("pass", "ms", "device_ms", "plain_ms", "plain_ops",
+                                         "bound_ms", "share", "ulps_f32_twin",
+                                         "ulps_bf16_twin")},
+           "bound_by": "bytes", "library_ms": None,
+           "measured_on": "SPE10 level 0 (220x60x85) at batch 8, bf16"}
+          for k in ("coefmg_smooth", "coefmg_restrict", "coefmg_prolong")),
         # No path of either package draws uniforms: K3's path is its entry
         # point sample_uniforms, driven in phase 7 with the counts at 0.
         {"name": "threefry_uniform", "route": "cuda",

@@ -46,7 +46,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("thomas.cu", "threefry_normal.cu")
+SOURCES = ("thomas.cu", "threefry_normal.cu", "coefmg_stencil.cu")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,7 +54,8 @@ NVCC_FLAGS = (
 )
 
 launch_counts: Dict[str, int] = trace.counters(
-    "kernel", ("thomas", "threefry_normal", "threefry_uniform"))
+    "kernel", ("thomas", "threefry_normal", "threefry_uniform", "coefmg_smooth",
+               "coefmg_restrict", "coefmg_prolong"))
 
 _LIB: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build
@@ -131,7 +132,7 @@ def library() -> types.SimpleNamespace:
     """The kernels' C entry points, by name (built on first call)."""
     global _LIB
     if _LIB is None:
-        thomas, threefry = (ctypes.CDLL(p) for p in build_library())
+        thomas, threefry, stencil = (ctypes.CDLL(p) for p in build_library())
         vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
         fns = {}
         # int thomas_lines_{f32,f64,bf16}(dl, d, du, b, x, n, L, J, O, sO, sB,
@@ -156,6 +157,18 @@ def library() -> types.SimpleNamespace:
             fn.restype = i32
             fn.argtypes = [u32, u32, vp, i64, vp]
             fns[name] = fn
+        # int coefmg_smooth_{f32,f64,bf16}(mode, last, ptrs, strides, dims,
+        #     scal, stream); int coefmg_{restrict,prolong}_*(ptrs, strides,
+        #     dims, stream): arrays of pointers, int64 and double.
+        pp, p64, pd = ctypes.POINTER(vp), ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_double)
+        for sfx in ("f32", "f64", "bf16"):
+            for name, args in ((f"coefmg_smooth_{sfx}", [i32, i32, pp, p64, p64, pd, vp]),
+                               (f"coefmg_restrict_{sfx}", [pp, p64, p64, vp]),
+                               (f"coefmg_prolong_{sfx}", [pp, p64, p64, vp])):
+                fn = getattr(stencil, name)
+                fn.restype = i32
+                fn.argtypes = args
+                fns[name] = fn
         _LIB = types.SimpleNamespace(**fns)
     return _LIB
 

@@ -7,8 +7,8 @@ the masked mass-diagonal inverse dinv0 (one value per face, 0 at essential
 faces): every MG level's per-axis face conductances follow from dinv0 by
 static plane selection (Galerkin P0 RAP) or series composition (harmonic)
 along the face axis and group sums across it, so the whole coefficient
-dependence is a handful of face vectors per level. Every device operation
-is a slice, a pad, a reshape-sum or a repeat:
+dependence is a handful of face vectors per level. In plain PyTorch every
+operation is a slice, a pad, a reshape-sum or a repeat:
 
 * S x on the cell grid: flux t_k = dinv_k (x_{k-1} - x_k) with a zero pad,
   then (S x)_i = t_{i+1} - t_i, per axis;
@@ -30,10 +30,17 @@ The reference's MISCOMPILE GUARD (moveaxis forms of the transfer helpers)
 worked around XLA:TPU and is not carried over: the helpers below act on the
 axis in place.
 
+The cycle runs its grid passes through five fused steps (`_cheb_first`,
+`_cheb_step`, `_jacobi`, `_residual_restrict`, `_prolong_add`): on a card
+each is one hand-written kernel (csrc/coefmg_stencil.cu, launched by
+ops/coefmg_stencil.py; counters `kernel.coefmg_smooth`,
+`kernel.coefmg_restrict`, `kernel.coefmg_prolong`), about 30 launches a
+cycle; on the CPU each is its plain twin, the same arithmetic in the
+PyTorch ops above (counter `coefmg.eager_passes`).
+
 A cycle has no data-dependent host read, so on a card the Darcy
 preconditioner replays it as one CUDA graph (`GraphedVCycle`): the same
-few hundred small kernels in the same order on every call, issued by one
-launch.
+kernels in the same order on every call, issued by one launch.
 `VCycleGraphs` holds a solver's graphs by the shapes and settings they were
 captured for; the first solve of each key runs eagerly, its second captures,
 and every later one loads its state into the graph's static copy and
@@ -55,6 +62,7 @@ import torch.nn.functional as F
 
 from parelagmc_tpu_torch.fem.hierarchy import derefine_axis
 from parelagmc_tpu_torch.mesh.structured import StructuredMesh
+from parelagmc_tpu_torch.ops import coefmg_stencil
 from parelagmc_tpu_torch.ops.coef_multigrid import in_precision
 from parelagmc_tpu_torch.ops.tridiag_pallas import thomas
 from parelagmc_tpu_torch.utils import trace
@@ -320,6 +328,88 @@ def _prolong_cells(x: torch.Tensor, lvl: StructMGLevel) -> torch.Tensor:
     return x
 
 
+# -- the cycle's fused passes ---------------------------------------------------
+# Each is one kernel of csrc/coefmg_stencil.cu for CUDA tensors
+# (ops/coefmg_stencil.py, counted under kernel.coefmg_*) and its plain
+# twin (`*_plain`, counted under coefmg.eager_passes), the same arithmetic
+# in PyTorch ops, for CPU tensors.
+
+
+def _cheb_first(dinv_axes, idiag, b, x, inv_theta: float):
+    """A Chebyshev sweep's start: (r, dvec) with r = b - S x (b where x is
+    None) and dvec = inv_theta idiag r."""
+    if b.is_cuda:
+        return coefmg_stencil.smooth(coefmg_stencil.FIRST, dinv_axes, idiag, b, x, w=inv_theta)
+    return _cheb_first_plain(dinv_axes, idiag, b, x, inv_theta)
+
+
+def _cheb_first_plain(dinv_axes, idiag, b, x, inv_theta: float):
+    _COEFMG["eager_passes"] += 1
+    r = b if x is None else b - _s_apply_grid(dinv_axes, x)
+    return r, inv_theta * idiag * r
+
+
+def _cheb_step(dinv_axes, idiag, x, r, dvec, a: float, c: float, last: bool):
+    """One Chebyshev step: x + dvec (x None: 0), r - S dvec and
+    a dvec + c idiag r' as (x, r, dvec); with `last`, that x plus that dvec
+    alone (the sweep's result)."""
+    if r.is_cuda:
+        return coefmg_stencil.smooth(coefmg_stencil.STEP, dinv_axes, idiag, r, x, dvec, a=a,
+                                     c=c, last=last)
+    return _cheb_step_plain(dinv_axes, idiag, x, r, dvec, a, c, last)
+
+
+def _cheb_step_plain(dinv_axes, idiag, x, r, dvec, a: float, c: float, last: bool):
+    _COEFMG["eager_passes"] += 1
+    x = (torch.zeros_like(dvec) if x is None else x) + dvec
+    r = r - _s_apply_grid(dinv_axes, dvec)
+    dvec = a * dvec + c * (idiag * r)
+    return x + dvec if last else (x, r, dvec)
+
+
+def _jacobi(dinv_axes, idiag, b, x, omega: float):
+    """A damped Jacobi sweep x + omega idiag (b - S x); omega idiag b where
+    x is None."""
+    if b.is_cuda:
+        return coefmg_stencil.smooth(coefmg_stencil.JACOBI, dinv_axes, idiag, b, x, w=omega)
+    return _jacobi_plain(dinv_axes, idiag, b, x, omega)
+
+
+def _jacobi_plain(dinv_axes, idiag, b, x, omega: float):
+    _COEFMG["eager_passes"] += 1
+    if x is None:
+        return omega * idiag * b
+    return x + omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+
+
+def _residual_restrict(dinv_axes, b, x, lvl: Optional[StructMGLevel] = None):
+    """b - S x, group-summed onto the cells of the coarser level `lvl`
+    (None: the residual itself)."""
+    if b.is_cuda:
+        fine = tuple(b.shape[b.dim() - len(dinv_axes):])[::-1]
+        coarse = fine if lvl is None else lvl.shape
+        return coefmg_stencil.residual_restrict(dinv_axes, b, x, fine, coarse)
+    return _residual_restrict_plain(dinv_axes, b, x, lvl)
+
+
+def _residual_restrict_plain(dinv_axes, b, x, lvl: Optional[StructMGLevel] = None):
+    _COEFMG["eager_passes"] += 1
+    r = b - _s_apply_grid(dinv_axes, x)
+    return r if lvl is None else _restrict_cells(r, lvl)
+
+
+def _prolong_add(x, xc, lvl: StructMGLevel):
+    """x plus xc repeated over each coarse cell's group of `lvl`."""
+    if x.is_cuda:
+        return coefmg_stencil.prolong_add(x, xc, lvl.fine_shape, lvl.shape)
+    return _prolong_add_plain(x, xc, lvl)
+
+
+def _prolong_add_plain(x, xc, lvl: StructMGLevel):
+    _COEFMG["eager_passes"] += 1
+    return x + _prolong_cells(xc, lvl)
+
+
 def _cheb_smooth_grid(mg: StructCoefMG, dinv_axes, idiag, b, x):
     """Order-k Chebyshev(Jacobi) sweep on [cheby_lo * 2, 2] of D^{-1} S."""
     lam_max = 2.0
@@ -328,19 +418,18 @@ def _cheb_smooth_grid(mg: StructCoefMG, dinv_axes, idiag, b, x):
     delta = 0.5 * (lam_max - lam_min)
     sigma = theta / delta
     rho = 1.0 / sigma
-    if x is None:
-        r = b
-        x = torch.zeros_like(b)
-    else:
-        r = b - _s_apply_grid(dinv_axes, x)
-    dvec = (1.0 / theta) * idiag * r
-    for _ in range(mg.cheby_order - 1):
-        x = x + dvec
-        r = r - _s_apply_grid(dinv_axes, dvec)
+    r, dvec = _cheb_first(dinv_axes, idiag, b, x, 1.0 / theta)
+    steps = mg.cheby_order - 1
+    if steps == 0:
+        return (torch.zeros_like(b) if x is None else x) + dvec
+    for k in range(steps):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        dvec = (rho_new * rho) * dvec + (2.0 * rho_new / delta) * (idiag * r)
+        out = _cheb_step(dinv_axes, idiag, x, r, dvec, rho_new * rho, 2.0 * rho_new / delta,
+                         last=k == steps - 1)
         rho = rho_new
-    return x + dvec
+        if k < steps - 1:
+            x, r, dvec = out
+    return out
 
 
 def _line_solve(tables, r: torch.Tensor, a: int) -> torch.Tensor:
@@ -373,7 +462,7 @@ def _line_smooth_grid(mg: StructCoefMG, dinv_axes, lines, b, x, reverse: bool):
         if x is None:
             x = mg.line_omega * _line_solve(lines[i], b, a)
         else:
-            r = b - _s_apply_grid(dinv_axes, x)
+            r = _residual_restrict(dinv_axes, b, x)
             x = x + mg.line_omega * _line_solve(lines[i], r, a)
     return x
 
@@ -398,30 +487,29 @@ def _v_cycle_level(mg: StructCoefMG, state, b: torch.Tensor, sweeps: int, level:
                 x = _line_smooth_grid(mg, dinv_axes, lines, b, x, False)
                 x = _line_smooth_grid(mg, dinv_axes, lines, b, x, True)
             return x
-        x = mg.omega * idiag * b
+        x = _jacobi(dinv_axes, idiag, b, None, mg.omega)
         for _ in range(mg.coarse_sweeps - 1):
-            x = x + mg.omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+            x = _jacobi(dinv_axes, idiag, b, x, mg.omega)
         return x
     # Pre-smoothing: point/Chebyshev, then lines forward; post-smoothing the
     # mirror (lines reversed, then point/Chebyshev).
     if cheby:
         x = _cheb_smooth_grid(mg, dinv_axes, idiag, b, None)
     else:
-        x = mg.omega * idiag * b
+        x = _jacobi(dinv_axes, idiag, b, None, mg.omega)
         for _ in range(sweeps - 1):
-            x = x + mg.omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+            x = _jacobi(dinv_axes, idiag, b, x, mg.omega)
     if use_lines:
         x = _line_smooth_grid(mg, dinv_axes, lines, b, x, reverse=False)
-    r = b - _s_apply_grid(dinv_axes, x)
     nxt = mg.levels[level + 1]
-    xc = _v_cycle_grid(mg, state, _restrict_cells(r, nxt), sweeps, level + 1)
-    x = x + _prolong_cells(xc, nxt)
+    xc = _v_cycle_grid(mg, state, _residual_restrict(dinv_axes, b, x, nxt), sweeps, level + 1)
+    x = _prolong_add(x, xc, nxt)
     if use_lines:
         x = _line_smooth_grid(mg, dinv_axes, lines, b, x, reverse=True)
     if cheby:
         return _cheb_smooth_grid(mg, dinv_axes, idiag, b, x)
     for _ in range(sweeps):
-        x = x + mg.omega * idiag * (b - _s_apply_grid(dinv_axes, x))
+        x = _jacobi(dinv_axes, idiag, b, x, mg.omega)
     return x
 
 
@@ -502,8 +590,9 @@ class GraphedVCycle:
     (`load` puts a solve's in them) and of r, and the graph with its
     output. A call copies r in, replays and returns a clone of the output
     (the caller may keep it across the next call: pcg's first p is its z).
-    K1 launches that the capture recorded are added to the `kernel`
-    counters at each replay, not at the capture, which launched nothing."""
+    Kernel launches that the capture recorded (the fused passes, K1) are
+    added to the `kernel` counters at each replay, not at the capture,
+    which launched nothing."""
 
     def __init__(self, mg: StructCoefMG, state, r: torch.Tensor, sweeps: int,
                  pdt: Optional[torch.dtype]):

@@ -21,7 +21,8 @@ each: `kernel` (the launches of the CUDA kernels; the dict is
 `restarts`; `extra_iterations`, the trips a PCG with a `loose_rtol` ran
 after every row had met it), `host_syncs` (one per entry of a `wait` site, by site),
 `coefmg` (the structured V-cycle's `graph_captures`, `graph_replays`,
-`eager_cycles`; ops/coef_multigrid_structured.py) and `trace` (`dropped`).
+`eager_cycles`, and `eager_passes`, its passes run as plain twins;
+ops/coef_multigrid_structured.py) and `trace` (`dropped`).
 `counter_values()` flattens them to `group.name`.
 
 PARELAGMC_BATCH_TRACE=1 (read once, at import) also makes each manager
@@ -61,7 +62,8 @@ def counter_values() -> Dict[str, int]:
 
 
 _KRYLOV = counters("krylov", ("iterations", "restarts", "extra_iterations"))
-_COEFMG = counters("coefmg", ("graph_captures", "graph_replays", "eager_cycles"))
+_COEFMG = counters("coefmg", ("graph_captures", "graph_replays", "eager_cycles",
+                              "eager_passes"))
 _SYNCS = counters("host_syncs")
 _TRACE = counters("trace", ("dropped",))
 

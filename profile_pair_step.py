@@ -78,7 +78,7 @@ PROFILER_ATTEMPTS = 3  # sessions tried before a layer is reported without devic
 # two device functions in csrc/thomas.cu, the Thomas path for strided rows
 # and the segment path for contiguous rows; K2/K3 share one.
 KERNEL_TAGS = (("line_solve_kernel", "K1 thomas"), ("segment_solve_kernel", "K1 thomas"),
-               ("threefry_kernel", "K2/K3 threefry"))
+               ("threefry_kernel", "K2/K3 threefry"), ("coefmg_", "coefMG stencil"))
 # --k1: (n, L) of the single-vector line tables; (n, L, R, dtypes) of the
 # tables shared by R right-hand sides; (cells, batch, dtypes) of M(w)^{-1}.
 K1_LINE_TABLES = ((110, 161280), (42, 422400))
