@@ -26,6 +26,10 @@ with the SOLVED axis first, (n_a, batch..., others...) contiguous - the
 (n, L) layout K1 reads coalesced - so no sweep permutes them; the
 right-hand side of each line solve is moved into that layout and back.
 
+A SolverConfig's coefMG settings are read here alone (`ladder_settings`,
+`struct_coef_mg_for`, `cycle_settings`), for physics/darcy.py and
+parallel/spatial_darcy.py alike.
+
 The reference's MISCOMPILE GUARD (moveaxis forms of the transfer helpers)
 worked around XLA:TPU and is not carried over: the helpers below act on the
 axis in place.
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import itertools
+import warnings
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -120,6 +125,60 @@ def build_struct_coef_mg(mesh, cutoff: int = 5000, coarse_sweeps: int = 8, omega
         line_omega=float(line_omega),
         coarsen=str(coarsen),
     )
+
+
+def ladder_settings(scfg, slabs: Optional[int] = None) -> dict:
+    """The ladder keywords of SolverConfig `scfg` that build_struct_coef_mg
+    and the gather form's build_coef_mg share. For one of `slabs` y-slabs of
+    the spatially sharded solve the coarsest size scales with 1/slabs (at
+    least 256), so the slabs' coarsest levels add up to the whole grid's."""
+    cutoff = scfg.coarse_dense_cutoff
+    if slabs is not None:
+        cutoff = max(256, int(cutoff) // slabs)
+    return dict(cutoff=cutoff, coarse_sweeps=max(1, scfg.mg_coarse_sweeps),
+                omega=scfg.coefmg_omega, cheby_order=scfg.coefmg_cheby_order,
+                cheby_lo=scfg.coefmg_cheby_lo)
+
+
+def struct_coef_mg_for(mesh, scfg, kinv: Optional[np.ndarray] = None,
+                       slabs: Optional[int] = None) -> StructCoefMG:
+    """The StructCoefMG ladder of SolverConfig `scfg` below `mesh`, its line
+    axes parsed against `mesh` and `kinv`. On one of `slabs` y-slabs (see
+    ladder_settings) "auto" line axes, which need the reference
+    coefficient, warn and run without line relaxation."""
+    spec = scfg.coefmg_line_axes
+    if slabs is not None and spec.strip().lower() == "auto":
+        warnings.warn(
+            "coefmg_line_axes='auto' is unavailable on the spatially-sharded path (auto "
+            "selection needs the reference coefficient); running WITHOUT line relaxation. "
+            "Pass explicit letters (e.g. 'xz') to keep line smoothing under spatial_shards.",
+            stacklevel=3)
+        spec = ""
+    return build_struct_coef_mg(mesh, line_axes=parse_line_axes(spec, mesh, kinv),
+                                line_omega=scfg.coefmg_line_omega, coarsen=scfg.coefmg_coarsen,
+                                **ladder_settings(scfg, slabs))
+
+
+class CycleSettings(NamedTuple):
+    """The per-solve settings of a SolverConfig's coefMG preconditioner."""
+
+    sweeps: int  # pre/post Jacobi sweeps a grid level (coefmg_sweeps, at least 1)
+    cycles: int  # V-cycles composed a preconditioner apply (coefmg_cycles, at least 1)
+    dtype: Optional[torch.dtype]  # the state's (coefmg_prec_dtype; None: the solve's own)
+
+
+PREC_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+               "float64": torch.float64}
+
+
+def cycle_settings(scfg) -> CycleSettings:
+    """SolverConfig `scfg`'s CycleSettings; an unknown coefmg_prec_dtype
+    raises ValueError."""
+    name = scfg.coefmg_prec_dtype
+    if name and name not in PREC_DTYPES:
+        raise ValueError(f"coefmg_prec_dtype {name!r}: expected one of {sorted(PREC_DTYPES)}")
+    return CycleSettings(max(1, int(scfg.coefmg_sweeps)), max(1, int(scfg.coefmg_cycles)),
+                         PREC_DTYPES[name] if name else None)
 
 
 def parse_line_axes(spec: str, mesh, kinv: Optional[np.ndarray]) -> Tuple[int, ...]:

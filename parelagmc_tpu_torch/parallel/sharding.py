@@ -38,7 +38,7 @@ def sample_mesh_from_config(config, device=None) -> Optional["SampleMesh"]:
     else torch.cuda.device_count() for a CUDA `device` and 1 for the CPU,
     so -1 on one device runs one shard keyed fold_in(key, 0), as the
     reference's one-device mesh does."""
-    n = int(getattr(config, "sample_shards", 0) or 0)
+    n = config.sample_shards
     if n in (0, 1):
         return None
     if n < -1:

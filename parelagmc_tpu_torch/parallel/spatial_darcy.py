@@ -40,12 +40,12 @@ tests/test_torch_spatial_darcy.py; on the card: chip_smoke.py phase 21.
 
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from parelagmc_tpu_torch.config import SolverConfig
 from parelagmc_tpu_torch.device import resolve_device
 from parelagmc_tpu_torch.fem.assembly import build_mixed_level
 from parelagmc_tpu_torch.mesh.factories import make_box_mesh
@@ -54,9 +54,9 @@ from parelagmc_tpu_torch.ops.coef_multigrid_structured import (
     _prolong_cells,
     _restrict_cells,
     _v_cycle_grid,
-    build_struct_coef_mg,
     cast_state,
-    parse_line_axes,
+    cycle_settings,
+    struct_coef_mg_for,
     struct_mg_setup,
     struct_s_apply,
     struct_v_cycle,
@@ -160,23 +160,6 @@ def spike_tridiag_solve(dl, d, du, b, comm, dim: int = Y) -> torch.Tensor:
     return spike_tridiag_apply(spike_tridiag_factor(dl, d, du, comm, dim), b, comm, dim)
 
 
-def _parse_line_axes_compat(scfg, mesh) -> tuple:
-    """config.coefmg_line_axes on the spatial path: explicit letters only
-    ("auto" needs the reference coefficient, not at hand here: it warns and
-    runs without line relaxation)."""
-    spec = (getattr(scfg, "coefmg_line_axes", "") or "").strip().lower()
-    if spec == "auto":
-        warnings.warn(
-            "coefmg_line_axes='auto' is unavailable on the spatially-sharded path (auto "
-            "selection needs the reference coefficient); running WITHOUT line relaxation. "
-            "Pass explicit letters (e.g. 'xz') to keep line smoothing under spatial_shards.",
-            stacklevel=2)
-        return ()
-    if not spec:
-        return ()
-    return parse_line_axes(spec, mesh, None)
-
-
 class _Grids(NamedTuple):
     """Static slab grids, each (n_local, 1, ...) with the cut axis at -2:
     cells (nz, m, nx), x faces (nz, m, nx+1), slab-owned y faces (nz, m, nx:
@@ -211,21 +194,26 @@ class SpatialDarcy:
     problem. Restrictions: both y boundaries essential (ValueError), and ny
     padded up to a multiple of n_sp with decoupled identity cells. It runs
     distributed (parallel/slabs.py) when a process group is up whose world
-    size is n_sp * n_dp, else stacked. `device` None means cuda:0.
+    size is n_sp * n_dp, else stacked. `device` None means cuda:0. The
+    Krylov settings and the preconditioner come from `solver_cfg` (None:
+    the defaults): under cg-schur-coefmg the slab coefMG, whose ladders and
+    cycle its coefMG settings build as they do the replicated level's
+    (ops/coef_multigrid_structured; line relaxation along y becomes
+    slab-local lines, a Schwarz block smoother), else Jacobi.
     """
 
     def __init__(self, mesh, blocks, ess_attr: np.ndarray, rhs: np.ndarray, obs: np.ndarray,
                  sbar_diag: np.ndarray, n_sp: int = 8, dtype: torch.dtype = torch.float32,
-                 max_iters: int = 300, rtol: float = 1e-6, ess: Optional[np.ndarray] = None,
-                 n_dp: int = 1, precond: str = "jacobi", mg_opts: Optional[dict] = None,
-                 restart_every: int = 50, device=None):
+                 ess: Optional[np.ndarray] = None, n_dp: int = 1,
+                 solver_cfg: Optional[SolverConfig] = None, device=None):
+        scfg = solver_cfg if solver_cfg is not None else SolverConfig()
         self.device = resolve_device(device)
         self.comm = slab_comm(n_sp, n_dp)
         self.n_sp, self.n_dp = int(n_sp), int(n_dp)
-        self.restart_every = int(restart_every)
+        self.restart_every = int(scfg.restart_every)
         self.dtype = dtype
-        self.max_iters = int(max_iters)
-        self.rtol = float(rtol)
+        self.max_iters = int(scfg.max_iterations)
+        self.rtol = float(scfg.relative_tolerance)
         if mesh.dim != 3:
             raise ValueError("SpatialDarcy implements the 3D grid layout")
         nx, ny, nz = mesh.shape
@@ -239,19 +227,12 @@ class SpatialDarcy:
         self.pad = (-ny) % self.n_sp
         self.ny_pad = ny + self.pad
         self.m = self.ny_pad // self.n_sp
-        self.precond = precond
+        self.precond = "coefmg" if scfg.name == "cg-schur-coefmg" else "jacobi"
         self.global_mg = None
-        if precond == "coefmg":
-            o = dict(mg_opts or {})
-            self.mg_cycles = max(1, int(o.pop("cycles", 1)))
-            self.mg_sweeps = max(1, int(o.pop("sweeps", 2)))
-            self.mg_prec_dtype = o.pop("prec_dtype", "") or None
-            two_level = bool(o.pop("two_level", True))
-            # The slab ladder's cutoff scales with 1/n_sp, so the slabs'
-            # coarsest levels add up to the replicated ladder's.
-            o_slab = dict(o)
-            o_slab["cutoff"] = max(256, int(o.get("cutoff", 5000)) // self.n_sp)
-            self.slab_mg = build_struct_coef_mg(make_box_mesh((nx, self.m, nz)), **o_slab)
+        if self.precond == "coefmg":
+            self.cycle = cycle_settings(scfg)
+            self.slab_mg = struct_coef_mg_for(make_box_mesh((nx, self.m, nz)), scfg,
+                                              slabs=self.n_sp)
             # Two-level Schwarz: hand off at the deepest slab level whose y
             # coarsening stays pair-aligned in every slab; there the slabs'
             # coarse grids tile the whole grid's, which a global ladder takes on.
@@ -261,12 +242,9 @@ class SpatialDarcy:
                 if lv[k - 1].shape[1] % 2 or lv[k].shape[1] * 2 != lv[k - 1].shape[1]:
                     break
                 self.k_handoff = k
-            if two_level and self.k_handoff > 0:
+            if self.k_handoff > 0:
                 gx, gy, gz = lv[self.k_handoff].shape
-                self.global_mg = build_struct_coef_mg(make_box_mesh((gx, self.n_sp * gy, gz)),
-                                                      **o)
-        elif precond != "jacobi":
-            raise ValueError(f"unknown precond {precond!r}")
+                self.global_mg = struct_coef_mg_for(make_box_mesh((gx, self.n_sp * gy, gz)), scfg)
         self.n_u = mesh.num_faces
         self.n_s = mesh.num_cells
         fo = tuple(int(x) for x in mesh.face_offsets)
@@ -364,38 +342,20 @@ class SpatialDarcy:
     @classmethod
     def from_darcy(cls, solver, level: int, **kw):
         """Build from a DarcySolver level: the same blocks, BCs, rhs, QoI
-        functional and Krylov settings, on the solver's device and in its
+        functional and solver settings, on the solver's device and in its
         dtype unless `device` / `dtype` say otherwise."""
         mesh = solver.hierarchy.levels[level].mesh
         L = solver.levels[level]
         scfg = solver.solver_cfg
         host = lambda t: t.detach().cpu().numpy()
-        kw.setdefault("precond", "coefmg" if scfg.name == "cg-schur-coefmg" else "jacobi")
-        kw.setdefault("mg_opts", {
-            "cutoff": scfg.coarse_dense_cutoff,
-            "coarse_sweeps": max(1, scfg.mg_coarse_sweeps),
-            "omega": getattr(scfg, "coefmg_omega", 0.8),
-            "cheby_order": getattr(scfg, "coefmg_cheby_order", 0),
-            "cheby_lo": getattr(scfg, "coefmg_cheby_lo", 0.25),
-            "cycles": max(1, getattr(scfg, "coefmg_cycles", 1)),
-            "sweeps": max(1, getattr(scfg, "coefmg_sweeps", 2)),
-            "prec_dtype": getattr(scfg, "coefmg_prec_dtype", ""),
-            # Line relaxation along y becomes slab-local lines (a Schwarz
-            # block smoother); "auto" resolves to () here.
-            "line_axes": _parse_line_axes_compat(scfg, mesh),
-            "line_omega": getattr(scfg, "coefmg_line_omega", 1.0),
-            "coarsen": getattr(scfg, "coefmg_coarsen", "galerkin"),
-        })
         kw.setdefault("device", solver.device)
         kw.setdefault("dtype", solver.dtype)
         # diag(S_bar) feeds the Jacobi preconditioner alone: its assembly
         # (seconds of host work at SPE10 scale) is skipped under coefMG.
-        sdiag = solver.sbar_diag_np(level) if kw["precond"] == "jacobi" else None
+        sdiag = None if scfg.name == "cg-schur-coefmg" else solver.sbar_diag_np(level)
         return cls(mesh, solver.level_blocks(level), np.asarray(solver.config.ess_attr[:6]),
                    host(L.rhs).astype(np.float64), host(L.obs_func).astype(np.float64),
-                   sdiag, max_iters=scfg.max_iterations,
-                   rtol=scfg.relative_tolerance, ess=host(L.ess),
-                   restart_every=int(getattr(scfg, "restart_every", 50) or 0), **kw)
+                   sdiag, ess=host(L.ess), solver_cfg=scfg, **kw)
 
     # -- slab operators ---------------------------------------------------------
     def _minv_factor(self, g: _Grids, w, w_dn):
@@ -460,7 +420,7 @@ class SpatialDarcy:
                   torch.cat([diag_low, diag_top], dim=Y))
         lead = w.shape[:2]
         flat = torch.cat([t.reshape(lead + (-1,)) for t in (dx, dy, dz)], dim=-1)
-        pdt = getattr(torch, self.mg_prec_dtype) if self.mg_prec_dtype else None
+        pdt = self.cycle.dtype
         cast = (lambda st: st) if pdt is None else (lambda st: cast_state(st, pdt))
         state = cast(struct_mg_setup(self.slab_mg, flat))
         if self.global_mg is None:
@@ -482,13 +442,13 @@ class SpatialDarcy:
         restricted and prolonged through the slab ladder's own transfers."""
         state, gstate = states
         rdt = r.dtype
-        if self.mg_prec_dtype is not None:
-            r = r.to(getattr(torch, self.mg_prec_dtype))
+        if self.cycle.dtype is not None:
+            r = r.to(self.cycle.dtype)
         lead = r.shape[:2]
         rf = r.reshape(lead + (-1,))
-        cycle = lambda b: struct_v_cycle(self.slab_mg, state, b, sweeps=self.mg_sweeps)
+        cycle = lambda b: struct_v_cycle(self.slab_mg, state, b, sweeps=self.cycle.sweeps)
         z = cycle(rf)
-        for _ in range(self.mg_cycles - 1):
+        for _ in range(self.cycle.cycles - 1):
             z = z + cycle(rf - struct_s_apply(self.slab_mg, state, z))
         z = z.reshape(r.shape)
         if gstate is None:
@@ -499,7 +459,7 @@ class SpatialDarcy:
         ag = self.comm.all_gather(rc)  # (n_sp, B, z, m_k, x)
         m_k = ag.shape[Y]
         zg = _v_cycle_grid(self.global_mg, gstate, ag.movedim(0, -3).flatten(-3, -2),
-                           self.mg_sweeps, 0)
+                           self.cycle.sweeps, 0)
         zc = zg.unflatten(-2, (self.n_sp, m_k)).movedim(-3, 0)[self.comm.slabs[0]:][
             : self.comm.n_local]
         for lvl in range(self.k_handoff, 0, -1):

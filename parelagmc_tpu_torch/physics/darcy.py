@@ -57,6 +57,7 @@ phase 13 of chip_smoke.py drives every solver.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import warnings
 from typing import Dict, List, Optional
@@ -90,9 +91,10 @@ from parelagmc_tpu_torch.ops.coef_multigrid import (
 )
 from parelagmc_tpu_torch.ops.coef_multigrid_structured import (
     VCycleGraphs,
-    build_struct_coef_mg,
     cast_state,
-    parse_line_axes,
+    cycle_settings,
+    ladder_settings,
+    struct_coef_mg_for,
     struct_mg_setup,
     struct_s_apply,
 )
@@ -110,8 +112,6 @@ from parelagmc_tpu_torch.ops.tensorsolve import TensorEig, build_tensor_solver, 
 from parelagmc_tpu_torch.utils import trace
 
 _SOLVERS = ("cg-schur", "cg-schur-diag", "cg-schur-exact", "cg-schur-coefmg", "minres-bj")
-_PREC_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-                "float64": torch.float64}
 # The meanfield setup solve may continue through up to this many bounded
 # executions of max_iterations each in the reference
 # (parelagmc_tpu/physics/darcy.py:797); here
@@ -240,9 +240,7 @@ def _check_config(config: ProblemConfig) -> None:
     cfg = config.darcy_solver
     if cfg.name not in _SOLVERS:
         raise ValueError(f"darcy solver {cfg.name!r}: expected one of {_SOLVERS}")
-    pdt = getattr(cfg, "coefmg_prec_dtype", "")
-    if pdt and pdt not in _PREC_DTYPES:
-        raise ValueError(f"coefmg_prec_dtype {pdt!r}: expected one of {sorted(_PREC_DTYPES)}")
+    cycle_settings(cfg)  # an unknown coefmg_prec_dtype raises
 
 
 def _kinv_levels(hierarchy: GeometricHierarchy, config: ProblemConfig,
@@ -259,7 +257,7 @@ def _kinv_levels(hierarchy: GeometricHierarchy, config: ProblemConfig,
     kinv_ref = np.asarray(kinv_ref, dtype=np.float64)
     if kinv_ref.ndim == 1:
         kinv_ref = np.repeat(kinv_ref[:, None], d, axis=1)
-    if getattr(config, "coarse_operators", "galerkin") == "galerkin":
+    if config.coarse_operators == "galerkin":
         chain, p_weights = galerkin_block_chain([lvl.mesh for lvl in hierarchy.levels], kinv_ref)
         kinv_levels = [effective_kinv(hierarchy.levels[l].mesh, chain[l]) for l in range(n)]
         return kinv_levels, chain, p_weights
@@ -368,25 +366,12 @@ class DarcySolver:
             self._nnz.append(int(np.sum(m_vals != 0)) + 2 * int(np.sum(cell_signs != 0)))
             coef_mg = None
             if cfg.name == "cg-schur-coefmg":
-                mg_kw = dict(
-                    cutoff=cfg.coarse_dense_cutoff,
-                    coarse_sweeps=max(1, cfg.mg_coarse_sweeps),
-                    omega=getattr(cfg, "coefmg_omega", 0.8),
-                    cheby_order=getattr(cfg, "coefmg_cheby_order", 0),
-                    cheby_lo=getattr(cfg, "coefmg_cheby_lo", 0.25),
-                )
-                if getattr(cfg, "coefmg_impl", "auto") == "gather":
+                if cfg.coefmg_impl == "gather":
                     # The generic gather tables (the slicing form's oracle).
-                    coef_mg = build_coef_mg(lvl.mesh, ess, dtype=dtype, device=dev, **mg_kw)
+                    coef_mg = build_coef_mg(lvl.mesh, ess, dtype=dtype, device=dev,
+                                            **ladder_settings(cfg))
                 else:
-                    coef_mg = build_struct_coef_mg(
-                        lvl.mesh,
-                        line_axes=parse_line_axes(getattr(cfg, "coefmg_line_axes", ""),
-                                                  lvl.mesh, kinv),
-                        line_omega=getattr(cfg, "coefmg_line_omega", 1.0),
-                        coarsen=getattr(cfg, "coefmg_coarsen", "galerkin"),
-                        **mg_kw,
-                    )
+                    coef_mg = struct_coef_mg_for(lvl.mesh, cfg, kinv)
             schur_mg = sbar_dinv = kinv_cell = None
             kinv_logmean = 0.0
             if kinv is not None:
@@ -437,13 +422,12 @@ class DarcySolver:
         self._parent = [as_t(p, torch.int64) for p in hierarchy.parent]
         # Spatially sharded solvers of config spatial_shards, built at first use.
         self._spatial_cache: Dict[tuple, object] = {}
-        n_spatial = int(getattr(cfg, "spatial_shards", 0) or 0)
-        if n_spatial > 1 and cfg.name == "minres-bj":
+        if cfg.spatial_shards > 1 and cfg.name == "minres-bj":
             # Falling back to the replicated solve would defeat the reason
             # spatial_shards exists (a device's memory at SPE10 scale).
             raise ValueError("spatial_shards requires a cg-schur-family solver; "
                              "minres-bj solves the full saddle system replicated")
-        if int(getattr(cfg, "spatial_sample_shards", 1) or 1) > 1 and n_spatial <= 1:
+        if cfg.spatial_sample_shards > 1 and cfg.spatial_shards <= 1:
             warnings.warn("spatial_sample_shards > 1 has no effect without spatial_shards > 1 "
                           "(no (dp, sp) sharding is built)", stacklevel=2)
 
@@ -505,8 +489,7 @@ class DarcySolver:
         """Does the MLMC pair at this level run the adjoint-corrected QoI,
         with the coarse adjoint warm-starting the fine one? False under
         minres-bj (the saddle-system MINRES has no Schur adjoint path)."""
-        return (bool(getattr(self.solver_cfg, "adjoint_qoi", False))
-                and self.solver_cfg.name != "minres-bj")
+        return self.solver_cfg.adjoint_qoi and self.solver_cfg.name != "minres-bj"
 
     def solve_fwd(self, level: int, w: torch.Tensor, return_pressure: bool = False,
                   return_adjoint: bool = False, max_iters: Optional[int] = None,
@@ -530,12 +513,12 @@ class DarcySolver:
                                            return_adjoint=return_adjoint, max_iters=max_iters,
                                            rtol=rtol)
             if self.solver_cfg.name == "minres-bj":
-                if getattr(self.solver_cfg, "adjoint_qoi", False):
+                if self.solver_cfg.adjoint_qoi:
                     raise NotImplementedError("adjoint_qoi applies to the cg-schur solver family")
                 return self._solve_minres(self.levels[level], w, return_pressure, max_iters,
                                           rtol=rtol)
             x0 = lam0 = None
-            if getattr(self.solver_cfg, "meanfield_x0", False):
+            if self.solver_cfg.meanfield_x0:
                 sp.note("start", "mean-field")
                 p_ref, lam_ref = self._meanfield_start(level)
                 batch = w.shape[:-1]
@@ -552,7 +535,7 @@ class DarcySolver:
         initial iterate of config.meanfield_x0."""
         if level not in self._mf_cache:
             L = self.levels[level]
-            adjoint = bool(getattr(self.solver_cfg, "adjoint_qoi", False))
+            adjoint = self.solver_cfg.adjoint_qoi
             ones = torch.ones((1, L.n_s), dtype=self.dtype, device=self.device)
             out = self._solve_cg_schur(
                 L, ones, True, return_adjoint=adjoint,
@@ -567,18 +550,8 @@ class DarcySolver:
         with lam_c, the level+1 adjoint): every fine cell takes its
         parent's value (P0 prolongation). minres-bj has no warm start: it
         solves cold."""
-        if self.solver_cfg.name == "minres-bj":
-            return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
-        with trace.span("darcy.solve", level=level, rows=_rows(w), start="warm"):
-            p0 = torch.index_select(p_coarse, -1, self._parent[level])
-            lam0 = (torch.index_select(lam_c, -1, self._parent[level]) if lam_c is not None
-                    else None)
-            if self._use_spatial(level):
-                return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
-                                           return_adjoint=return_adjoint, max_iters=max_iters)
-            return self._solve_cg_schur(self.levels[level], w, return_pressure, x0=p0,
-                                        lam0=lam0, return_adjoint=return_adjoint,
-                                        max_iters=max_iters)
+        return self._solve_from(level, w, p_coarse, lam_c, return_pressure, return_adjoint,
+                                max_iters, parent=self._parent[level])
 
     def solve_fwd_x0(self, level: int, w: torch.Tensor, p0: torch.Tensor,
                      return_pressure: bool = False, lam0: Optional[torch.Tensor] = None,
@@ -588,9 +561,22 @@ class DarcySolver:
         the reference's API, whose examples continue solves with it; no
         path of this package calls it (MLMCManager runs each pair solve
         composed instead). minres-bj solves cold."""
-        if self.solver_cfg.name == "minres-bj":  # never spatial (_use_spatial)
+        return self._solve_from(level, w, p0, lam0, return_pressure, return_adjoint, max_iters)
+
+    def _solve_from(self, level: int, w: torch.Tensor, p0: torch.Tensor,
+                    lam0: Optional[torch.Tensor], return_pressure: bool, return_adjoint: bool,
+                    max_iters: Optional[int], parent: Optional[torch.Tensor] = None):
+        """The warm-started solve of solve_fwd_warm and solve_fwd_x0, from
+        the physical pressure p0 and adjoint lam0, first prolonged from the
+        coarser level through the parent cell map `parent` when one is
+        given; minres-bj, never spatial (_use_spatial), solves cold."""
+        if self.solver_cfg.name == "minres-bj":
             return self.solve_fwd(level, w, return_pressure=return_pressure, max_iters=max_iters)
         with trace.span("darcy.solve", level=level, rows=_rows(w), start="warm"):
+            if parent is not None:
+                p0 = torch.index_select(p0, -1, parent)
+                if lam0 is not None:
+                    lam0 = torch.index_select(lam0, -1, parent)
             if self._use_spatial(level):
                 return self._solve_spatial(level, w, return_pressure, p0=p0, lam0=lam0,
                                            return_adjoint=return_adjoint, max_iters=max_iters)
@@ -602,33 +588,25 @@ class DarcySolver:
     def _use_spatial(self, level: int) -> bool:
         """Route this level through the spatially sharded solver? The finest
         level only (where a device's memory binds), never under minres-bj."""
-        return (int(getattr(self.solver_cfg, "spatial_shards", 0) or 0) > 1 and level == 0
+        return (self.solver_cfg.spatial_shards > 1 and level == 0
                 and self.solver_cfg.name != "minres-bj")
 
     def _spatial(self, level: int):
         """The SpatialDarcy of this level, built at first use: cg-schur-coefmg
         gets the two-level Schwarz slab coefMG, the other cg-schur variants
-        sqrt(w)-scaled diag(S_bar) Jacobi. Cached on every config field it
-        bakes in, so `solver.solver_cfg = dataclasses.replace(...)` rebuilds
-        it instead of answering with the old settings (the reference's key
-        leaves out coarse_dense_cutoff and mg_coarse_sweeps). A solve's
-        max_iters override reaches the sharded solve without a rebuild."""
+        sqrt(w)-scaled diag(S_bar) Jacobi. Cached on the value of every
+        SolverConfig field, so `solver.solver_cfg = dataclasses.replace(...)`
+        or a field set in place rebuilds it instead of answering with the
+        old settings. A solve's max_iters override reaches the sharded
+        solve without a rebuild. spatial_sample_shards 0 (from the command
+        line) is 1."""
         cfg = self.solver_cfg
-        n_sp = int(cfg.spatial_shards)
-        n_dp = int(getattr(cfg, "spatial_sample_shards", 1) or 1)
-        key = (level, cfg.name, n_sp, n_dp, float(cfg.relative_tolerance),
-               int(cfg.max_iterations), int(getattr(cfg, "restart_every", 50) or 0),
-               getattr(cfg, "coefmg_prec_dtype", ""), int(getattr(cfg, "coefmg_cycles", 1)),
-               int(getattr(cfg, "coefmg_cheby_order", 0)),
-               float(getattr(cfg, "coefmg_cheby_lo", 0.25)), int(getattr(cfg, "coefmg_sweeps", 2)),
-               float(getattr(cfg, "coefmg_omega", 0.8)), getattr(cfg, "coefmg_line_axes", ""),
-               float(getattr(cfg, "coefmg_line_omega", 1.0)),
-               getattr(cfg, "coefmg_coarsen", "galerkin"), int(cfg.coarse_dense_cutoff),
-               int(cfg.mg_coarse_sweeps))
+        key = (level, dataclasses.astuple(cfg))
         if key not in self._spatial_cache:
             from parelagmc_tpu_torch.parallel.spatial_darcy import SpatialDarcy
 
-            self._spatial_cache[key] = SpatialDarcy.from_darcy(self, level, n_sp=n_sp, n_dp=n_dp)
+            self._spatial_cache[key] = SpatialDarcy.from_darcy(
+                self, level, n_sp=cfg.spatial_shards, n_dp=cfg.spatial_sample_shards or 1)
         return self._spatial_cache[key]
 
     def _solve_spatial(self, level: int, w: torch.Tensor, return_pressure: bool, p0=None,
@@ -638,7 +616,7 @@ class DarcySolver:
         its verified exit; with adjoint_qoi rel is the max of the primal and
         adjoint solves', conv their AND and the iterations their sum. `rtol`
         as in solve_fwd: the primal's tolerance for this call."""
-        adjoint = bool(getattr(self.solver_cfg, "adjoint_qoi", False))
+        adjoint = self.solver_cfg.adjoint_qoi
         if return_adjoint and not adjoint:
             raise ValueError("return_adjoint requires config.adjoint_qoi")
         out = self._spatial(level).solve_fwd(
@@ -683,8 +661,7 @@ class DarcySolver:
             pos = diag_w > 0
             dinv0 = torch.where(pos, 1.0 / torch.where(pos, diag_w, torch.ones_like(diag_w)),
                                 torch.zeros_like(diag_w))
-            pdt = _PREC_DTYPES.get(getattr(cfg, "coefmg_prec_dtype", "") or "")
-            nsw = max(1, int(getattr(cfg, "coefmg_sweeps", 2)))
+            nsw, ncyc, pdt = cycle_settings(cfg)
             mg = L.coef_mg
             if isinstance(mg, CoefMG):
                 dinvs = coef_mg_dinvs(mg, dinv0)
@@ -706,7 +683,6 @@ class DarcySolver:
                 # as a CUDA graph on a card from the shape's second solve.
                 cycle = self._vcycle_graphs.cycle(mg, state, nsw, pdt)
                 s_fine = lambda z: struct_s_apply(mg, state, z)
-            ncyc = max(1, int(getattr(cfg, "coefmg_cycles", 1)))
             if ncyc == 1:
                 return cycle
 
@@ -750,8 +726,8 @@ class DarcySolver:
         """The cg-schur family's solve; `rtol` (below the configuration's)
         tightens the primal, or, stacked, both systems."""
         cfg = self.solver_cfg
-        adjoint = bool(getattr(cfg, "adjoint_qoi", False))
-        stacked = adjoint and bool(getattr(cfg, "adjoint_stacked", False))
+        adjoint = cfg.adjoint_qoi
+        stacked = adjoint and cfg.adjoint_stacked
         if return_adjoint and not adjoint:
             raise ValueError("return_adjoint requires config.adjoint_qoi")
         batch = w.shape[:-1]

@@ -168,7 +168,7 @@ def permute_config_axes(cfg: ProblemConfig, order) -> ProblemConfig:
     # coefmg_line_axes letters name PHYSICAL axes; physical axis p lives at
     # new index order.index(p). "auto" and "" pass through.
     solver = cfg.darcy_solver
-    la = (getattr(solver, "coefmg_line_axes", "") or "").strip().lower()
+    la = solver.coefmg_line_axes.strip().lower()
     if la and la != "auto":
         letters = "xyz"[:d]
         bad = sorted(set(c for c in la if c not in letters))

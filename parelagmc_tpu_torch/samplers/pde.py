@@ -125,7 +125,7 @@ class _TensorSPDEBase(MLSampler):
         ]
         # Optional exact marginal normalization (config.normalize_marginals).
         self.field_scale: Optional[List[torch.Tensor]] = None
-        if getattr(config, "normalize_marginals", False):
+        if config.normalize_marginals:
             self.field_scale = [
                 torch.as_tensor(1.0 / tensor_marginal_std(eig, self.g), dtype=dtype,
                                 device=self.device)

@@ -466,7 +466,7 @@ class UnstructuredProjectionSPDESampler(UnstructuredSPDESampler):
         vec = lambda x, dt=dtype: torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=dev)
         self.orig_hierarchy = _as_hierarchy(orig_hierarchy)
         assert self.orig_hierarchy.nlevels == self.hierarchy.nlevels
-        self.projection_order = int(getattr(config, "projection_order", 0))
+        self.projection_order = int(config.projection_order)
         self.G = []
         self.winv_orig = []
         self._cell_verts = []  # order 1: (nc, d+1) vertex gather per level
@@ -759,8 +759,7 @@ class UnstructuredDarcySolver:
         config.max_iterations for this solve. A hybridized level solves
         the multiplier system instead (hybrid_solve), unless x0 or the
         saddle solution is asked for."""
-        mf = (getattr(self.solver_cfg, "meanfield_x0", False)
-              and level not in self._mf_building)
+        mf = self.solver_cfg.meanfield_x0 and level not in self._mf_building
         cfg = self.solver_cfg
         budget = cfg.max_iterations if max_iters is None else int(max_iters)
         if self._hybrid[level] is not None and x0 is None and not return_solution:

@@ -82,8 +82,7 @@ def check_sharding(sharding: Optional[SampleMesh], config, device) -> Optional[S
     Sample sharding does not nest around darcy_solver.spatial_shards."""
     if sharding is None:
         sharding = sample_mesh_from_config(config, device)
-    if sharding is not None and int(
-            getattr(config.darcy_solver, "spatial_shards", 0) or 0) > 1:
+    if sharding is not None and config.darcy_solver.spatial_shards > 1:
         raise ValueError(
             "manager-level sample sharding (SampleMesh) cannot nest around "
             "darcy_solver.spatial_shards; pass sharding=None")
@@ -97,7 +96,7 @@ def level_batches(config, nlevels: int, batch_size: Optional[int],
     multiple of the shard count."""
     batch = int(batch_size if batch_size is not None else config.batch_size)
     level_batch = [batch] * nlevels
-    bpl = getattr(config, "batch_size_per_level", None)
+    bpl = config.batch_size_per_level
     if bpl:
         if len(bpl) != nlevels:
             raise ValueError(
@@ -225,9 +224,9 @@ class MLMCManager:
         """Krylov budget of each pair solve: with split_pair_programs the
         reference's solve_segments bounded executions of max_iterations
         each, run as one solve; None (config.max_iterations) otherwise."""
-        if not getattr(self.config, "split_pair_programs", False):
+        if not self.config.split_pair_programs:
             return None
-        segments = max(1, int(getattr(self.config, "solve_segments", 1)))
+        segments = max(1, self.config.solve_segments)
         return segments * int(self.solver.solver_cfg.max_iterations)
 
     def _prepare_device(self) -> None:

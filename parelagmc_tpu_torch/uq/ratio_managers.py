@@ -132,9 +132,9 @@ class BayesRatioManager:
         """Krylov budget of every solve of a step: with split_pair_programs
         max_iterations * solve_segments (MLMCManager.pair_budget's rule);
         None (config.max_iterations) otherwise."""
-        if not getattr(self.config, "split_pair_programs", False):
+        if not self.config.split_pair_programs:
             return None
-        segments = max(1, int(getattr(self.config, "solve_segments", 1)))
+        segments = max(1, self.config.solve_segments)
         return segments * int(self.problem.solver.solver_cfg.max_iterations)
 
     def _step(self, level: int) -> Callable:

@@ -187,6 +187,40 @@ def test_no_jax_package_import_in_port_sources():
     assert not pat.search("from parelagmc_tpu_torch.fem import x")
 
 
+# getattr calls whose literal name is also a config field, on objects that are
+# not configs (duck typing): (module, name).
+DUCK_TYPED_GETATTR = {("parelagmc_tpu_torch/physics/hybrid.py", "mesh")}
+
+
+def _literal_getattrs(source):
+    """The literal names of every getattr(obj, "<name>", ...) in source."""
+    for node in ast.walk(ast.parse(source)):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "getattr" and len(node.args) >= 2
+                and isinstance(node.args[1], ast.Constant) and isinstance(node.args[1].value, str)):
+            yield node.args[1].value
+
+
+def test_no_getattr_on_the_port_config():
+    """No package module outside examples/ reads a ProblemConfig or
+    SolverConfig field by getattr with a literal name: every field exists
+    (test_problem_config_fields_match_the_jax_package), config.py holds its
+    one default, and a renamed field must fail where it is read."""
+    fields = {f.name for cls in (tconfig.ProblemConfig, tconfig.SolverConfig)
+              for f in dataclasses.fields(cls)}
+    found = set()
+    for path in _program_sources():
+        rel = os.path.relpath(path, REPO)
+        if rel.startswith("parelagmc_tpu_torch/") and not rel.startswith(
+                "parelagmc_tpu_torch/examples/"):
+            with open(path) as fh:
+                found |= {(rel, name) for name in _literal_getattrs(fh.read()) if name in fields}
+    assert found == DUCK_TYPED_GETATTR
+    assert list(_literal_getattrs('x = getattr(cfg.darcy_solver, "coefmg_omega", 0.8)')) == [
+        "coefmg_omega"]
+    assert not list(_literal_getattrs('getattr(self, f"b_mask{a}")'))
+
+
 def test_kernel_sources_ship_with_the_package():
     from parelagmc_tpu_torch import kernels
 

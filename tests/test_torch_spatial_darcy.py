@@ -22,6 +22,7 @@ from parelagmc_tpu.fem.hierarchy import build_geometric_hierarchy_from_fine as j
 from parelagmc_tpu.mesh.factories import make_box_mesh as jax_make_box_mesh
 from parelagmc_tpu.parallel.spatial_darcy import SpatialDarcy as JaxSpatialDarcy
 from parelagmc_tpu.physics.darcy import DarcySolver as JaxDarcySolver
+from parelagmc_tpu_torch.config import SolverConfig
 from parelagmc_tpu_torch.fem import build_geometric_hierarchy
 from parelagmc_tpu_torch.fem.hierarchy import build_geometric_hierarchy_from_fine
 from parelagmc_tpu_torch.mesh import make_box_mesh
@@ -139,8 +140,8 @@ def test_direct_construction_zeroes_essential_rhs():
     rhs[: L.n_u][ess] = 7.5
     sp = SpatialDarcy(hier.levels[0].mesh, solver.level_blocks(0),
                       np.asarray(solver.config.ess_attr[:6]), rhs, to_np(L.obs_func),
-                      solver.sbar_diag_np(0), n_sp=N_SP, dtype=F64, max_iters=4000, rtol=1e-9,
-                      ess=ess, device=CPU)
+                      solver.sbar_diag_np(0), n_sp=N_SP, dtype=F64, ess=ess, device=CPU,
+                      solver_cfg=SolverConfig(max_iterations=4000, relative_tolerance=1e-9))
     w = _fields(hier, 2, 5, 0.3)
     q_ref, _, _ = solver.solve_fwd(0, w)
     q, _, rel, _ = sp.solve_fwd(w)
@@ -241,7 +242,7 @@ def test_slab_coefmg_preconditioner(ncells):
     if ncells == (8, 16, 6):
         solver.solver_cfg.coefmg_prec_dtype = "bfloat16"
         sp16 = SpatialDarcy.from_darcy(solver, 0, n_sp=N_SP)
-        assert sp16.mg_prec_dtype == "bfloat16"
+        assert sp16.cycle.dtype is torch.bfloat16
         q16, it16, _, _ = sp16.solve_fwd(w)
         np.testing.assert_allclose(to_np(q16), to_np(q_ref), rtol=1e-6)
         assert int(it16.max()) <= int(it.max()) * 1.3 + 2
@@ -425,6 +426,98 @@ def test_budget_and_settings_reach_the_sharded_level():
     solver.solver_cfg = dataclasses.replace(solver.solver_cfg, relative_tolerance=1e-4)
     _, _, loose = solver.solve_fwd(0, w)
     assert len(solver._spatial_cache) == 2 and loose.iterations < info.iterations
+
+
+# One non-default value each of two ladder settings and two cycle settings:
+# (value, the StructCoefMG or CycleSettings field it sets, what that reads).
+SETTINGS = {"coefmg_cheby_lo": (0.1, "cheby_lo", 0.1),
+            "mg_coarse_sweeps": (3, "coarse_sweeps", 3),
+            "coefmg_cycles": (2, "cycles", 2),
+            "coefmg_prec_dtype": ("bfloat16", "dtype", torch.bfloat16)}
+
+
+def _coefmg_solver(**setting):
+    """cg-schur-coefmg on (8, 16, 6) with a coarsest size of 64: over two
+    slabs the slab ladder has two levels and hands off to a global one."""
+    cfg, kinv, _ = _coefmg_case((8, 16, 6))
+    cfg.darcy_solver.coarse_dense_cutoff = 64
+    cfg = port_config(cfg)
+    cfg.darcy_solver = dataclasses.replace(cfg.darcy_solver, **setting)
+    hier = build_geometric_hierarchy_from_fine(
+        make_box_mesh((8, 16, 6), spacings=[1.0 / 8, 1.0 / 16, 1.0 / 6]), 1)
+    return hier, DarcySolver(hier, cfg, F64, device=CPU, kinv_ref=kinv)
+
+
+def _ladder(mg):
+    """A StructCoefMG's settings, without its shapes."""
+    return mg._replace(levels=(), face_offsets=())
+
+
+def _shown(field, mg, cycle):
+    """Does the ladder `mg` or the cycle take SETTINGS[field]'s value?"""
+    _, attr, want = SETTINGS[field]
+    return {**mg._asdict(), **cycle._asdict()}[attr] == want
+
+
+def _replicated_cycle(solver, w, monkeypatch):
+    """(sweeps, cycles, state dtype) that the replicated level's
+    preconditioner runs, read off one application."""
+    from parelagmc_tpu_torch.ops.coef_multigrid_structured import CycleSettings
+
+    graphs = solver._vcycle_graphs
+    real, seen = graphs.cycle, []
+
+    def spy(mg, state, sweeps, pdt):
+        run = real(mg, state, sweeps, pdt)
+        return lambda r: seen.append((sweeps, pdt)) or run(r)
+
+    monkeypatch.setattr(graphs, "cycle", spy)
+    L = solver.levels[0]
+    solver._preconditioner(L, w, L.mass_solver.factor(w))(torch.ones_like(w))
+    assert len(set(seen)) == 1
+    return CycleSettings(seen[0][0], len(seen), seen[0][1])
+
+
+@pytest.mark.parametrize("field", SETTINGS)
+def test_the_sharded_level_takes_the_replicated_settings(field, monkeypatch):
+    """With one coefMG setting away from its default, SpatialDarcy.from_darcy
+    builds its slab and global ladders with the replicated level's ladder
+    settings and runs the replicated preconditioner's cycle."""
+    hier, solver = _coefmg_solver(**{field: SETTINGS[field][0]})
+    sp = SpatialDarcy.from_darcy(solver, 0, n_sp=2)
+    assert sp.global_mg is not None
+    want = _ladder(solver.levels[0].coef_mg)
+    assert _ladder(sp.slab_mg) == want and _ladder(sp.global_mg) == want
+    cycle = _replicated_cycle(solver, _fields(hier, 2, 0), monkeypatch)
+    assert sp.cycle == cycle and _shown(field, want, cycle)
+
+
+@pytest.mark.parametrize("field", SETTINGS)
+def test_a_changed_setting_rebuilds_the_sharded_level(field):
+    """Replacing one coefMG setting on solver.solver_cfg builds a new
+    SpatialDarcy with it; putting the old value back finds the first."""
+    _, solver = _coefmg_solver(spatial_shards=2)
+    first = solver._spatial(0)
+    old = dataclasses.replace(solver.solver_cfg)
+    solver.solver_cfg = dataclasses.replace(old, **{field: SETTINGS[field][0]})
+    sp = solver._spatial(0)
+    assert sp is not first and len(solver._spatial_cache) == 2
+    assert _shown(field, sp.slab_mg, sp.cycle) and not _shown(field, first.slab_mg, first.cycle)
+    solver.solver_cfg = old
+    assert solver._spatial(0) is first
+
+
+def test_spatial_sample_shards_zero_is_one():
+    """spatial_sample_shards 0, which the command line's
+    --spatial-sample-shards 0 gives, shards no sample rows."""
+    hier, solver = _build((6, 16, 5), kinv_contrast=50.0)
+    solver.solver_cfg = dataclasses.replace(solver.solver_cfg, spatial_shards=N_SP)
+    w = _fields(hier, 2, 1)
+    q1 = solver.solve_fwd(0, w)[0]
+    solver.solver_cfg = dataclasses.replace(solver.solver_cfg, spatial_sample_shards=0)
+    q0 = solver.solve_fwd(0, w)[0]
+    assert {sp.n_dp for sp in solver._spatial_cache.values()} == {1}
+    assert torch.equal(q0, q1)
 
 
 @pytest.mark.parametrize("dim,R", [(3, 1), (1, 1), (2, 1), (2, 2)],
